@@ -7,7 +7,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
 
 1. prints the device, the card's name and power limit, and the build time;
 2. holds every kernel against its plain PyTorch version on the card
-   (B1 also bitwise against the plain version run on the CPU);
+   (B1 also bitwise against the plain version run on the CPU; the threefry
+   bits of B4/B5 bitwise against the plain version on the card and on the
+   CPU, and their Gaussians within ULP_BOUND f32 ulps of both);
 3. drives the main path, paper Algorithm 1 through ``lstsq(...,
    method="saa")``, at the paper's size (m = 2^20, n = 1000, κ = 1e10, f64);
 4. the fused factor route (``fused=True``, kernel B3);
@@ -16,14 +18,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
 7. the tsqr CholeskyQR path (kernel B2) on the main path's sketch, and
    per-kernel times at the main path's shapes beside their bounds, their
    plain versions and a one-call library yardstick.  Phase 7 runs right
-   after phase 4, on the main path's problem, before that is freed.
+   after phase 4, on the main path's problem, before that is freed;
+8. the dense-sketch paths at m = 2^16, n = 1000, κ = 1e10: ``sketch=
+   "gaussian"`` (B4) and ``"uniform_dense"`` (B6), each also with
+   ``fused=True`` (B5, B7), one uniform-dense ``precision="mixed"`` run
+   at κ = 1e4 (B6 on bf16), warm wall times beside the CountSketch solve
+   at the same size, and the times of B4–B7 at those shapes.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels, draws the
 main problem and traces one warm plain and one warm fused solve with
 ``torch.profiler``: device time by kernel and the device's busy share of
 the wall time (the breakdown in PERF.md).  Then it times the warm main
-solve at the paper's size and at a smaller, host-bound size.  It prints no
-result line.
+solve at the paper's size and at a smaller, host-bound size, and traces
+one warm Gaussian and one warm uniform-dense solve at m = 2^16.  It prints
+no result line.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after.  TF32 is off for matmuls and cuDNN, so f32 products run in
@@ -48,6 +56,14 @@ PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 
 M_MAIN, N_MAIN = 2**20, 1000
 COND, BETA = 1e10, 1e-10
+# The dense sketches cost 2·d·m·n operations per apply, m/n times a
+# CountSketch apply's reads: their paths run at m = 2^16, a point of the
+# paper's own m sweep at n = 1000 (PERF.md, section 4).
+M_DENSE = 2**16
+# Largest gap, in f32 ulps, allowed between the Gaussians the kernels
+# generate and those of the plain versions (on the card and on the CPU).
+# The plain version on the CPU is within 3 ulps of the reference's.
+ULP_BOUND = 3
 
 
 def _p(*args):
@@ -83,6 +99,21 @@ def _event_ms(torch, fn, reps=5):
 def _gamma(torch, k, dtype):
     u = torch.finfo(dtype).eps / 2
     return k * u / (1 - k * u)
+
+
+def _ulps(torch, x, y):
+    """Largest gap between two f32 tensors in ulps (IEEE order)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(2**31) - i, i)
+    return int((ordered(x.cpu()) - ordered(y.cpu())).abs().max())
+
+
+def _bound(ops, nbytes):
+    """The least time (ms) of a call and what bounds it: ``ops`` f64
+    operations at the FP64 peak, or ``nbytes`` at the HBM rate."""
+    t_ops, t_bytes = ops / PEAK_FLOPS["float64"], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def _check_gram(torch, G, G_ref, B, what):
@@ -121,6 +152,7 @@ def main() -> int:
         saa_sas,
     )
     from repro_torch.kernels import (
+        KERNELS,
         MAX_FUSED_COLS,
         _build,
         countsketch_apply,
@@ -128,11 +160,24 @@ def main() -> int:
         countsketch_gram,
         countsketch_gram_ref,
         countsketch_ref,
+        fused_gaussian_ref,
+        fused_gaussian_sketch,
+        gaussian_gram,
+        gaussian_gram_ref,
+        gaussian_matrix_ref,
+        key_to_u32,
+        matmul_gram,
+        matmul_gram_ref,
         panel_gram,
         panel_gram_ref,
         reset_launches,
+        sketch_matmul,
+        sketch_matmul_ref,
+        threefry2x32,
+        threefry_bits,
         tsqr,
     )
+    from repro_torch.kernels.sketch_matmul import default_scale
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -160,7 +205,7 @@ def main() -> int:
         """|S||A| in f64 — the scale of each output's rounding error."""
         return countsketch_ref(A.abs().to(torch.float64), h, torch.ones_like(h, dtype=torch.float64), d)
 
-    errs = {"countsketch_apply": 0.0, "panel_gram": 0.0, "countsketch_gram": 0.0}
+    errs = {f.__name__: 0.0 for f in KERNELS}
 
     # ---- phase 2: every kernel against its plain version ------------------
     # B1: bitwise against the plain version on the CPU (same summation
@@ -221,8 +266,102 @@ def main() -> int:
         errs["countsketch_gram"] = max(errs["countsketch_gram"], err)
         _p(f"phase 2: B3 countsketch_gram {str(dtype)[6:]} A({m}, {n}) d={d}: B bitwise = CPU "
            f"plain; G max|Δ| vs plain Gram {err:.3e} (tol 2γ_d|B|ᵀ|B|), exactly symmetric")
-    _p(f"phase 2: kernels {json.dumps({k: {'launches': f.launches, 'match': True} for k, f in [('countsketch_apply', countsketch_apply), ('panel_gram', panel_gram), ('countsketch_gram', countsketch_gram)]})}")
-    del A, h, s, B, G, B_cpu, out, cpu, card
+    # B4/B5's generator.  The raw threefry bits of the device function both
+    # kernels call are bitwise the plain int64 threefry on the card and on
+    # the CPU (a tile across the 2^31 and 2^32 - 1 counters included).  The
+    # Gaussians are those the kernel itself generates: B4 on an identity A
+    # with scale 1 returns its G exactly (one nonzero product per output),
+    # held within ULP_BOUND f32 ulps of the plain versions.
+    key = key_to_u32(gen)
+    for row0, col0, rows, cols in [(0, 0, 300, 700), (3999, 2**31 - 100, 7, 300),
+                                   (0, 2**32 - 50, 64, 50)]:
+        b0, b1 = threefry_bits(key, row0, col0, rows, cols, dev)
+        r = torch.arange(row0, row0 + rows, dtype=torch.int64)[:, None].expand(rows, cols)
+        c = torch.arange(col0, col0 + cols, dtype=torch.int64)[None, :].expand(rows, cols)
+        cpu0, cpu1 = threefry2x32(*key, r, c)
+        card0, card1 = threefry2x32(*key, r.to(dev), c.to(dev))
+        if not (torch.equal(b0.cpu(), cpu0) and torch.equal(b1.cpu(), cpu1)
+                and torch.equal(b0, card0) and torch.equal(b1, card1)):
+            raise AssertionError(f"threefry bits of tile ({row0}, {col0}) differ from the plain version")
+    _p("phase 2: B4/B5 threefry bits (3 tiles): bitwise = plain on the card and on the CPU")
+
+    def kernel_S(d, m, dtype):
+        """The S kernel B4 generates for (d, m): its unscaled G from an
+        identity A, then the kernel's f32 scale and cast."""
+        G = fused_gaussian_sketch(torch.eye(m, dtype=torch.float32, device=dev), key, d, scale=1.0)
+        return G, (G * default_scale(d)).to(dtype)
+
+    d_g, m_g = 300, 700
+    G_k, _ = kernel_S(d_g, m_g, torch.float32)
+    u_card = _ulps(torch, G_k, gaussian_matrix_ref(*key, d_g, m_g, device=dev))
+    u_cpu = _ulps(torch, G_k, gaussian_matrix_ref(*key, d_g, m_g))
+    if max(u_card, u_cpu) > ULP_BOUND:
+        raise AssertionError(f"B4 Gaussians {u_card} (card) / {u_cpu} (CPU) ulps off the plain version")
+    e5 = torch.zeros(m_g, dtype=torch.float32, device=dev)
+    e5[5] = 1
+    eye64 = torch.eye(m_g, dtype=torch.float64, device=dev)
+    B5_eye, _ = gaussian_gram(torch.eye(m_g, dtype=torch.float32, device=dev), key, d_g, scale=1.0)
+    if not (torch.equal(fused_gaussian_sketch(e5, key, d_g, scale=1.0), G_k[:, 5])
+            and torch.equal(fused_gaussian_sketch(eye64, key, d_g, scale=1.0), G_k.double())
+            and torch.equal(B5_eye, G_k)):
+        raise AssertionError("B4's vector or f64 route, or B5, generated another G than B4's tile route")
+    _p(f"phase 2: B4/B5 Gaussians G({d_g}, {m_g}): {u_card} ulps from the card's plain version, "
+       f"{u_cpu} from the CPU's (bound {ULP_BOUND}); vector, f64 and B5 routes bitwise the same G")
+
+    # B4 and B6: within 2·γ_m·(|S||A|) of the plain product on the card, with
+    # B4's plain product taken on the S the kernel generated (held to the
+    # plain Gaussians above), so the bound is the sums' alone.
+    def check_product(name, out, plain, S, A, m):
+        mag = S.abs().to(torch.float64) @ A.abs().to(torch.float64).reshape(m, -1)
+        err = (out.to(torch.float64) - plain.to(torch.float64)).abs()
+        tol = 2 * _gamma(torch, m, out.dtype) * mag.reshape(out.shape)
+        if out.dtype != plain.dtype or out.shape != plain.shape or not bool((err <= tol).all()):
+            raise AssertionError(f"{name}: max|Δ| {float(err.max())} ({out.dtype} {tuple(out.shape)} "
+                                 f"vs {plain.dtype} {tuple(plain.shape)})")
+        return float(err.max())
+
+    for m, tail, d, dtype in [
+        (4096, (64,), 256, torch.float64), (4096, (64,), 256, torch.float32),
+        (4096, (), 256, torch.float64), (4096, (), 256, torch.float32),
+        (1000, (5,), 300, torch.float64), (777, (1,), 300, torch.float32),
+        (4096, (33,), 100, torch.bfloat16), (3000, (), 11, torch.bfloat16),
+        (1000, (5,), 37, torch.float16), (8192, (MAX_FUSED_COLS,), 2500, torch.float64),
+    ]:
+        A = torch.randn((m,) + tail, generator=gen, dtype=torch.float64, device=dev).to(dtype)
+        _, S_k = kernel_S(d, m, dtype)
+        out = fused_gaussian_sketch(A, key, d)
+        err = check_product(f"B4 {dtype} A{tuple(A.shape)} d={d}", out, sketch_matmul_ref(S_k, A), S_k, A, m)
+        errs["fused_gaussian_sketch"] = max(errs["fused_gaussian_sketch"], err)
+        S = torch.randn((d, m), generator=gen, dtype=torch.float64, device=dev).to(dtype)
+        err6 = check_product(f"B6 {dtype} A{tuple(A.shape)} d={d}", sketch_matmul(S, A),
+                             sketch_matmul_ref(S, A), S, A, m)
+        errs["sketch_matmul"] = max(errs["sketch_matmul"], err6)
+        _p(f"phase 2: B4 fused_gaussian_sketch / B6 sketch_matmul {str(dtype)[6:]} A{tuple(A.shape)} "
+           f"d={d}: max|Δ| vs card plain {err:.3e} / {err6:.3e} (tol 2γ_m|S||A|)")
+
+    # B5 and B7: B bitwise B4's or B6's output on the same inputs; G exactly
+    # symmetric and within 2·γ_d·(|B|ᵀ|B|) of the plain Gram of that B.
+    for m, n, d, dtype in [
+        (4096, 64, 256, torch.float64), (1000, 1, 37, torch.float64),
+        (1500, 130, 200, torch.float32), (4096, 64, 256, torch.bfloat16),
+        (8192, MAX_FUSED_COLS, 2500, torch.float64),
+    ]:
+        A = torch.randn((m, n), generator=gen, dtype=torch.float64, device=dev).to(dtype)
+        S = torch.randn((d, m), generator=gen, dtype=torch.float64, device=dev).to(dtype)
+        for name, (B, G), B_ref in [
+            ("gaussian_gram", gaussian_gram(A, key, d), fused_gaussian_sketch(A, key, d)),
+            ("matmul_gram", matmul_gram(S, A), sketch_matmul(S, A)),
+        ]:
+            if not torch.equal(B, B_ref):
+                raise AssertionError(f"{name} {dtype} A({m}, {n}) d={d}: B differs from the unfused kernel's")
+            err = _check_gram(torch, G, panel_gram_ref(B), B, f"{name} {dtype} A({m}, {n}) d={d}")
+            errs[name] = max(errs[name], err)
+            _p(f"phase 2: {name} {str(dtype)[6:]} A({m}, {n}) d={d}: B bitwise = unfused kernel; "
+               f"G max|Δ| vs plain Gram {err:.3e} (tol 2γ_d|B|ᵀ|B|), exactly symmetric")
+    _p(f"phase 2: kernels {json.dumps({f.__name__: {'launches': f.launches, 'match': True} for f in KERNELS})}")
+    del A, S, B, G, B_ref, S_k, G_k, out, B5_eye, eye64, e5, b0, b1, card0, card1
+    del h, s, B_cpu, cpu, card
+    torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at the paper's size -----------------------
     prob, t_gen = _sync_time(torch, lambda: generate_problem(
@@ -237,7 +376,7 @@ def main() -> int:
         reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        paths[name] = {f.__name__: f.launches for f in (countsketch_apply, panel_gram, countsketch_gram)}
+        paths[name] = {f.__name__: f.launches for f in KERNELS}
         return out
 
     res = run_path("main", lambda: lstsq(A, b, gen, method="saa"))
@@ -299,8 +438,7 @@ def main() -> int:
     )
     del A_signed, out_lib
     bytes1 = M_MAIN * N_MAIN * esz + M_MAIN * (4 + esz) + d * N_MAIN * esz
-    t1["bound_ms"] = max(bytes1 / PEAK_BYTES_PER_S, M_MAIN * N_MAIN / PEAK_FLOPS["float64"]) * 1e3
-    t1["bound_by"] = "bytes" if bytes1 / PEAK_BYTES_PER_S >= M_MAIN * N_MAIN / PEAK_FLOPS["float64"] else "operations"
+    t1["bound_ms"], t1["bound_by"] = _bound(M_MAIN * N_MAIN, bytes1)
     t1["vec_ms"] = _event_ms(torch, lambda: countsketch_apply(b, h, s, d, csr=csr))
 
     # ---- phase 7b: the tsqr CholeskyQR path (B2) on the main path's sketch
@@ -320,8 +458,7 @@ def main() -> int:
     )
     ops2 = d * N_MAIN * (N_MAIN + 1)  # flops of the n(n+1)/2 distinct entries
     bytes2 = (d * N_MAIN + N_MAIN * N_MAIN) * esz
-    t2["bound_ms"] = max(bytes2 / PEAK_BYTES_PER_S, ops2 / PEAK_FLOPS["float64"]) * 1e3
-    t2["bound_by"] = "operations" if ops2 / PEAK_FLOPS["float64"] >= bytes2 / PEAK_BYTES_PER_S else "bytes"
+    t2["bound_ms"], t2["bound_by"] = _bound(ops2, bytes2)
 
     B3, G3 = countsketch_gram(A, h, s, d, csr=csr)
     if not torch.equal(B3, SA):
@@ -336,8 +473,7 @@ def main() -> int:
         library_ms=None,
     )
     bytes3 = bytes1 + N_MAIN * N_MAIN * esz
-    t3["bound_ms"] = max(bytes3 / PEAK_BYTES_PER_S, (M_MAIN * N_MAIN + ops2) / PEAK_FLOPS["float64"]) * 1e3
-    t3["bound_by"] = "bytes" if bytes3 / PEAK_BYTES_PER_S >= (M_MAIN * N_MAIN + ops2) / PEAK_FLOPS["float64"] else "operations"
+    t3["bound_ms"], t3["bound_by"] = _bound(M_MAIN * N_MAIN + ops2, bytes3)
     _p(f"phase 7: B1 {t1}; B2 {t2}; B3 {t3} (ms; f64, m=2^20, n=1000, d=4000; card: {smi})")
     del SA, Sb, Q2, R2, G_ref, csr, h, s, res, res_f, A_f
     del prob, A, b, x_true
@@ -373,15 +509,146 @@ def main() -> int:
     _p(f"phase 6: B1 ran on bf16 input; peak device memory "
        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
-    rows = []
-    for name, src, replaces, path, t, err in [
-        ("countsketch_apply", "src/repro_torch/csrc/countsketch.cuh",
-         "src/repro/kernels/countsketch/kernel.py:27", "main", t1, err1),
-        ("panel_gram", "src/repro_torch/csrc/gram.cuh",
-         "src/repro/kernels/tsqr/kernel.py:51", "tsqr_cholqr", t2, err2),
-        ("countsketch_gram", "src/repro_torch/csrc/countsketch_gram.cu",
-         "src/repro/kernels/tsqr/kernel.py:68", "fused", t3, err3),
+    # ---- phase 8: the dense-sketch paths at m = 2^16 ----------------------
+    p8 = generate_problem(gen, M_DENSE, N_MAIN, cond=COND, beta=BETA, device=dev)
+    A8, b8 = p8.A, p8.b
+    e_qr8 = _rel(qr_solve(A8, b8), p8.x_true)
+    walls = {}
+    for name, kw, kernel, unfused in [
+        ("gaussian", dict(sketch="gaussian"), "fused_gaussian_sketch", None),
+        ("gaussian_fused", dict(sketch="gaussian", fused=True), "gaussian_gram", "fused_gaussian_sketch"),
+        ("uniform_dense", dict(sketch="uniform_dense"), "sketch_matmul", None),
+        ("uniform_dense_fused", dict(sketch="uniform_dense", fused=True), "matmul_gram", "sketch_matmul"),
     ]:
+        res8 = run_path(name, lambda: lstsq(A8, b8, gen, method="saa", **kw))
+        e8 = _rel(res8.x, p8.x_true)
+        _p(f"phase 8: lstsq(method='saa', {', '.join(f'{k}={v!r}' for k, v in kw.items())}) m=2^16: "
+           f"itn {int(res8.itn)} istop {int(res8.istop)} used_fallback {bool(res8.used_fallback)} "
+           f"rel.err {e8:.3e}; qr_solve rel.err {e_qr8:.3e}; launches {paths[name]}")
+        if not (e8 < 1e-5 and e8 <= 100 * max(e_qr8, 1e-12)):
+            raise AssertionError(f"{name} path: rel.err {e8} (qr_solve {e_qr8})")
+        # the unfused route sketches A and b with one kernel; the fused one
+        # sketches A with the fused kernel and b with the unfused kernel
+        if paths[name][kernel] < (1 if unfused else 2) or (unfused and paths[name][unfused] < 1):
+            raise AssertionError(f"{name} path did not launch its kernels: {paths[name]}")
+        _, walls[name] = _sync_time(torch, lambda: lstsq(A8, b8, gen, method="saa", **kw))
+    lstsq(A8, b8, gen, method="saa")  # warm-up of the CountSketch solve at this size
+    _, walls["countsketch"] = _sync_time(torch, lambda: lstsq(A8, b8, gen, method="saa"))
+    _p(f"phase 8: warm wall time at m=2^16, n=1000 (s): {json.dumps(walls)}")
+    del res8
+
+    # The kernels at the dense paths' shapes: A (2^16, 1000) f64, d = 4000.
+    # B4 is held to its plain version on the card, whose S may differ from
+    # the kernel's by ULP_BOUND f32 ulps and one more for the scale's
+    # rounding; B6 to the plain product of the same S.
+    d8 = 4000  # default_sketch_size(1000, 2^16)
+    key8 = key_to_u32(gen)
+    S_g = gaussian_matrix_ref(*key8, d8, M_DENSE, device=dev).mul_(default_scale(d8)).double()
+    S_u = torch.empty((d8, M_DENSE), dtype=torch.float64, device=dev).uniform_(
+        -(3 / d8) ** 0.5, (3 / d8) ** 0.5, generator=gen)
+    ab8 = torch.cat([A8, b8[:, None]], dim=1).abs()
+    slack = (ULP_BOUND + 1) * 2.0**-23
+    for name, out, plain, S, rel in [
+        ("fused_gaussian_sketch", fused_gaussian_sketch(A8, key8, d8), fused_gaussian_ref(A8, key8, d8), S_g, slack),
+        ("fused_gaussian_sketch", fused_gaussian_sketch(b8, key8, d8)[:, None],
+         fused_gaussian_ref(b8, key8, d8)[:, None], S_g, slack),
+        ("sketch_matmul", sketch_matmul(S_u, A8), sketch_matmul_ref(S_u, A8), S_u, 0.0),
+        ("sketch_matmul", sketch_matmul(S_u, b8)[:, None], sketch_matmul_ref(S_u, b8)[:, None], S_u, 0.0),
+    ]:
+        cols = slice(0, N_MAIN) if out.shape[1] == N_MAIN else slice(N_MAIN, N_MAIN + 1)
+        err = (out - plain).abs()
+        tol = (2 * _gamma(torch, M_DENSE, torch.float64) + rel) * (S.abs() @ ab8[:, cols])
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"{name} at the dense paths' shape {tuple(out.shape)}: max|Δ| {float(err.max())}")
+        errs[name] = max(errs[name], float(err.max()))
+    del ab8, out, plain, err, tol
+    B4 = fused_gaussian_sketch(A8, key8, d8)
+    B6 = sketch_matmul(S_u, A8)
+    for name, (B, G), B_ref in [
+        ("gaussian_gram", gaussian_gram(A8, key8, d8), B4),
+        ("matmul_gram", matmul_gram(S_u, A8), B6),
+    ]:
+        if not torch.equal(B, B_ref):
+            raise AssertionError(f"{name} at A(2^16, 1000) d=4000: B differs from the unfused kernel's")
+        errs[name] = max(errs[name], _check_gram(torch, G, panel_gram_ref(B), B, f"{name} at A(2^16, 1000)"))
+    del B4, B6, B, G, B_ref
+    _p(f"phase 8: B4–B7 at A(2^16, 1000) d=4000 against their plain versions: max|Δ| "
+       f"{json.dumps({k: errs[k] for k in ('fused_gaussian_sketch', 'gaussian_gram', 'sketch_matmul', 'matmul_gram')})}"
+       f"; B5/B7's B bitwise = B4/B6's")
+
+    ops_p = 2 * d8 * M_DENSE * N_MAIN  # the product S·A
+    ops_g = d8 * N_MAIN * (N_MAIN + 1)  # the n(n+1)/2 distinct Gram entries
+    bytes_a, bytes_s, bytes_b, bytes_g = (x * 8 for x in (M_DENSE * N_MAIN, d8 * M_DENSE, d8 * N_MAIN,
+                                                          N_MAIN * N_MAIN))
+    t_dense = {}
+    for name, fn, plain, library, ops, nbytes in [
+        ("fused_gaussian_sketch", lambda: fused_gaussian_sketch(A8, key8, d8),
+         lambda: fused_gaussian_ref(A8, key8, d8), lambda: S_g @ A8, ops_p, bytes_a + bytes_b),
+        ("gaussian_gram", lambda: gaussian_gram(A8, key8, d8), lambda: gaussian_gram_ref(A8, key8, d8),
+         None, ops_p + ops_g, bytes_a + bytes_b + bytes_g),
+        ("sketch_matmul", lambda: sketch_matmul(S_u, A8), lambda: sketch_matmul_ref(S_u, A8),
+         lambda: S_u @ A8, ops_p, bytes_s + bytes_a + bytes_b),
+        ("matmul_gram", lambda: matmul_gram(S_u, A8), lambda: matmul_gram_ref(S_u, A8),
+         None, ops_p + ops_g, bytes_s + bytes_a + bytes_b + bytes_g),
+    ]:
+        bound_ms, bound_by = _bound(ops, nbytes)
+        t_dense[name] = dict(
+            ms=_event_ms(torch, fn), plain_ms=_event_ms(torch, plain),
+            library_ms=None if library is None else _event_ms(torch, library),
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+    t_dense["fused_gaussian_sketch"]["vec_ms"] = _event_ms(torch, lambda: fused_gaussian_sketch(b8, key8, d8))
+    t_dense["sketch_matmul"]["vec_ms"] = _event_ms(torch, lambda: sketch_matmul(S_u, b8))
+    _p(f"phase 8: kernel times (ms; f64, m=2^16, n=1000, d=4000; B4's library_ms is S @ A on an S "
+       f"generated beforehand, the product half only; card: {smi}): {json.dumps(t_dense)}")
+    del S_g, S_u, p8, A8, b8
+    torch.cuda.empty_cache()
+
+    # The mixed uniform-dense run: B6 on bf16 A, at κ = 1e4.  The bf16
+    # rounding of A (‖E‖ ≈ 1.5e-4 against σ_min = 1e-4) leaves Y with κ of a
+    # few units, so LSQR needs close to 100 iterations to its step floor
+    # (PERF.md; phase 6 runs 98 at m = 2^20).  iter_lim=200 keeps the run on
+    # plain Algorithm 1 instead of at the edge of the default 100, and the
+    # checks below still fail on any fallback or iteration-limit stop.
+    p9 = generate_problem(gen, M_DENSE, N_MAIN, cond=1e4, beta=BETA, device=dev)
+    kw9 = dict(method="saa", sketch="uniform_dense", precision="mixed", iter_lim=200)
+    res9 = run_path("uniform_dense_mixed", lambda: lstsq(p9.A, p9.b, gen, **kw9))
+    e9 = _rel(res9.x, p9.x_true)
+    _p(f"phase 8: lstsq(sketch='uniform_dense', precision='mixed') cond=1e4 m=2^16: itn {int(res9.itn)} "
+       f"istop {int(res9.istop)} used_fallback {bool(res9.used_fallback)} rel.err {e9:.3e}; "
+       f"launches {paths['uniform_dense_mixed']}")
+    if not e9 < 1e-5 or paths["uniform_dense_mixed"]["sketch_matmul"] < 2:
+        raise AssertionError("mixed uniform-dense path failed")
+    if bool(res9.used_fallback) or int(res9.istop) == 7:
+        raise AssertionError("mixed uniform-dense run hit its iteration limit or took the fallback")
+    _, walls["uniform_dense_mixed"] = _sync_time(torch, lambda: lstsq(p9.A, p9.b, gen, **kw9))
+    _, op9, B9 = SketchedFactor.build_full(p9.A, gen, sketch="uniform_dense", precision="mixed")
+    if not torch.equal(B9, sketch_matmul(op9.S, p9.A.to(torch.bfloat16)).to(B9.dtype)):
+        raise AssertionError("mixed precision did not feed bf16 to B6")
+    _p(f"phase 8: B6 ran on bf16 input (B bitwise B6 on bf16 A); warm wall {walls['uniform_dense_mixed']:.3f} s")
+    del p9, res9, op9, B9
+    torch.cuda.empty_cache()
+
+    # Every kernel of KERNELS: its source, the TPU kernel it replaces, the
+    # path whose launches it reports, and its times.
+    table = {
+        "countsketch_apply": ("countsketch.cuh", "countsketch/kernel.py:27", "main", t1, err1),
+        "panel_gram": ("gram.cuh", "tsqr/kernel.py:51", "tsqr_cholqr", t2, err2),
+        "countsketch_gram": ("countsketch_gram.cu", "tsqr/kernel.py:68", "fused", t3, err3),
+        "fused_gaussian_sketch": ("dense_sketch.cuh", "sketch_matmul/kernel.py:40", "gaussian",
+                                  t_dense["fused_gaussian_sketch"], 0.0),
+        "gaussian_gram": ("gaussian_gram.cu", "tsqr/kernel.py:131", "gaussian_fused",
+                          t_dense["gaussian_gram"], 0.0),
+        "sketch_matmul": ("dense_sketch.cuh", "sketch_matmul/kernel.py:27", "uniform_dense",
+                          t_dense["sketch_matmul"], 0.0),
+        "matmul_gram": ("matmul_gram.cu", "tsqr/kernel.py:101", "uniform_dense_fused",
+                        t_dense["matmul_gram"], 0.0),
+    }
+    rows = []
+    for f in KERNELS:
+        name = f.__name__
+        src, replaces, path, t, err = table[name]
+        src, replaces = f"src/repro_torch/csrc/{src}", f"src/repro/kernels/{replaces}"
         launches = paths[path][name]
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
@@ -398,35 +665,40 @@ def main() -> int:
     return 0
 
 
-def _profile(torch, dev, generate_problem, lstsq) -> int:
-    """Device time by kernel for one warm plain and one warm fused solve."""
+def _trace(torch, label, fn):
+    """Device time by kernel, and the device's busy share, of one warm call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []  # device kernels and copies only: operator rows repeat their time
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    _p(f"profile {label}: wall {wall:.4f} s, device busy {busy:.4f} s "
+       f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
+    for dev_us, count, key in rows[:15]:
+        _p(f"profile {label}: {dev_us / 1e3:10.3f} ms {count:6d}x  {key[:110]}")
+
+
+def _profile(torch, dev, generate_problem, lstsq) -> int:
+    """Device time by kernel for one warm plain and one warm fused solve."""
     gen = torch.Generator(device=dev).manual_seed(0)
     prob = generate_problem(gen, M_MAIN, N_MAIN, cond=COND, beta=BETA, device=dev)
     for fused in (False, True):
-        lstsq(prob.A, prob.b, gen, method="saa", fused=fused)  # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            lstsq(prob.A, prob.b, gen, method="saa", fused=fused)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = []  # device kernels and copies only: operator rows repeat their time
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = e.self_cuda_time_total
-            rows.append((dev_us, e.count, e.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows) / 1e6
-        _p(f"profile fused={fused}: wall {wall:.4f} s, device busy {busy:.4f} s "
-           f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
-        for dev_us, count, key in rows[:15]:
-            _p(f"profile fused={fused}: {dev_us / 1e3:10.3f} ms {count:6d}x  {key[:110]}")
+        _trace(torch, f"fused={fused}", lambda: lstsq(prob.A, prob.b, gen, method="saa", fused=fused))
 
     # Warm wall time of the main solve, on the same sketch each time, at the
     # paper's size and at a size where the host's launches bound the solve.
@@ -440,6 +712,12 @@ def _profile(torch, dev, generate_problem, lstsq) -> int:
         walls = sorted(walls[1:])
         _p(f"solve m={m} n={n}: itn {int(res.itn)} istop {int(res.istop)} "
            f"warm wall min {walls[0]:.4f} s median {walls[2]:.4f} s max {walls[-1]:.4f} s")
+
+    # The dense-sketch solves at m = 2^16 (phase 8's size).
+    del prob
+    p = generate_problem(gen, M_DENSE, N_MAIN, cond=COND, beta=BETA, device=dev)
+    for sketch in ("gaussian", "uniform_dense", "clarkson_woodruff"):
+        _trace(torch, f"m=2^16 sketch={sketch}", lambda: lstsq(p.A, p.b, gen, method="saa", sketch=sketch))
     return 0
 
 

@@ -14,9 +14,15 @@ import torch
 
 from .core.backend import as_tensor, resolve_device
 from .core.problems import Problem
-from .core.sketch import CountSketch
+from .core.sketch import CountSketch, GaussianSketch, UniformDenseSketch
+from .kernels.common import key_to_u32
 
-__all__ = ["countsketch_from_reference", "problem_from_reference"]
+__all__ = [
+    "countsketch_from_reference",
+    "gaussian_from_reference",
+    "uniform_dense_from_reference",
+    "problem_from_reference",
+]
 
 
 def countsketch_from_reference(buckets, signs, d: int, *, device=None) -> CountSketch:
@@ -35,6 +41,26 @@ def countsketch_from_reference(buckets, signs, d: int, *, device=None) -> CountS
         d=int(d),
         m=int(buckets.shape[0]),
     )
+
+
+def gaussian_from_reference(key_data, d: int, m: int, S=None, *, device=None) -> GaussianSketch:
+    """The port's ``GaussianSketch`` for a reference operator: ``key_data``
+    is ``np.asarray(jax.random.key_data(op.key))`` (two uint32 words) and
+    ``S`` its stored matrix, or None for an unmaterialized operator."""
+    dev = resolve_device(device)
+    if S is not None:
+        S = as_tensor(S, dev)
+        if S.shape != (d, m):
+            raise ValueError(f"S is {S.shape}, expected {(d, m)}")
+    return GaussianSketch(S=S, key=key_to_u32(key_data), d=int(d), m=int(m), dev=dev)
+
+
+def uniform_dense_from_reference(S, *, device=None) -> UniformDenseSketch:
+    """The port's ``UniformDenseSketch`` holding a reference operator's S."""
+    S = as_tensor(S, resolve_device(device))
+    if S.ndim != 2:
+        raise ValueError(f"S must be 2-D, got shape {tuple(S.shape)}")
+    return UniformDenseSketch(S=S, d=int(S.shape[0]), m=int(S.shape[1]))
 
 
 def problem_from_reference(A, b, x_true, r_true, cond, beta, *, device=None) -> Problem:

@@ -1,13 +1,15 @@
 """The port of ``repro.core``: sketch-and-solve least squares in PyTorch.
 
-This slice holds paper Algorithm 1 on dense inputs with the CountSketch:
+This port holds paper Algorithm 1 on dense inputs with the CountSketch,
+Gaussian and uniform-dense sketches:
 
 - ``backend``  — kernel/reference backend, precision and device policy
 - ``result``   — the unified ``SolveResult``
 - ``linop``    — ``LinearOperator`` protocol, ``DenseOperator``
 - ``direct``   — QR/SVD/normal-equations ground truth
 - ``problems`` — §5.1 ill-conditioned problem generator
-- ``sketch``   — ``CountSketch`` (kernel B1)
+- ``sketch``   — ``CountSketch`` (kernel B1), ``GaussianSketch`` (B4),
+  ``UniformDenseSketch`` (B6)
 - ``lsqr``     — LSQR with a windowed stop check
 - ``precond``  — the shared sketched-QR factor
 - ``saa``      — SAA-SAS, Algorithm 1, with its perturbation fallback
@@ -25,7 +27,13 @@ from .precond import SketchedFactor, default_sketch_size, distortion
 from .problems import Problem, generate as generate_problem
 from .result import SolveResult
 from .saa import saa_sas
-from .sketch import SKETCH_KINDS, CountSketch, sample as sample_sketch
+from .sketch import (
+    SKETCH_KINDS,
+    CountSketch,
+    GaussianSketch,
+    UniformDenseSketch,
+    sample as sample_sketch,
+)
 
 __all__ = [
     "backend", "direct", "linop", "lsqr", "precond", "problems", "result",
@@ -41,5 +49,6 @@ __all__ = [
     "Problem", "generate_problem",
     "SolveResult",
     "saa_sas",
-    "SKETCH_KINDS", "CountSketch", "sample_sketch",
+    "SKETCH_KINDS", "CountSketch", "GaussianSketch", "UniformDenseSketch",
+    "sample_sketch",
 ]

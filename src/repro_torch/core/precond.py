@@ -8,8 +8,9 @@ coordinate change back to x-space (x = R⁻¹ z).
 ``SketchedFactor.build`` accepts, as ``sketch=``, either a kind name (the
 operator is drawn from the generator) or an already-drawn operator.  The
 second form is the carry-across hook: a test draws S with the reference
-package, converts it with ``repro_torch.convert.countsketch_from_reference``
-and runs both packages on the same S.
+package, converts it with ``repro_torch.convert`` (``countsketch_from_reference``,
+``gaussian_from_reference``, ``uniform_dense_from_reference``) and runs
+both packages on the same S.
 
 ``extend`` and ``build_streaming`` arrive with ROADMAP A6 and A9, the
 tracing spans with A4.
@@ -75,12 +76,20 @@ def _solve_upper(R, Z):
 
 def _operator_for(op, A, sketch_size, key):
     """The sketch operator: drawn from ``key`` for a kind name, or the
-    already-drawn operator passed as ``sketch=`` (checked against A)."""
+    already-drawn operator passed as ``sketch=`` (checked against A).
+
+    A Gaussian sketch on a CUDA device is drawn with ``materialize=False``:
+    kernel B4 regenerates S inside the kernel from the key alone, so a
+    stored S (2.1 GB in f64 at d = 4000, m = 2^16) would never be read.
+    The result is the same S either way."""
     m, n = A.shape
     device = A.device
     if isinstance(op, str):
         s = sketch_size if sketch_size is not None else default_sketch_size(n, m)
-        return sketch_lib.sample(op, key, s, m, dtype=A.dtype, device=device)
+        kw = {}
+        if op == "gaussian" and device.type == "cuda":
+            kw["materialize"] = False  # kernel B4 regenerates S from the key
+        return sketch_lib.sample(op, key, s, m, dtype=A.dtype, device=device, **kw)
     if sketch_size is not None and sketch_size != op.d:
         raise ValueError(f"sketch_size={sketch_size} but the operator has d = {op.d}")
     if op.m != m:
@@ -123,8 +132,8 @@ class SketchedFactor(NamedTuple):
         factor: returns ``(factor, op)``.
 
         ``precision="mixed"`` sketches a bf16-rounded copy of dense A;
-        ``fused`` routes the build through ``sketch_qr`` (kernel B3 on the
-        card; ``None`` → ``REPRO_FUSED_QR``).
+        ``fused`` routes the build through ``sketch_qr`` (kernel B3, B5 or B7
+        on the card; ``None`` → ``REPRO_FUSED_QR``).
         """
         factor, op, _ = cls.build_full(
             A, key, sketch=sketch, sketch_size=sketch_size, backend=backend,

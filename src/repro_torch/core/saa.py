@@ -2,8 +2,10 @@
 
 Port of ``repro/core/saa.py``:
 
-  1. Draw S ∈ R^{s×m} (Clarkson–Woodruff by default, the paper's choice).
-  2. B = SA, c = Sb (kernel B1 on the card; kernel B3 with ``fused=True``).
+  1. Draw S ∈ R^{s×m} (Clarkson–Woodruff by default, the paper's choice;
+     ``sketch="gaussian"`` or ``"uniform_dense"`` for the dense kinds).
+  2. B = SA, c = Sb (on the card: kernel B1, B4 or B6 by kind; B3, B5 or
+     B7 for B with ``fused=True``).
   3. QR of B (Householder, or shifted CholeskyQR3 on the fused route).
   4. Y = A R⁻¹ (the "apply" step).
   5. Warm start z₀ = Qᵀ c.

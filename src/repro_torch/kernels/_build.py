@@ -45,11 +45,19 @@ _DTYPE_CODES = {
 }
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
+_F32 = ctypes.c_float
 _SIGNATURES = {
-    "repro_countsketch_apply": [ctypes.c_int, _P, _P, _P, _P, _P, _I64, _I64, _P],
-    "repro_panel_gram": [ctypes.c_int, _P, _P, _I64, _I64, _P],
-    "repro_countsketch_gram": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_countsketch_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_panel_gram": [_I, _P, _P, _I64, _I64, _P],
+    "repro_countsketch_gram": [_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_sketch_matmul": [_I, _P, _P, _P, _I64, _I64, _I64, _P],
+    "repro_fused_gaussian": [_I, _U32, _U32, _F32, _P, _P, _I64, _I64, _I64, _P],
+    "repro_matmul_gram": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "repro_gaussian_gram": [_I, _U32, _U32, _F32, _P, _P, _P, _I64, _I64, _I64, _P],
+    "repro_threefry_bits": [_U32, _U32, _I64, _I64, _I64, _I64, _P, _P, _P],
 }
 
 def dtype_code(dtype: torch.dtype) -> int:

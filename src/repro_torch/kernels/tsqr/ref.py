@@ -4,8 +4,15 @@ from __future__ import annotations
 import torch
 
 from ..countsketch.ref import acc_dtype, countsketch_ref
+from ..sketch_matmul.ref import fused_gaussian_ref, sketch_matmul_ref
 
-__all__ = ["panel_gram_ref", "countsketch_gram_ref", "tsqr_ref"]
+__all__ = [
+    "panel_gram_ref",
+    "countsketch_gram_ref",
+    "matmul_gram_ref",
+    "gaussian_gram_ref",
+    "tsqr_ref",
+]
 
 
 def panel_gram_ref(B: torch.Tensor) -> torch.Tensor:
@@ -17,6 +24,19 @@ def panel_gram_ref(B: torch.Tensor) -> torch.Tensor:
 def countsketch_gram_ref(A, buckets, signs, d):
     """(B = SA, G = BᵀB) in the accumulation dtype (kernel B3's oracle)."""
     B = countsketch_ref(A, buckets, signs, d)
+    return B, panel_gram_ref(B)
+
+
+def matmul_gram_ref(S, A):
+    """(B = SA, G = BᵀB) in the accumulation dtype (kernel B7's oracle)."""
+    B = sketch_matmul_ref(S, A)
+    return B, panel_gram_ref(B)
+
+
+def gaussian_gram_ref(A, key, d, scale=None):
+    """(B = scale·G·A, G = BᵀB) in the accumulation dtype (kernel B5's
+    oracle)."""
+    B = fused_gaussian_ref(A, key, d, scale)
     return B, panel_gram_ref(B)
 
 

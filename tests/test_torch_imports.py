@@ -83,7 +83,9 @@ def _entry_points():
     from repro_torch import convert
     from repro_torch.core import (
         CountSketch,
+        GaussianSketch,
         SketchedFactor,
+        UniformDenseSketch,
         as_operator,
         estimate_2norm,
         generate_problem,
@@ -107,12 +109,21 @@ def _entry_points():
         "qr_solve": lambda: qr_solve(A, b),
         "SketchedFactor.build": lambda: SketchedFactor.build(A, 0),
         "CountSketch.sample": lambda: CountSketch.sample(0, 20, 200),
+        "GaussianSketch.sample": lambda: GaussianSketch.sample(0, 20, 200),
+        "UniformDenseSketch.sample": lambda: UniformDenseSketch.sample(0, 20, 200),
+        "lstsq_gaussian": lambda: lstsq(A, b, 0, method="saa", sketch="gaussian"),
         "as_operator": lambda: as_operator(A),
         "estimate_2norm": lambda: estimate_2norm(A, 0),
         "tsqr": lambda: tsqr(A),
         "sketch_qr": lambda: sketch_qr(op, A),
         "countsketch_from_reference": lambda: convert.countsketch_from_reference(
             np.zeros(3, np.int32), np.ones(3), 2
+        ),
+        "gaussian_from_reference": lambda: convert.gaussian_from_reference(
+            np.zeros(2, np.uint32), 2, 3
+        ),
+        "uniform_dense_from_reference": lambda: convert.uniform_dense_from_reference(
+            np.zeros((2, 3))
         ),
         "problem_from_reference": lambda: convert.problem_from_reference(
             A, b, b[:5], b, 1.0, 0.0
@@ -141,14 +152,34 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_wrappers_refuse_other_devices():
-    from repro_torch.kernels import countsketch_apply, countsketch_gram, panel_gram
+    from repro_torch.kernels import (
+        countsketch_apply,
+        countsketch_gram,
+        fused_gaussian_sketch,
+        gaussian_gram,
+        matmul_gram,
+        panel_gram,
+        sketch_matmul,
+        threefry_bits,
+    )
 
     A = torch.zeros(8, 3, device="meta")
     h = torch.zeros(8, dtype=torch.int32, device="meta")
     s = torch.ones(8, device="meta")
+    S = torch.zeros(4, 8, device="meta")
     with pytest.raises(ValueError):
         countsketch_apply(A, h, s, 4)
     with pytest.raises(ValueError):
         countsketch_gram(A, h, s, 4)
     with pytest.raises(ValueError):
         panel_gram(A)
+    with pytest.raises(ValueError):
+        sketch_matmul(S, A)
+    with pytest.raises(ValueError):
+        matmul_gram(S, A)
+    with pytest.raises(ValueError):
+        fused_gaussian_sketch(A, (0, 0), 4)
+    with pytest.raises(ValueError):
+        gaussian_gram(A, (0, 0), 4)
+    with pytest.raises(ValueError):
+        threefry_bits((0, 0), 0, 0, 2, 2, "cpu")

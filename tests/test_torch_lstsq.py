@@ -175,7 +175,7 @@ class _RowSource:
         (dict(reg=0.1), "A8"),
         (dict(cluster=object()), "A11"),
         (dict(trace=True), "A4"),
-        (dict(sketch="gaussian", method="saa"), "A5"),
+        (dict(sketch="srht", method="saa"), "A5"),
     ],
 )
 def test_unported_options_raise(big, kw, slice_):
