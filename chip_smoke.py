@@ -23,15 +23,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    "gaussian"`` (B4) and ``"uniform_dense"`` (B6), each also with
    ``fused=True`` (B5, B7), one uniform-dense ``precision="mixed"`` run
    at κ = 1e4 (B6 on bf16), warm wall times beside the CountSketch solve
-   at the same size, and the times of B4–B7 at those shapes.
+   at the same size, and the times of B4–B7 at those shapes;
+9. the SRHT and sparse sketches on the main problem (m = 2^20, run after
+   phase 7, before that problem is freed): ``sketch="srht"`` plain (B8 on
+   A and b) and fused (B8, then B2), ``"sparse_sign"`` and
+   ``"uniform_sparse"`` (B1 on their CSRs), each with its error beside
+   ``qr_solve``'s, its warm wall time and its launches; B8 held bitwise
+   against its plain version at A (2^20, 1000) and timed there and on b;
+   B1 on the sparse-sign and uniform-sparse CSRs at A (2^20, 1000), held
+   against its plain version there; ``hadamard_transform`` through
+   ``SRHTSketch.as_dense_t``; and, on phase 6's κ = 1e4 problem, one mixed
+   SRHT solve (B8 on bf16 A, held against its plain version on that A).
+
+Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
+against its plain version on the card and on the CPU, in f64 and f32 and on
+half inputs (f32 out), and B1 bitwise against the CPU on the sparse-sign
+CSR (k·m entries) and on uniform weights.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels, draws the
-main problem and traces one warm plain and one warm fused solve with
-``torch.profiler``: device time by kernel and the device's busy share of
-the wall time (the breakdown in PERF.md).  Then it times the warm main
-solve at the paper's size and at a smaller, host-bound size, and traces
-one warm Gaussian and one warm uniform-dense solve at m = 2^16.  It prints
-no result line.
+main problem and traces one warm plain, one warm fused and one warm SRHT
+solve with ``torch.profiler``: device time by kernel and the device's busy
+share of the wall time (the breakdown in PERF.md).  Then it times the warm
+main solve at the paper's size and at a smaller, host-bound size, and
+traces one warm Gaussian and one warm uniform-dense solve at m = 2^16.  It
+prints no result line.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after.  TF32 is off for matmuls and cuDNN, so f32 products run in
@@ -145,6 +160,9 @@ def main() -> int:
 
     from repro_torch.core import (
         SketchedFactor,
+        SparseSignSketch,
+        SRHTSketch,
+        UniformSparseSketch,
         generate_problem,
         lsqr_dense,
         lstsq,
@@ -165,6 +183,8 @@ def main() -> int:
         gaussian_gram,
         gaussian_gram_ref,
         gaussian_matrix_ref,
+        hadamard_ref,
+        hadamard_transform,
         key_to_u32,
         matmul_gram,
         matmul_gram_ref,
@@ -173,6 +193,8 @@ def main() -> int:
         reset_launches,
         sketch_matmul,
         sketch_matmul_ref,
+        srht_apply,
+        srht_ref,
         threefry2x32,
         threefry_bits,
         tsqr,
@@ -358,9 +380,95 @@ def main() -> int:
             errs[name] = max(errs[name], err)
             _p(f"phase 2: {name} {str(dtype)[6:]} A({m}, {n}) d={d}: B bitwise = unfused kernel; "
                f"G max|Δ| vs plain Gram {err:.3e} (tol 2γ_d|B|ᵀ|B|), exactly symmetric")
+
+    # B1 on the sparse sketches' CSRs: the sparse-sign sketch's k·m ±1
+    # entries (k = 8) and the uniform-sparse sketch's uniform weights.
+    # Bitwise the plain version on the CPU (each product rounded on its own,
+    # the same order of adds); within 2·γ_k·|S||A| of the card's index_add_
+    # (k = the most entries of one bucket).
+    for m, tail, d, dtype in [
+        (4096, (64,), 256, torch.float64), (4096, (), 256, torch.float32),
+        (3000, (33,), 100, torch.bfloat16),
+    ]:
+        A = torch.randn((m,) + tail, generator=gen, dtype=torch.float64, device=dev).to(dtype)
+        hk = torch.randint(0, d, (8, m), generator=gen, dtype=torch.int32, device=dev)
+        sk = (torch.randint(0, 2, (8, m), generator=gen, device=dev) * 2 - 1).double()
+        vu = torch.empty(m, dtype=torch.float64, device=dev).uniform_(-3**0.5, 3**0.5, generator=gen)
+        for sparse_kind, h, w in [("sparse_sign", hk, sk), ("uniform_sparse", hk[0], vu)]:
+            out = countsketch_apply(A, h, w, d)
+            cpu = countsketch_ref(A.cpu(), h.cpu(), w.cpu(), d)
+            card = countsketch_ref(A, h, w, d)
+            torch.cuda.synchronize()
+            if not torch.equal(out.cpu(), cpu):
+                raise AssertionError(f"B1 on the {sparse_kind} CSR {dtype} {tuple(A.shape)}: not bitwise the CPU plain version")
+            k = int(torch.bincount(h.long().flatten(), minlength=d).max())
+            mag = countsketch_ref(A.abs().double(), h, w.to(dtype).double().abs(), d).reshape(out.shape)
+            err = (out.double() - card.double()).abs()
+            if not bool((err <= 2 * _gamma(torch, k, out.dtype) * mag).all()):
+                raise AssertionError(f"B1 on the {sparse_kind} CSR: off the card's plain version by {float(err.max())}")
+            errs["countsketch_apply"] = max(errs["countsketch_apply"], float(err.max()))
+            _p(f"phase 2: B1 on the {sparse_kind} CSR ({h.numel()} entries) {str(dtype)[6:]} A{tuple(A.shape)} d={d}: "
+               f"bitwise = CPU plain; max|Δ| vs card plain {float(err.max()):.3e} (tol 2γ_{k}|S||A|)")
+
+    # B8: bitwise against the plain version on the card and on the CPU (the
+    # same stages in the same order, the same division by √d).  m = 3000 is
+    # padded to 4096 (rows ≥ m read as zeros); d > m_pad draws the rows
+    # with replacement; half inputs give f32, and the plain version then
+    # transforms the same rounded data in f32, so those are bitwise too.
+    def srht_draw(m, d):
+        m_pad = 1 << max(0, (m - 1).bit_length())
+        signs = (torch.randint(0, 2, (m_pad,), generator=gen, device=dev) * 2 - 1).double()
+        rows = (torch.randint(0, m_pad, (d,), generator=gen, device=dev) if d > m_pad
+                else torch.randperm(m_pad, generator=gen, device=dev)[:d])
+        return signs, rows
+
+    def check_b8(A, signs, rows, d, cpu_cols=None):
+        """Raise unless B8 (both wrappers where m is a power of two) is
+        bitwise its plain version on the card and on the CPU (there on the
+        first ``cpu_cols`` columns only, where given)."""
+        want = torch.float32 if A.dtype in (torch.bfloat16, torch.float16) else A.dtype
+        cut = (lambda X: X) if cpu_cols is None or A.ndim == 1 else (lambda X: X[:, :cpu_cols])
+        runs = [("srht_apply", srht_apply(A, signs, rows, d),
+                 lambda X: srht_ref(X, signs.to(X.device), rows.to(X.device), d))]
+        if A.shape[0] & (A.shape[0] - 1) == 0:
+            runs.append(("hadamard_transform", hadamard_transform(A), hadamard_ref))
+        for name, out, plain in runs:
+            card = plain(A)
+            if out.dtype != want or not torch.equal(out, card):
+                raise AssertionError(f"B8 {name} {A.dtype} {tuple(A.shape)} d={d}: not bitwise the card's "
+                                     f"plain version (max|Δ| {float((out - card).abs().max())})")
+            del card
+            if not torch.equal(cut(out).cpu(), plain(cut(A).cpu())):
+                raise AssertionError(f"B8 {name} {A.dtype} {tuple(A.shape)} d={d}: not bitwise the CPU plain version")
+
+    for m, n, d, dtype in [
+        (2**10, 1, 300, torch.float64), (2**10, 37, 300, torch.float32), (2**10, 1000, 4000, torch.float64),
+        (3000, 1, 300, torch.float32), (3000, 37, 300, torch.float64), (3000, 1000, 4000, torch.float64),
+        (2**20, 1, 4000, torch.float64), (2**20, 1, 4000, torch.float32), (2**20, 37, 4000, torch.float64),
+        (2**20, 37, 4000, torch.float32), (4096, 33, 100, torch.bfloat16), (3000, 1, 11, torch.float16),
+    ]:
+        A = torch.randn((m, n) if n > 1 else (m,), generator=gen, dtype=torch.float64, device=dev).to(dtype)
+        signs, rows = srht_draw(m, d)
+        check_b8(A, signs, rows, d)
+        _p(f"phase 2: B8 srht_apply{' / hadamard_transform' if m & (m - 1) == 0 else ''} {str(dtype)[6:]} "
+           f"A{tuple(A.shape)} d={d}{' (rows with replacement)' if d > 1 << (m - 1).bit_length() else ''}: "
+           f"bitwise = plain on the card and on the CPU")
+    # A row index outside [0, m_pad) is not checked on the host on the card
+    # (a round trip per call): the gather writes NaN into that row instead.
+    A = torch.randn((1024, 5), generator=gen, dtype=torch.float64, device=dev)
+    signs, rows = srht_draw(1024, 8)
+    bad = rows.clone()
+    bad[3], bad[5] = 1024, -1
+    out, good = srht_apply(A, signs, bad, 8), srht_apply(A, signs, rows, 8)
+    keep = torch.ones(8, dtype=torch.bool, device=dev)
+    keep[[3, 5]] = False
+    if not (bool(torch.isnan(out[~keep]).all()) and torch.equal(out[keep], good[keep])):
+        raise AssertionError("B8 with rows out of range: expected NaN rows there and the rest unchanged")
+    _p("phase 2: B8 srht_apply with two rows out of [0, m_pad): NaN rows there, the rest bitwise unchanged")
+    del bad, good, keep
     _p(f"phase 2: kernels {json.dumps({f.__name__: {'launches': f.launches, 'match': True} for f in KERNELS})}")
     del A, S, B, G, B_ref, S_k, G_k, out, B5_eye, eye64, e5, b0, b1, card0, card1
-    del h, s, B_cpu, cpu, card
+    del h, s, B_cpu, cpu, card, hk, sk, vu, signs, rows
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at the paper's size -----------------------
@@ -476,7 +584,102 @@ def main() -> int:
     t3["bound_ms"], t3["bound_by"] = _bound(M_MAIN * N_MAIN + ops2, bytes3)
     _p(f"phase 7: B1 {t1}; B2 {t2}; B3 {t3} (ms; f64, m=2^20, n=1000, d=4000; card: {smi})")
     del SA, Sb, Q2, R2, G_ref, csr, h, s, res, res_f, A_f
-    del prob, A, b, x_true
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the SRHT and sparse sketches on the main problem --------
+    walls9 = {"countsketch": t_saa}
+    for name, kw, need in [
+        ("srht", dict(sketch="srht"), {"srht_apply": 2}),
+        ("srht_fused", dict(sketch="srht", fused=True), {"srht_apply": 2, "panel_gram": 1}),
+        ("sparse_sign", dict(sketch="sparse_sign"), {"countsketch_apply": 2}),
+        ("uniform_sparse", dict(sketch="uniform_sparse"), {"countsketch_apply": 2}),
+    ]:
+        res9 = run_path(name, lambda: lstsq(A, b, gen, method="saa", **kw))
+        e9 = _rel(res9.x, x_true)
+        _, walls9[name] = _sync_time(torch, lambda: lstsq(A, b, gen, method="saa", **kw))
+        _p(f"phase 9: lstsq(method='saa', {', '.join(f'{k}={v!r}' for k, v in kw.items())}) m=2^20: "
+           f"itn {int(res9.itn)} istop {int(res9.istop)} used_fallback {bool(res9.used_fallback)} "
+           f"rel.err {e9:.3e}; qr_solve rel.err {e_qr:.3e}; warm wall {walls9[name]:.4f} s; "
+           f"launches {paths[name]}")
+        if not (e9 < 1e-5 and e9 <= 100 * max(e_qr, 1e-12)):
+            raise AssertionError(f"{name} path: rel.err {e9} (qr_solve {e_qr})")
+        if any(paths[name][k] < v for k, v in need.items()):
+            raise AssertionError(f"{name} path did not launch its kernels: {paths[name]}")
+    del res9
+    _p(f"phase 9: warm wall time at m=2^20, n=1000 (s): {json.dumps(walls9)}")
+
+    # B8 at the main path's shapes: A (2^20, 1000) and b, f64, d = 4000.
+    # Bitwise its plain version on the card, and on the CPU (A's first 64
+    # columns: the transform is column by column).
+    d9 = 4 * N_MAIN
+    s9, rows9 = srht_draw(M_MAIN, d9)
+    check_b8(A, s9, rows9, d9, cpu_cols=64)
+    check_b8(b, s9, rows9, d9)
+    _p("phase 9: B8 srht_apply / hadamard_transform at A(2^20, 1000) and b(2^20,) d=4000: bitwise = plain "
+       "on the card and on the CPU (A's first 64 columns there)")
+    p_bits = M_MAIN.bit_length() - 1
+    # bytes: the input read once, the output written once (plus signs and
+    # rows); operations: p·m adds per column, the signs' products, the
+    # divisions by √d
+    t8 = dict(
+        ms=_event_ms(torch, lambda: srht_apply(A, s9, rows9, d9)),
+        plain_ms=_event_ms(torch, lambda: srht_ref(A, s9, rows9, d9)),
+        library_ms=None,
+    )
+    t8["bound_ms"], t8["bound_by"] = _bound(
+        (p_bits + 1) * M_MAIN * N_MAIN + d9 * N_MAIN, (M_MAIN * N_MAIN + M_MAIN + d9 + d9 * N_MAIN) * esz)
+    t8["vec_ms"] = _event_ms(torch, lambda: srht_apply(b, s9, rows9, d9))
+    t8["vec_plain_ms"] = _event_ms(torch, lambda: srht_ref(b, s9, rows9, d9))
+    t8["vec_bound_ms"], _ = _bound((p_bits + 1) * M_MAIN + d9, (2 * M_MAIN + 2 * d9) * esz)
+    tH = dict(
+        ms=_event_ms(torch, lambda: hadamard_transform(A)),
+        plain_ms=_event_ms(torch, lambda: hadamard_ref(A)),
+        library_ms=None,
+    )
+    tH["bound_ms"], tH["bound_by"] = _bound(p_bits * M_MAIN * N_MAIN, 2 * M_MAIN * N_MAIN * esz)
+    _p(f"phase 9: B8 srht_apply {t8}; hadamard_transform {tH} (ms; f64, m=2^20, n=1000, d=4000; "
+       f"no single PyTorch call computes a Walsh-Hadamard transform; card: {smi})")
+    del s9, rows9
+
+    # B1 on the sparse sketches' CSRs at the same shape (the sparse kinds
+    # have no kernel row of their own): the sparse-sign sketch's 8m ±1
+    # entries and the uniform-sparse sketch's uniform weights.  Held within
+    # 2·γ_k·|S||A| of the plain version on the card, and bitwise the plain
+    # version on the CPU on A's first 64 columns (B1 sums column by column).
+    t_b1 = {}
+    op_ss = SparseSignSketch.sample(gen, d9, M_MAIN, device=dev)
+    op_us = UniformSparseSketch.sample(gen, d9, M_MAIN, device=dev)
+    for sparse_kind, op9, w9 in [("sparse_sign", op_ss, op_ss.signs), ("uniform_sparse", op_us, op_us.values)]:
+        csr9 = op9.csr(torch.float64)
+        out = countsketch_apply(A, op9.buckets, w9, d9, csr=csr9)
+        err = (out - countsketch_ref(A, op9.buckets, w9, d9)).abs()
+        k = int(torch.bincount(op9.buckets.long().flatten(), minlength=d9).max())
+        tol = 2 * _gamma(torch, k, out.dtype) * countsketch_ref(A.abs(), op9.buckets, w9.abs(), d9)
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"B1 on the {sparse_kind} CSR at A(2^20, 1000): off the card's plain "
+                                 f"version by {float(err.max())}")
+        if not torch.equal(out[:, :64].cpu(), countsketch_ref(A[:, :64].cpu(), op9.buckets.cpu(), w9.cpu(), d9)):
+            raise AssertionError(f"B1 on the {sparse_kind} CSR at A(2^20, 1000): not bitwise the CPU plain "
+                                 f"version on A's first 64 columns")
+        e_b1 = float(err.max())
+        errs["countsketch_apply"] = max(errs["countsketch_apply"], e_b1)
+        del out, err, tol
+        t_b1[sparse_kind] = _event_ms(torch, lambda: countsketch_apply(A, op9.buckets, w9, d9, csr=csr9))
+        _p(f"phase 9: B1 on the {sparse_kind} CSR ({op9.buckets.numel()} entries) at A(2^20, 1000) d=4000: "
+           f"max|Δ| vs card plain {e_b1:.3e} (tol 2γ_{k}|S||A|), bitwise = CPU plain "
+           f"on 64 columns; {t_b1[sparse_kind]:.3f} ms (card: {smi})")
+    del op_ss, op_us, op9, w9, csr9
+
+    # hadamard_transform's own path: the SRHT's Sᵀ (as_dense_t), one
+    # transform of the (m_pad, d) row selector; its entries are ±1/√d
+    # exactly, so it is bitwise the transpose of the plain S.
+    op_t = SRHTSketch.sample(gen, 300, 3000, device=dev)
+    St = run_path("srht_as_dense_t", op_t.as_dense_t)
+    if not torch.equal(St, op_t.as_dense().T) or paths["srht_as_dense_t"]["hadamard_transform"] < 1:
+        raise AssertionError("SRHTSketch.as_dense_t is not the transpose of as_dense, or skipped B8")
+    _p(f"phase 9: SRHTSketch(d=300, m=3000).as_dense_t() = as_dense().T bitwise; "
+       f"launches {paths['srht_as_dense_t']}")
+    del op_t, St, prob, A, b, x_true
     torch.cuda.empty_cache()
 
     # ---- phase 5: the perturbation fallback -------------------------------
@@ -505,9 +708,33 @@ def main() -> int:
     _, op6 = SketchedFactor.build(p6.A, gen, precision="mixed")
     if torch.bfloat16 not in op6._csr:
         raise AssertionError("mixed precision did not feed bf16 to B1")
-    del p6, res6, op6
     _p(f"phase 6: B1 ran on bf16 input; peak device memory "
        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # phase 9's mixed SRHT solve, on this κ = 1e4 problem: B8 on bf16 A.
+    # iter_lim=200 for the reason given at phase 8's mixed run.
+    kw_m = dict(method="saa", sketch="srht", precision="mixed", iter_lim=200)
+    res_m = run_path("srht_mixed", lambda: lstsq(p6.A, p6.b, gen, **kw_m))
+    e_m = _rel(res_m.x, p6.x_true)
+    e_qr6 = _rel(qr_solve(p6.A, p6.b), p6.x_true)
+    _, walls9["srht_mixed"] = _sync_time(torch, lambda: lstsq(p6.A, p6.b, gen, **kw_m))
+    _p(f"phase 9: lstsq(sketch='srht', precision='mixed', iter_lim=200) cond=1e4 m=2^20: itn {int(res_m.itn)} "
+       f"istop {int(res_m.istop)} used_fallback {bool(res_m.used_fallback)} rel.err {e_m:.3e}; qr_solve "
+       f"rel.err {e_qr6:.3e}; warm wall {walls9['srht_mixed']:.4f} s; launches {paths['srht_mixed']}")
+    if not e_m < 1e-5 or paths["srht_mixed"]["srht_apply"] < 2:
+        raise AssertionError("mixed SRHT path failed")
+    if bool(res_m.used_fallback) or int(res_m.istop) == 7:
+        raise AssertionError("mixed SRHT run hit its iteration limit or took the fallback")
+    _, op_m, B_m = SketchedFactor.build_full(p6.A, gen, sketch="srht", precision="mixed")
+    A_bf = p6.A.to(torch.bfloat16)
+    if not torch.equal(B_m, srht_apply(A_bf, op_m.signs, op_m.rows, op_m.d).to(B_m.dtype)):
+        raise AssertionError("mixed precision did not feed bf16 to B8")
+    check_b8(A_bf, op_m.signs, op_m.rows, op_m.d, cpu_cols=64)
+    _p("phase 9: B8 ran on bf16 input (B bitwise B8 on bf16 A, f32 out); B8 on that bf16 A(2^20, 1000) "
+       "bitwise = plain on the card and on the CPU (A's first 64 columns there)")
+    del A_bf
+    del p6, res6, op6, res_m, op_m, B_m
+    torch.cuda.empty_cache()
 
     # ---- phase 8: the dense-sketch paths at m = 2^16 ----------------------
     p8 = generate_problem(gen, M_DENSE, N_MAIN, cond=COND, beta=BETA, device=dev)
@@ -643,6 +870,8 @@ def main() -> int:
                           t_dense["sketch_matmul"], 0.0),
         "matmul_gram": ("matmul_gram.cu", "tsqr/kernel.py:101", "uniform_dense_fused",
                         t_dense["matmul_gram"], 0.0),
+        "hadamard_transform": ("hadamard.cuh", "srht/kernel.py:25", "srht_as_dense_t", tH, 0.0),
+        "srht_apply": ("hadamard.cuh", "srht/kernel.py:25", "srht", t8, 0.0),
     }
     rows = []
     for f in KERNELS:
@@ -699,6 +928,7 @@ def _profile(torch, dev, generate_problem, lstsq) -> int:
     prob = generate_problem(gen, M_MAIN, N_MAIN, cond=COND, beta=BETA, device=dev)
     for fused in (False, True):
         _trace(torch, f"fused={fused}", lambda: lstsq(prob.A, prob.b, gen, method="saa", fused=fused))
+    _trace(torch, "sketch=srht", lambda: lstsq(prob.A, prob.b, gen, method="saa", sketch="srht"))
 
     # Warm wall time of the main solve, on the same sketch each time, at the
     # paper's size and at a size where the host's launches bound the solve.

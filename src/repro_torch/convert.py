@@ -14,32 +14,76 @@ import torch
 
 from .core.backend import as_tensor, resolve_device
 from .core.problems import Problem
-from .core.sketch import CountSketch, GaussianSketch, UniformDenseSketch
+from .core.sketch import (
+    CountSketch,
+    GaussianSketch,
+    SparseSignSketch,
+    SRHTSketch,
+    UniformDenseSketch,
+    UniformSparseSketch,
+    _next_pow2,
+)
 from .kernels.common import key_to_u32
 
 __all__ = [
     "countsketch_from_reference",
     "gaussian_from_reference",
     "uniform_dense_from_reference",
+    "srht_from_reference",
+    "sparse_sign_from_reference",
+    "uniform_sparse_from_reference",
     "problem_from_reference",
 ]
+
+
+def _buckets(buckets, weights, d: int, ndim: int, dev):
+    """Checked bucket and weight arrays of a bucket sketch, as tensors."""
+    buckets, weights = np.asarray(buckets), np.asarray(weights)
+    if buckets.shape != weights.shape or buckets.ndim != ndim:
+        raise ValueError(f"buckets and weights must be matching {ndim}-D arrays")
+    if buckets.size and (buckets.min() < 0 or buckets.max() >= d):
+        raise ValueError(f"buckets must lie in [0, {d})")
+    return as_tensor(buckets, dev, torch.int32), as_tensor(weights, dev)
 
 
 def countsketch_from_reference(buckets, signs, d: int, *, device=None) -> CountSketch:
     """The port's ``CountSketch`` for a reference operator's ``buckets``
     (int, in [0, d)) and ``signs`` (±1, in the data dtype)."""
+    buckets, signs = _buckets(buckets, signs, d, 1, resolve_device(device))
+    return CountSketch(buckets=buckets, signs=signs, d=int(d), m=int(buckets.shape[0]))
+
+
+def sparse_sign_from_reference(buckets, signs, d: int, k: int, *, device=None) -> SparseSignSketch:
+    """The port's ``SparseSignSketch`` for a reference operator's (k, m)
+    ``buckets`` and ``signs``."""
+    buckets, signs = _buckets(buckets, signs, d, 2, resolve_device(device))
+    if buckets.shape[0] != k:
+        raise ValueError(f"buckets hold {buckets.shape[0]} entries per row, k = {k}")
+    return SparseSignSketch(
+        buckets=buckets, signs=signs, d=int(d), m=int(buckets.shape[1]), k=int(k)
+    )
+
+
+def uniform_sparse_from_reference(buckets, values, d: int, *, device=None) -> UniformSparseSketch:
+    """The port's ``UniformSparseSketch`` for a reference operator's
+    ``buckets`` and ``values``."""
+    buckets, values = _buckets(buckets, values, d, 1, resolve_device(device))
+    return UniformSparseSketch(buckets=buckets, values=values, d=int(d), m=int(buckets.shape[0]))
+
+
+def srht_from_reference(signs, rows, d: int, m: int, *, device=None) -> SRHTSketch:
+    """The port's ``SRHTSketch`` for a reference operator's ``signs``
+    (m_pad,) and ``rows`` (d,) into [0, m_pad)."""
     dev = resolve_device(device)
-    buckets = np.asarray(buckets)
-    signs = np.asarray(signs)
-    if buckets.shape != signs.shape or buckets.ndim != 1:
-        raise ValueError("buckets and signs must be matching 1-D arrays")
-    if buckets.size and (buckets.min() < 0 or buckets.max() >= d):
-        raise ValueError(f"buckets must lie in [0, {d})")
-    return CountSketch(
-        buckets=as_tensor(buckets, dev, torch.int32),
-        signs=as_tensor(signs, dev),
-        d=int(d),
-        m=int(buckets.shape[0]),
+    signs, rows = np.asarray(signs), np.asarray(rows)
+    m_pad = _next_pow2(m)
+    if signs.shape != (m_pad,):
+        raise ValueError(f"signs must be ({m_pad},) for m = {m}, got {signs.shape}")
+    if rows.shape != (d,) or (rows.size and (rows.min() < 0 or rows.max() >= m_pad)):
+        raise ValueError(f"rows must be ({d},) indices into [0, {m_pad})")
+    return SRHTSketch(
+        signs=as_tensor(signs, dev), rows=as_tensor(rows, dev, torch.int64),
+        d=int(d), m=int(m), m_pad=m_pad,
     )
 
 

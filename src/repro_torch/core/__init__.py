@@ -1,7 +1,7 @@
 """The port of ``repro.core``: sketch-and-solve least squares in PyTorch.
 
-This port holds paper Algorithm 1 on dense inputs with the CountSketch,
-Gaussian and uniform-dense sketches:
+This port holds paper Algorithm 1 on dense inputs with all seven sketch
+kinds of the reference:
 
 - ``backend``  — kernel/reference backend, precision and device policy
 - ``result``   — the unified ``SolveResult``
@@ -9,7 +9,8 @@ Gaussian and uniform-dense sketches:
 - ``direct``   — QR/SVD/normal-equations ground truth
 - ``problems`` — §5.1 ill-conditioned problem generator
 - ``sketch``   — ``CountSketch`` (kernel B1), ``GaussianSketch`` (B4),
-  ``UniformDenseSketch`` (B6)
+  ``UniformDenseSketch`` (B6), ``SRHTSketch`` (B8), ``SparseSignSketch``
+  and ``UniformSparseSketch`` (B1), and the escalated ``StackedSketch``
 - ``lsqr``     — LSQR with a windowed stop check
 - ``precond``  — the shared sketched-QR factor
 - ``saa``      — SAA-SAS, Algorithm 1, with its perturbation fallback
@@ -31,7 +32,11 @@ from .sketch import (
     SKETCH_KINDS,
     CountSketch,
     GaussianSketch,
+    SparseSignSketch,
+    SRHTSketch,
+    StackedSketch,
     UniformDenseSketch,
+    UniformSparseSketch,
     sample as sample_sketch,
 )
 
@@ -50,5 +55,6 @@ __all__ = [
     "SolveResult",
     "saa_sas",
     "SKETCH_KINDS", "CountSketch", "GaussianSketch", "UniformDenseSketch",
+    "SRHTSketch", "SparseSignSketch", "UniformSparseSketch", "StackedSketch",
     "sample_sketch",
 ]

@@ -8,9 +8,8 @@ coordinate change back to x-space (x = R⁻¹ z).
 ``SketchedFactor.build`` accepts, as ``sketch=``, either a kind name (the
 operator is drawn from the generator) or an already-drawn operator.  The
 second form is the carry-across hook: a test draws S with the reference
-package, converts it with ``repro_torch.convert`` (``countsketch_from_reference``,
-``gaussian_from_reference``, ``uniform_dense_from_reference``) and runs
-both packages on the same S.
+package, converts it with ``repro_torch.convert`` (one converter per
+kind) and runs both packages on the same S.
 
 ``extend`` and ``build_streaming`` arrive with ROADMAP A6 and A9, the
 tracing spans with A4.
@@ -132,8 +131,8 @@ class SketchedFactor(NamedTuple):
         factor: returns ``(factor, op)``.
 
         ``precision="mixed"`` sketches a bf16-rounded copy of dense A;
-        ``fused`` routes the build through ``sketch_qr`` (kernel B3, B5 or B7
-        on the card; ``None`` → ``REPRO_FUSED_QR``).
+        ``fused`` routes the build through ``sketch_qr`` (kernel B3, B5, B7,
+        or B8 then B2, on the card; ``None`` → ``REPRO_FUSED_QR``).
         """
         factor, op, _ = cls.build_full(
             A, key, sketch=sketch, sketch_size=sketch_size, backend=backend,

@@ -1,43 +1,73 @@
-"""Sketching operators (paper §2): CountSketch, Gaussian, uniform-dense.
+"""Sketching operators (paper §2): all seven kinds of the reference.
 
 Port of ``repro/core/sketch.py``.  ``sample(kind, key, d, m)`` draws an
 operator from a ``torch.Generator`` (or an int seed); ``op.apply(A,
 backend=...)`` applies it to an (m,) vector or (m, n) matrix along axis 0,
 and ``op.apply_op(A)`` sketches a ``repro_torch.core.linop`` operator.
-CountSketch (Clarkson–Woodruff, the paper's choice), the Gaussian sketch
-and the uniform-dense sketch are ported; SRHT and the two sparse kinds
-arrive with the next slice (ROADMAP A5) and ``sample`` raises for them.
+
+Dense:  Gaussian, uniform-dense, SRHT (subsampled randomized Hadamard).
+Sparse: CountSketch (Clarkson–Woodruff, the paper's choice), sparse-sign(k),
+uniform-sparse.
 
 Backends (see ``repro_torch.core.backend``): ``"auto"`` routes the apply
-through the kind's kernel wrapper — ``countsketch_apply`` (B1),
-``fused_gaussian_sketch`` (B4) or ``sketch_matmul`` (B6) — which launches
-the hand kernel for a CUDA tensor and runs the plain version for a CPU
-tensor; ``"reference"`` runs plain tensor code.  Both realize the same S:
-the Gaussian S is drawn from the kernels' counter-based threefry +
-Box–Muller stream, so kernel B4 regenerates it from the key alone.
+through the kind's kernel wrapper — ``countsketch_apply`` (B1, also for the
+two sparse kinds, as a CSR of k·m or m weighted entries),
+``fused_gaussian_sketch`` (B4), ``sketch_matmul`` (B6) or ``srht_apply``
+(B8) — which launches the hand kernel for a CUDA tensor and runs the plain
+version for a CPU tensor; ``"reference"`` runs plain tensor code (the
+reference's segment sums for the sparse kinds, :func:`fwht` for the SRHT).
+Both realize the same S: the Gaussian S is drawn from the kernels'
+counter-based threefry + Box–Muller stream, so kernel B4 regenerates it
+from the key alone.
 
-Row streaming: ``apply_rows(tile, row_offset)`` is the restriction of S to a
-contiguous row tile of A, and ``restrict_cols(idx)`` the sub-operator
-S[:, idx] — the primitives the streaming and session slices build on.
+Row streaming: ``apply_rows(tile, row_offset)`` is the restriction of S to
+a contiguous row tile of A (for the SRHT, which streams by placement, the
+D-signed tile), and ``restrict_cols(idx)`` the sub-operator S[:, idx]
+(``None`` for the SRHT) — the primitives the streaming and session slices
+build on.  Escalation: ``extend_rows(key, extra)`` grows any kind into a
+:class:`StackedSketch`, whose ``extend_sketch`` reuses a stored B = SA.
+The sparse-input scatters and ``AugmentedSketch`` arrive with their inputs
+(ROADMAP A8).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
-from ..kernels.common import key_to_u32
+from ..kernels.common import key_to_u32, sqrt_tensor
 from ..kernels.countsketch import countsketch_apply, countsketch_csr, countsketch_ref
+from ..kernels.countsketch.ref import acc_dtype
 from ..kernels.sketch_matmul import (
     default_scale,
     fused_gaussian_sketch,
     gaussian_cols_ref,
     sketch_matmul,
 )
+from ..kernels.srht import fwht, hadamard_transform, srht_apply, srht_ref
 from . import backend as backend_lib
 from . import linop
 
-__all__ = ["sample", "CountSketch", "GaussianSketch", "UniformDenseSketch", "SKETCH_KINDS"]
+__all__ = [
+    "sample",
+    "fwht",
+    "GaussianSketch",
+    "UniformDenseSketch",
+    "SRHTSketch",
+    "CountSketch",
+    "SparseSignSketch",
+    "UniformSparseSketch",
+    "StackedSketch",
+    "SKETCH_KINDS",
+]
+
+
+def _next_pow2(m: int) -> int:
+    p = 1
+    while p < m:
+        p *= 2
+    return p
 
 
 def _as_2d(A):
@@ -50,11 +80,12 @@ def _maybe_squeeze(B, was_vector):
 
 
 class _OperatorApply:
-    """Operator-aware sketching: B = S·A for A given as a linop operator.
+    """What every kind shares: operator-aware sketching, the row-streaming
+    contract and escalation.
 
-    Dense operators take the backend-dispatched ``apply``; the sparse,
-    Tikhonov and matrix-free dispatch of the reference arrives with
-    ROADMAP A8.
+    ``apply_op`` takes the backend-dispatched ``apply`` for dense operators;
+    the sparse, Tikhonov and matrix-free dispatch of the reference arrives
+    with ROADMAP A8.
     """
 
     def apply_op(self, A, *, backend: str = "auto"):
@@ -65,9 +96,74 @@ class _OperatorApply:
             f"sketching a {type(A).__name__} arrives with ROADMAP A8"
         )
 
+    # Row streaming: "add" kinds return the (d, n) contribution of a tile;
+    # the SRHT ("place") returns the D-signed tile, transformed once at the
+    # end of the stream.
+    stream_semantics = "add"
+
+    def apply_rows(self, tile, row_offset: int, *, backend: str = "auto"):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support row streaming"
+        )
+
+    def restrict_cols(self, idx):
+        """S[:, idx] as an operator over ``len(idx)`` rows, or ``None`` for
+        kinds whose columns couple (the SRHT)."""
+        return None
+
+    def _fresh_like(self, key, extra: int):
+        """An independent draw of this kind with ``extra`` rows over the
+        same m-row space — the new block of an escalated sketch."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support extend_rows"
+        )
+
+    def extend_rows(self, key, extra: int) -> "StackedSketch":
+        """Escalate to d + ``extra`` rows without touching the first d:
+        S′ = [√(d/(d+e))·S; √(e/(d+e))·S_e], with S_e a fresh draw from
+        ``key``.  The weights keep E[S′ᵀS′] = I, and a stored B = SA extends
+        through :meth:`StackedSketch.extend_sketch`."""
+        extra = int(extra)
+        if extra <= 0:
+            raise ValueError(f"extra must be a positive row count, got {extra}")
+        d = self.d
+        return StackedSketch(
+            top=self,
+            bottom=self._fresh_like(key, extra),
+            w_top=math.sqrt(d / (d + extra)),
+            w_bottom=math.sqrt(extra / (d + extra)),
+        )
+
+
+class _BucketSketch(_OperatorApply):
+    """The kinds kernel B1 applies: buckets and weights of shape (m,) or
+    (k, m), with the bucket → entries CSR built once per dtype and cached
+    on the operator (``_csr``)."""
+
+    def _weights(self) -> torch.Tensor:
+        return self.signs
+
+    def csr(self, dtype: torch.dtype):
+        """The cached bucket → entries CSR with weights in ``dtype``."""
+        if dtype not in self._csr:
+            self._csr[dtype] = countsketch_csr(
+                self.buckets, self._weights(), self.d, dtype
+            )
+        return self._csr[dtype]
+
+    def _apply_b1(self, A):
+        csr = self.csr(A.dtype) if A.device.type == "cuda" else None
+        return countsketch_apply(A, self.buckets, self._weights(), self.d, csr=csr)
+
+    def apply_rows(self, tile, row_offset: int, *, backend: str = "auto"):
+        t = tile.shape[0]
+        return self.restrict_cols(
+            slice(row_offset, row_offset + t)
+        ).apply(tile, backend=backend)
+
 
 @dataclasses.dataclass(frozen=True)
-class CountSketch(_OperatorApply):
+class CountSketch(_BucketSketch):
     """Clarkson–Woodruff: one ±1 per column of S, at a random bucket.
 
     SA[k] = sum_{i : h(i)=k} s(i) · A[i] — an isometry in expectation with
@@ -99,31 +195,21 @@ class CountSketch(_OperatorApply):
     def device(self) -> torch.device:
         return self.buckets.device
 
-    def csr(self, dtype: torch.dtype):
-        """The cached bucket → rows CSR with signs in ``dtype``."""
-        if dtype not in self._csr:
-            self._csr[dtype] = countsketch_csr(
-                self.buckets, self.signs, self.d, dtype
-            )
-        return self._csr[dtype]
-
     def apply(self, A, *, backend: str = "auto"):
         A = backend_lib.as_tensor(A, self.device)
         if backend_lib.uses_kernels(backend):
-            csr = self.csr(A.dtype) if A.device.type == "cuda" else None
-            return countsketch_apply(A, self.buckets, self.signs, self.d, csr=csr)
+            return self._apply_b1(A)
         return countsketch_ref(A, self.buckets, self.signs, self.d)
-
-    def apply_rows(self, tile, row_offset: int, *, backend: str = "auto"):
-        t = tile.shape[0]
-        return self.restrict_cols(
-            slice(row_offset, row_offset + t)
-        ).apply(tile, backend=backend)
 
     def restrict_cols(self, idx):
         buckets, signs = self.buckets[idx], self.signs[idx]
         return CountSketch(
             buckets=buckets, signs=signs, d=self.d, m=buckets.shape[0]
+        )
+
+    def _fresh_like(self, key, extra):
+        return CountSketch.sample(
+            key, extra, self.m, dtype=self.signs.dtype, device=self.device
         )
 
     def as_dense(self):
@@ -203,6 +289,13 @@ class GaussianSketch(_OperatorApply):
         S = self._cols(cols, torch.float64)
         return UniformDenseSketch(S=S, d=self.d, m=S.shape[1])
 
+    def _fresh_like(self, key, extra):
+        stored = self.S is not None
+        return GaussianSketch.sample(
+            key, extra, self.m, dtype=self.S.dtype if stored else torch.float64,
+            materialize=stored, device=self.device,
+        )
+
     def as_dense(self):
         if self.S is not None:
             return self.S
@@ -254,27 +347,321 @@ class UniformDenseSketch(_OperatorApply):
         S = self.S[:, idx]
         return UniformDenseSketch(S=S, d=self.d, m=S.shape[1])
 
+    def _fresh_like(self, key, extra):
+        return UniformDenseSketch.sample(
+            key, extra, self.m, dtype=self.S.dtype, device=self.device
+        )
+
     def as_dense(self):
         return self.S
+
+
+@dataclasses.dataclass(frozen=True)
+class SRHTSketch(_OperatorApply):
+    """Subsampled randomized Hadamard transform: S = (1/√d)·P·H·D.
+
+    H is the unnormalized Hadamard matrix of order m_pad (the next power of
+    two ≥ m; A is padded with zero rows), D a random ±1 diagonal, P a
+    uniform sample of d rows: without replacement, or with it when
+    d > m_pad, as the reference.  The kernel route applies it through B8
+    (``srht_apply``), bitwise equal to the reference route's :func:`fwht`.
+    """
+
+    signs: torch.Tensor  # (m_pad,) ±1
+    rows: torch.Tensor  # (d,) int64 indices into m_pad
+    d: int
+    m: int
+    m_pad: int
+
+    @classmethod
+    def sample(cls, key, d, m, dtype=torch.float64, *, device=None):
+        dev = backend_lib.resolve_device(device)
+        gen = backend_lib.as_generator(key, dev)
+        m_pad = _next_pow2(m)
+        signs = torch.randint(
+            0, 2, (m_pad,), generator=gen, dtype=torch.int8, device=dev
+        ).to(dtype) * 2 - 1
+        if d > m_pad:
+            rows = torch.randint(0, m_pad, (d,), generator=gen, device=dev)
+        else:
+            rows = torch.randperm(m_pad, generator=gen, device=dev)[:d]
+        return cls(signs=signs, rows=rows, d=int(d), m=int(m), m_pad=m_pad)
+
+    @property
+    def device(self) -> torch.device:
+        return self.signs.device
+
+    def apply(self, A, *, backend: str = "auto"):
+        A = backend_lib.as_tensor(A, self.device)
+        if backend_lib.uses_kernels(backend):
+            return srht_apply(A, self.signs, self.rows, self.d)
+        return srht_ref(A, self.signs, self.rows, self.d)
+
+    # H mixes every row, so the SRHT streams by placement: the restriction
+    # of S to a tile is the D-signed tile, and the padded transform, P and
+    # the 1/√d scale run once over the assembled (m_pad, n) buffer.
+    stream_semantics = "place"
+
+    def apply_rows(self, tile, row_offset: int, *, backend: str = "auto"):
+        """The D-signed rows of the tile — not the (d, n) contribution."""
+        del backend
+        tile2, _ = _as_2d(backend_lib.as_tensor(tile, self.device))
+        signs = self.signs[row_offset : row_offset + tile2.shape[0]]
+        return signs[:, None].to(tile2.dtype) * tile2
+
+    def _fresh_like(self, key, extra):
+        return SRHTSketch.sample(
+            key, extra, self.m, dtype=self.signs.dtype, device=self.device
+        )
+
+    def as_dense(self):
+        eye = torch.eye(self.m, dtype=self.signs.dtype, device=self.device)
+        return self.apply(eye, backend="reference")
+
+    def as_dense_t(self):
+        """Sᵀ = (1/√d)·D·H·Pᵀ as an (m, d) matrix: one transform of the
+        (m_pad, d) row selector (H is symmetric), through B8 on the card —
+        O(d·m log m) instead of as_dense()'s O(m² log m)."""
+        dtype, dev = self.signs.dtype, self.device
+        sel = torch.zeros((self.m_pad, self.d), dtype=dtype, device=dev)
+        sel[self.rows, torch.arange(self.d, device=dev)] = 1.0
+        St = self.signs[:, None] * hadamard_transform(sel) / sqrt_tensor(self.d, dtype, dev)
+        return St[: self.m]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseSignSketch(_BucketSketch):
+    """k nonzeros ±1/√k per column of S, at iid random buckets.
+
+    The kernel route sums the k·m ±1 entries through B1 (one CSR, in
+    (block, row) order) and then divides by √k, as the reference scales
+    after its sum; the reference route is the reference's k segment sums.
+    """
+
+    buckets: torch.Tensor  # (k, m) int32 in [0, d)
+    signs: torch.Tensor  # (k, m) ±1
+    d: int
+    m: int
+    k: int = 8
+    _csr: dict = dataclasses.field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    @classmethod
+    def sample(cls, key, d, m, dtype=torch.float64, k=8, *, device=None):
+        dev = backend_lib.resolve_device(device)
+        gen = backend_lib.as_generator(key, dev)
+        buckets = torch.randint(
+            0, d, (k, m), generator=gen, dtype=torch.int32, device=dev
+        )
+        signs = torch.randint(
+            0, 2, (k, m), generator=gen, dtype=torch.int8, device=dev
+        ).to(dtype) * 2 - 1
+        return cls(buckets=buckets, signs=signs, d=int(d), m=int(m), k=int(k))
+
+    @property
+    def device(self) -> torch.device:
+        return self.buckets.device
+
+    def apply(self, A, *, backend: str = "auto"):
+        A = backend_lib.as_tensor(A, self.device)
+        if backend_lib.uses_kernels(backend):
+            B = self._apply_b1(A)
+        else:
+            # the k segment sums, added in block order (the reference's
+            # sum over its vmapped axis)
+            A2, vec = _as_2d(A)
+            A2 = A2.to(acc_dtype(A2.dtype))
+            B = torch.zeros((self.d, A2.shape[1]), dtype=A2.dtype, device=A2.device)
+            for h, s in zip(self.buckets, self.signs):
+                B = B + torch.zeros_like(B).index_add_(0, h, s.to(A2.dtype)[:, None] * A2)
+            B = _maybe_squeeze(B, vec)
+        return B / sqrt_tensor(self.k, B.dtype, B.device)
+
+    def restrict_cols(self, idx):
+        buckets, signs = self.buckets[:, idx], self.signs[:, idx]
+        return SparseSignSketch(
+            buckets=buckets, signs=signs, d=self.d, m=buckets.shape[1], k=self.k
+        )
+
+    def _fresh_like(self, key, extra):
+        return SparseSignSketch.sample(
+            key, extra, self.m, dtype=self.signs.dtype, k=self.k, device=self.device
+        )
+
+    def as_dense(self):
+        dtype, dev = self.signs.dtype, self.device
+        S = torch.zeros((self.d, self.m), dtype=dtype, device=dev)
+        cols = torch.arange(self.m, device=dev).expand(self.k, self.m)
+        scale = 1.0 / sqrt_tensor(self.k, dtype, dev)
+        return S.index_put_(
+            (self.buckets.to(torch.int64), cols), self.signs * scale, accumulate=True
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformSparseSketch(_BucketSketch):
+    """One U(−√3, √3) entry per column of S, at a random bucket.
+
+    The kernel route is B1 with the values as the CSR's weights (rounded to
+    A's dtype, as the reference's ``values.astype(A.dtype)``); the reference
+    route is the reference's segment sum.
+    """
+
+    buckets: torch.Tensor  # (m,) int32 in [0, d)
+    values: torch.Tensor  # (m,)
+    d: int
+    m: int
+    _csr: dict = dataclasses.field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    @classmethod
+    def sample(cls, key, d, m, dtype=torch.float64, *, device=None):
+        dev = backend_lib.resolve_device(device)
+        gen = backend_lib.as_generator(key, dev)
+        buckets = torch.randint(
+            0, d, (m,), generator=gen, dtype=torch.int32, device=dev
+        )
+        lim = math.sqrt(3.0)
+        values = torch.empty(m, dtype=dtype, device=dev).uniform_(-lim, lim, generator=gen)
+        return cls(buckets=buckets, values=values, d=int(d), m=int(m))
+
+    @property
+    def device(self) -> torch.device:
+        return self.buckets.device
+
+    def _weights(self) -> torch.Tensor:
+        return self.values
+
+    def apply(self, A, *, backend: str = "auto"):
+        A = backend_lib.as_tensor(A, self.device)
+        if backend_lib.uses_kernels(backend):
+            return self._apply_b1(A)
+        return countsketch_ref(A, self.buckets, self.values, self.d)
+
+    def restrict_cols(self, idx):
+        buckets, values = self.buckets[idx], self.values[idx]
+        return UniformSparseSketch(
+            buckets=buckets, values=values, d=self.d, m=buckets.shape[0]
+        )
+
+    def _fresh_like(self, key, extra):
+        return UniformSparseSketch.sample(
+            key, extra, self.m, dtype=self.values.dtype, device=self.device
+        )
+
+    def as_dense(self):
+        dev = self.device
+        S = torch.zeros((self.d, self.m), dtype=self.values.dtype, device=dev)
+        S[self.buckets.to(torch.int64), torch.arange(self.m, device=dev)] = self.values
+        return S
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedSketch(_OperatorApply):
+    """Weighted stack [w_t·S_top; w_b·S_bot] — the escalated sketch.
+
+    Made by ``op.extend_rows(key, extra)`` with w_t = √(d/(d+e)) and
+    w_b = √(e/(d+e)), so E[SᵀS] = I still holds.  :meth:`extend_sketch`
+    extends a stored B = S_top·A by sketching only the new rows, bitwise
+    equal to applying the stacked operator from scratch (every apply is
+    deterministic).  Nested escalations stack recursively, and
+    ``_fresh_like`` always draws the original kind.
+    """
+
+    top: object  # the pre-escalation operator (d_top, m)
+    bottom: object  # the fresh block (extra, m)
+    w_top: float
+    w_bottom: float
+
+    @property
+    def d(self) -> int:
+        return self.top.d + self.bottom.d
+
+    @property
+    def m(self) -> int:
+        return self.top.m
+
+    @property
+    def device(self) -> torch.device:
+        return self.top.device
+
+    def _stack(self, top, bot):
+        return torch.cat([self.w_top * top, self.w_bottom * bot], dim=0)
+
+    def apply(self, A, *, backend: str = "auto"):
+        return self._stack(
+            self.top.apply(A, backend=backend), self.bottom.apply(A, backend=backend)
+        )
+
+    def apply_op(self, A, *, backend: str = "auto"):
+        return self._stack(
+            self.top.apply_op(A, backend=backend),
+            self.bottom.apply_op(A, backend=backend),
+        )
+
+    def extend_sketch(self, B_top, A, *, backend: str = "auto"):
+        """[w_t·B_top; w_b·(S_bot·A)] for the stored ``B_top =
+        top.apply_op(A)``: only the ``bottom.d`` new rows are sketched."""
+        B_top = backend_lib.as_tensor(B_top, self.device)
+        if B_top.shape[0] != self.top.d:
+            raise ValueError(
+                f"B_top has {B_top.shape[0]} rows, the pre-escalation "
+                f"operator has d={self.top.d}"
+            )
+        return self._stack(B_top, self.bottom.apply_op(A, backend=backend))
+
+    @property
+    def stream_semantics(self) -> str:
+        """"add" when both blocks stream additively, else "place"."""
+        both_add = (
+            self.top.stream_semantics == "add"
+            and self.bottom.stream_semantics == "add"
+        )
+        return "add" if both_add else "place"
+
+    def apply_rows(self, tile, row_offset: int, *, backend: str = "auto"):
+        if self.stream_semantics != "add":
+            raise NotImplementedError(
+                "a stacked sketch with an SRHT block streams by placement; "
+                "accumulate the blocks separately"
+            )
+        return self._stack(
+            self.top.apply_rows(tile, row_offset, backend=backend),
+            self.bottom.apply_rows(tile, row_offset, backend=backend),
+        )
+
+    def restrict_cols(self, idx):
+        top = self.top.restrict_cols(idx)
+        bot = self.bottom.restrict_cols(idx)
+        if top is None or bot is None:
+            return None
+        return StackedSketch(
+            top=top, bottom=bot, w_top=self.w_top, w_bottom=self.w_bottom
+        )
+
+    def _fresh_like(self, key, extra):
+        return self.top._fresh_like(key, extra)
+
+    def as_dense(self):
+        top = self.top.as_dense()
+        return self._stack(top, self.bottom.as_dense().to(top.dtype))
 
 
 SKETCH_KINDS: dict[str, type] = {
     "gaussian": GaussianSketch,
     "uniform_dense": UniformDenseSketch,
+    "srht": SRHTSketch,
     "countsketch": CountSketch,
     "clarkson_woodruff": CountSketch,  # alias — the paper's final choice
+    "sparse_sign": SparseSignSketch,
+    "uniform_sparse": UniformSparseSketch,
 }
-
-_LATER_KINDS = ("srht", "sparse_sign", "uniform_sparse")
 
 
 def sample(kind: str, key, d: int, m: int, dtype=torch.float64, *, device=None, **kw):
     """Draw a sketching operator ``S : R^m -> R^d`` of the given kind."""
-    if kind in _LATER_KINDS:
-        raise NotImplementedError(
-            f"sketch kind {kind!r} arrives with ROADMAP A5; this slice has "
-            f"{sorted(SKETCH_KINDS)}"
-        )
     try:
         cls = SKETCH_KINDS[kind]
     except KeyError:

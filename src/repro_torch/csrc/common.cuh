@@ -28,6 +28,15 @@ __device__ __forceinline__ float to_acc<float, __half>(__half x) {
   return __half2float(x);
 }
 
+// A product rounded on its own, never contracted with the add that follows
+// into an FMA: the kernels then round as the plain versions do.
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+
 inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 }  // namespace

@@ -5,14 +5,17 @@
 // matmul because the TPU has no scatter and no atomics.  On Hopper the
 // apply is bound by reading A once (m*n elements) and writing SA once
 // (d*n), so this kernel does no extra arithmetic and no atomics: the caller
-// hands it a bucket -> rows CSR (a stable argsort of the buckets, the signs
-// in that order, and d+1 offsets), and one thread owns one (bucket, column)
-// output.  It sums s*A over its bucket's rows in ascending row order, so
-// the result is bitwise the sequential index_add_ of the plain version:
-// s = +-1 makes every product exact and the additions happen in the same
-// order.  A warp covers consecutive columns of one bucket, so each row read
-// is one coalesced segment.  Index arithmetic is 64-bit (m*n exceeds 2^31
-// at the paper's size).
+// hands it a bucket -> entries CSR (a stable argsort of the entries'
+// buckets, each entry's row id and weight in that order, and d+1 offsets),
+// and one thread owns one (bucket, column) output.  It sums w*A[row] over
+// its bucket's entries in order, so the result is bitwise the sequential
+// index_add_ of the plain version: each product is rounded on its own
+// (mul_rn, no FMA contraction) and the additions happen in the same order.
+// The CountSketch has one +-1 entry per row (nnz = m); the sparse-sign
+// sketch k per row (nnz = k*m), and the uniform-sparse sketch one entry
+// with a uniform weight per row.  A warp covers consecutive columns of one
+// bucket, so each row read is one coalesced segment.  Index arithmetic is
+// 64-bit (m*n exceeds 2^31 at the paper's size).
 #pragma once
 
 #include "common.cuh"
@@ -35,7 +38,7 @@ __global__ void countsketch_csr_kernel(const T* __restrict__ A,
 #pragma unroll 4
   for (int64_t j = lo; j < hi; ++j) {
     const int64_t r = rows[j];
-    acc += to_acc<Acc>(sgn[j]) * to_acc<Acc>(A[r * n + col]);
+    acc += mul_rn(to_acc<Acc>(sgn[j]), to_acc<Acc>(A[r * n + col]));
   }
   out[bucket * n + col] = acc;
 }

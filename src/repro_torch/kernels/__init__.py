@@ -14,13 +14,17 @@ B4       ``fused_gaussian_sketch``   ``sketch_matmul/kernel.py:40``
 B5       ``gaussian_gram``           ``tsqr/kernel.py:131`` (made at ``:121``)
 B6       ``sketch_matmul``           ``sketch_matmul/kernel.py:27``
 B7       ``matmul_gram``             ``tsqr/kernel.py:101``
+B8       ``hadamard_transform``      ``srht/kernel.py:25`` and ``:32``
+B8       ``srht_apply``              ``srht/kernel.py:25`` and ``:32``
 =======  ==========================  =========================================
 
 A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
 tensor it runs the plain version.  ``wrapper.launches`` counts kernel
 launches only.  :data:`KERNELS` lists every wrapper, in the table's order.
+B1 also applies the sparse-sign and uniform-sparse sketches, which have no
+TPU kernel of their own.
 """
-from .common import bits_to_gaussian, key_to_u32, threefry2x32
+from .common import bits_to_gaussian, key_to_u32, sqrt_tensor, threefry2x32
 from .countsketch import countsketch_apply, countsketch_csr, countsketch_ref
 from .sketch_matmul import (
     fused_gaussian_ref,
@@ -31,6 +35,7 @@ from .sketch_matmul import (
     sketch_matmul_ref,
     threefry_bits,
 )
+from .srht import fwht, hadamard_matrix, hadamard_ref, hadamard_transform, srht_apply, srht_ref
 from .tsqr import (
     MAX_FUSED_COLS,
     cholqr_finish,
@@ -55,6 +60,8 @@ KERNELS = (
     gaussian_gram,
     sketch_matmul,
     matmul_gram,
+    hadamard_transform,
+    srht_apply,
 )
 
 __all__ = [
@@ -69,10 +76,14 @@ __all__ = [
     "countsketch_ref",
     "fused_gaussian_ref",
     "fused_gaussian_sketch",
+    "fwht",
     "gaussian_cols_ref",
     "gaussian_gram",
     "gaussian_gram_ref",
     "gaussian_matrix_ref",
+    "hadamard_matrix",
+    "hadamard_ref",
+    "hadamard_transform",
     "key_to_u32",
     "matmul_gram",
     "matmul_gram_ref",
@@ -82,6 +93,9 @@ __all__ = [
     "sketch_matmul",
     "sketch_matmul_ref",
     "sketch_qr",
+    "sqrt_tensor",
+    "srht_apply",
+    "srht_ref",
     "threefry2x32",
     "threefry_bits",
     "tsqr",

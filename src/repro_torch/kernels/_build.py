@@ -49,6 +49,7 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 _F32 = ctypes.c_float
+_F64 = ctypes.c_double
 _SIGNATURES = {
     "repro_countsketch_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "repro_panel_gram": [_I, _P, _P, _I64, _I64, _P],
@@ -58,6 +59,8 @@ _SIGNATURES = {
     "repro_matmul_gram": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     "repro_gaussian_gram": [_I, _U32, _U32, _F32, _P, _P, _P, _I64, _I64, _I64, _P],
     "repro_threefry_bits": [_U32, _U32, _I64, _I64, _I64, _I64, _P, _P, _P],
+    "repro_hadamard": [_I, _P, _P, _I64, _I64, _P],
+    "repro_srht_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F64, _P],
 }
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -2,7 +2,8 @@
 
 Port of ``repro/kernels/common.py``: ``cdiv``, ``pad_to``, the counter-based
 ``threefry2x32`` behind the Gaussian sketch, ``bits_to_gaussian`` and
-``key_to_u32``.
+``key_to_u32``; plus ``sqrt_tensor``, the divisor of the SRHT and
+sparse-sign scales.
 
 PyTorch has no uint32 ``+``, ``<<`` or ``>>`` on CPU tensors, so the plain
 threefry works on int64 tensors holding values in [0, 2^32) and masks
@@ -21,7 +22,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cdiv", "pad_to", "threefry2x32", "bits_to_gaussian", "key_to_u32"]
+__all__ = [
+    "cdiv", "pad_to", "sqrt_tensor", "threefry2x32", "bits_to_gaussian", "key_to_u32",
+]
 
 _MASK = 0xFFFFFFFF
 _ROTS_A = (13, 15, 26, 6)
@@ -33,6 +36,18 @@ _TWO_PI_F32 = float(np.float32(2.0 * math.pi))
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def sqrt_tensor(k: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """√k in ``dtype`` as a 0-d tensor on ``device``, to divide by.
+
+    ``math.sqrt(k)`` rounded to f32 is the correctly rounded f32 square root
+    (53 ≥ 2·24 + 2 bits, so the double rounding is innocuous): the value of
+    the reference's ``jnp.sqrt(jnp.asarray(k, dtype))``.  A 0-d tensor on
+    the data's device keeps the quotient a true division; PyTorch turns a
+    division by a host scalar into a product with its reciprocal on CUDA.
+    """
+    return torch.tensor(math.sqrt(k), dtype=dtype, device=device)
 
 
 def pad_to(x: torch.Tensor, multiples: tuple[int, ...], value=0) -> torch.Tensor:

@@ -4,16 +4,24 @@ Replaces ``repro/kernels/countsketch/kernel.py:27`` (``countsketch_kernel``,
 launched at ``countsketch/ops.py:59``).  The TPU version is a blocked
 one-hot matmul, because the TPU has no scatter and no atomics.  On Hopper
 the apply is bound by reading A once, so the port sums each bucket's rows
-directly: :func:`countsketch_csr` sorts the rows by bucket once (a stable
-argsort plus offsets — index set-up, cached on the operator by
-``repro_torch.core.sketch.CountSketch``), and the kernel gives one thread
-to each (bucket, column) output.  It is deterministic and bitwise equal to
-the plain version run on the CPU.
+directly: :func:`countsketch_csr` sorts the entries by bucket once (a
+stable argsort plus offsets — index set-up, cached on the operator by
+``repro_torch.core.sketch``), and the kernel gives one thread to each
+(bucket, column) output.  It is deterministic and bitwise equal to the
+plain version run on the CPU.
+
+The same kernel applies the three bucket sketches: ``buckets`` and the
+weights ``signs`` are (m,) — one entry per row, the CountSketch (±1) and
+the uniform-sparse sketch (uniform weights) — or (k, m), the sparse-sign
+sketch's k ±1 entries per row (its 1/√k is the caller's).  The reference
+has no Pallas kernel for the two sparse kinds (``core/sketch.py:524``,
+``:596``); the port reuses B1 for them rather than ``index_add_``, whose
+atomics on CUDA sum in an order that changes from run to run.
 
 Contract (as the reference's): A is (m, n) or (m,); the result is (d, n)
-or (d,); f64 and f32 inputs keep their dtype, bf16 and f16 inputs give f32.
-A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-version of ``ref.py``.
+or (d,); f64 and f32 inputs keep their dtype, bf16 and f16 inputs give f32;
+the weights are rounded to A's dtype.  A CUDA tensor launches the kernel or
+raises; a CPU tensor runs the plain version of ``ref.py``.
 """
 from __future__ import annotations
 
@@ -28,35 +36,39 @@ __all__ = ["countsketch_apply", "countsketch_csr", "CountSketchCSR"]
 
 
 class CountSketchCSR(NamedTuple):
-    """Rows grouped by bucket, ascending within a bucket."""
+    """Entries grouped by bucket; within a bucket in (block, row) order."""
 
-    rows: torch.Tensor  # (m,) int32 — row ids sorted by bucket (stable)
-    signs: torch.Tensor  # (m,) signs in that order, in A's dtype
-    offsets: torch.Tensor  # (d + 1,) int64 — bucket k owns rows[off[k]:off[k+1]]
+    rows: torch.Tensor  # (nnz,) int32 — each entry's row of A, sorted by bucket (stable)
+    signs: torch.Tensor  # (nnz,) the entries' weights in that order, in A's dtype
+    offsets: torch.Tensor  # (d + 1,) int64 — bucket k owns entries [off[k], off[k+1])
 
 
 def countsketch_csr(
     buckets: torch.Tensor, signs: torch.Tensor, d: int, dtype: torch.dtype
 ) -> CountSketchCSR:
-    """Bucket → rows CSR of a CountSketch, on the buckets' device."""
-    m = buckets.shape[0]
+    """Bucket → entries CSR of a bucket sketch, on the buckets' device.
+
+    ``buckets`` and ``signs`` are (m,) or (k, m); entry (j, i) is row i's
+    j-th, and nnz = k·m.
+    """
+    m = buckets.shape[-1]
     if m >= 2**31:
         raise ValueError(f"the CSR stores int32 row ids; m = {m} is too large")
-    order = torch.sort(buckets.to(torch.int64), stable=True).indices
-    counts = torch.bincount(buckets.to(torch.int64), minlength=d)
+    flat = buckets.reshape(-1).to(torch.int64)
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.bincount(flat, minlength=d)
     offsets = torch.zeros(d + 1, dtype=torch.int64, device=buckets.device)
     torch.cumsum(counts, 0, out=offsets[1:])
     return CountSketchCSR(
-        rows=order.to(torch.int32),
-        signs=signs[order].to(dtype).contiguous(),
+        rows=(order % m).to(torch.int32),
+        signs=signs.reshape(-1)[order].to(dtype).contiguous(),
         offsets=offsets,
     )
 
 
-def _check_csr(csr: CountSketchCSR, A: torch.Tensor, d: int) -> None:
-    m = A.shape[0]
-    if csr.rows.shape != (m,) or csr.signs.shape != (m,):
-        raise ValueError(f"CSR covers {csr.rows.shape[0]} rows, A has {m}")
+def _check_csr(csr: CountSketchCSR, A: torch.Tensor, nnz: int, d: int) -> None:
+    if csr.rows.shape != (nnz,) or csr.signs.shape != (nnz,):
+        raise ValueError(f"CSR holds {csr.rows.shape[0]} entries, the sketch {nnz}")
     if csr.offsets.shape != (d + 1,):
         raise ValueError(f"CSR has {csr.offsets.shape[0] - 1} buckets, d = {d}")
     for name, t in csr._asdict().items():
@@ -82,10 +94,14 @@ def _prepare(name, A, buckets, signs, d, csr, ndims):
             f"{name}: A must have {' or '.join(map(str, ndims))} dims, "
             f"got shape {tuple(A.shape)}"
         )
-    if buckets.shape != (A.shape[0],) or signs.shape != (A.shape[0],):
+    if (
+        buckets.ndim not in (1, 2)
+        or buckets.shape[-1] != A.shape[0]
+        or signs.shape != buckets.shape
+    ):
         raise ValueError(
-            f"buckets/signs must be ({A.shape[0]},), got "
-            f"{tuple(buckets.shape)} and {tuple(signs.shape)}"
+            f"buckets/signs must both be ({A.shape[0]},) or (k, {A.shape[0]}), "
+            f"got {tuple(buckets.shape)} and {tuple(signs.shape)}"
         )
     if buckets.device != A.device or signs.device != A.device:
         raise ValueError(
@@ -100,7 +116,7 @@ def _prepare(name, A, buckets, signs, d, csr, ndims):
     A2 = (A[:, None] if A.ndim == 1 else A).contiguous()
     if csr is None:
         csr = countsketch_csr(buckets, signs, d, A.dtype)
-    _check_csr(csr, A2, d)
+    _check_csr(csr, A2, buckets.numel(), d)
     return code, A2, csr
 
 
@@ -112,8 +128,9 @@ def countsketch_apply(
     *,
     csr: CountSketchCSR | None = None,
 ) -> torch.Tensor:
-    """SA for the CountSketch (buckets, signs), through kernel B1 on CUDA.
+    """SA for the bucket sketch (buckets, signs), through kernel B1 on CUDA.
 
+    ``buckets``/``signs`` are (m,) or (k, m) (see the module docstring);
     ``csr`` is the operator's cached :func:`countsketch_csr` for A's dtype
     and device; it is built here when not given.
     """

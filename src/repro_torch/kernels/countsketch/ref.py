@@ -1,9 +1,14 @@
 """Plain PyTorch version of the CountSketch apply (kernel B1's oracle).
 
-A sequential ``index_add_`` of s ⊙ A into d buckets.  On the CPU the adds
-run in ascending row order, which is the order the CUDA kernel sums in, so
-the two agree bitwise in f64 and f32.  On a CUDA tensor ``index_add_``
-uses atomics and its order varies from run to run.
+A sequential ``index_add_`` of w ⊙ A into d buckets.  ``buckets`` and the
+weights ``signs`` are (m,) — one entry per row: the CountSketch (±1) and
+the uniform-sparse sketch (uniform weights) — or (k, m): k entries per row,
+the sparse-sign sketch, added block by block (k = 0 first).  On the CPU the
+adds run in that order and in ascending row order within a block, which is
+the order the CUDA kernel sums each bucket's entries in, and each product
+is rounded on its own in both, so the two agree bitwise in f64 and f32.  On
+a CUDA tensor ``index_add_`` uses atomics and its order varies from run to
+run.
 """
 from __future__ import annotations
 
@@ -20,11 +25,13 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 def countsketch_ref(
     A: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor, d: int
 ) -> torch.Tensor:
-    """SA for the CountSketch (buckets, signs); A is (m, n) or (m,)."""
+    """SA for the bucket sketch (buckets, signs), each (m,) or (k, m); A is
+    (m, n) or (m,).  The weights are rounded to A's dtype first, as the
+    kernel's CSR holds them (exact for ±1)."""
     acc = acc_dtype(A.dtype)
     vec = A.ndim == 1
-    A2 = A[:, None] if vec else A
-    contrib = signs.to(acc)[:, None] * A2.to(acc)
+    A2 = (A[:, None] if vec else A).to(acc)
     out = torch.zeros((d, A2.shape[1]), dtype=acc, device=A.device)
-    out.index_add_(0, buckets, contrib)
+    for h, s in zip(buckets.reshape(-1, A2.shape[0]), signs.reshape(-1, A2.shape[0])):
+        out.index_add_(0, h, s.to(A.dtype).to(acc)[:, None] * A2)
     return out[:, 0] if vec else out

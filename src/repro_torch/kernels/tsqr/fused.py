@@ -1,24 +1,27 @@
 """``sketch_qr`` — the fused sketch→QR pipeline entry point.
 
-Port of ``repro/kernels/tsqr/fused.py`` for the CountSketch, Gaussian and
-uniform-dense families.  One call produces the sketched factor (Q, R) and
-the sketch B = SA:
+Port of ``repro/kernels/tsqr/fused.py`` for every sketch kind.  One call
+produces the sketched factor (Q, R) and the sketch B = SA:
 
-- ``backend="auto"``, dense A with at most :data:`MAX_FUSED_COLS` columns
-  → the family's fused wrapper returns (B, G = BᵀB): kernel B3
+- ``backend="auto"``, dense A with at most :data:`MAX_FUSED_COLS` columns,
+  and a CountSketch, Gaussian, uniform-dense or SRHT operator → the
+  family's fused wrapper returns (B, G = BᵀB): kernel B3
   (:func:`countsketch_gram`), B5 (:func:`gaussian_gram`) or B7
-  (:func:`matmul_gram`), and the shifted-CholeskyQR3 finisher turns G
-  into R;
-- otherwise (``backend="reference"``, or a wider A) → the unfused sketch
-  apply, a library Gram ``BᵀB``, and the same finisher.
+  (:func:`matmul_gram`); for the SRHT, as in the reference, B8
+  (``srht_apply``) then B2 (``panel_gram``).  The shifted-CholeskyQR3
+  finisher turns G into R;
+- otherwise (``backend="reference"``, a wider A, or the sparse-sign,
+  uniform-sparse and stacked operators, which the reference does not fuse
+  either) → the unfused sketch apply, a library Gram ``BᵀB``, and the same
+  finisher.
 
 Both honour ``precision="mixed"`` (the apply and the Gram run on a
 bf16-rounded copy of A with f32 accumulation; Q, R and B come back in A's
 dtype).  On the fused route the uniform-dense S is rounded to A's dtype
 (bf16 under ``mixed``), as the reference's ``fused.py:265`` does; the
 port's unfused kernel route rounds it the same way (see
-``repro_torch.core.sketch.UniformDenseSketch``).  SRHT raises until its
-slice (ROADMAP A5, kernel B8).
+``repro_torch.core.sketch.UniformDenseSketch``).  Under ``mixed`` the SRHT
+half gives an f32 B where the reference's kernel gives bf16 (ROADMAP C).
 
 The three fused kernels share one design.  The TPU kernels keep each B
 panel in VMEM and fold it into G on the panel's last grid step, carrying
@@ -39,7 +42,8 @@ from ..countsketch.ref import acc_dtype
 from ..sketch_matmul.ops import _check_key, _check_S
 from ..sketch_matmul.ops import _prepare as _prepare_dense
 from ..sketch_matmul.ref import default_scale
-from .ops import MAX_FUSED_COLS, cholqr_finish
+from ..srht.ops import srht_apply
+from .ops import MAX_FUSED_COLS, cholqr_finish, panel_gram
 from .ref import countsketch_gram_ref, gaussian_gram_ref, matmul_gram_ref
 
 __all__ = ["sketch_qr", "countsketch_gram", "matmul_gram", "gaussian_gram"]
@@ -150,9 +154,8 @@ def sketch_qr(
 ):
     """Fused sketch→QR: ``(Q, R, B)`` with B = S·A = Q·R, diag(R) ≥ 0.
 
-    ``op`` is a ``repro_torch.core.sketch`` CountSketch, GaussianSketch or
-    UniformDenseSketch; ``A`` a dense matrix or ``repro_torch.core.linop``
-    operator.
+    ``op`` is any ``repro_torch.core.sketch`` operator; ``A`` a dense
+    matrix or ``repro_torch.core.linop`` operator.
     """
     from ...core import backend as backend_lib
     from ...core import linop
@@ -161,20 +164,21 @@ def sketch_qr(
 
     backend_lib.check_precision(precision)
     use_kernels = backend_lib.uses_kernels(backend)
-    families = (
-        sketch_lib.CountSketch, sketch_lib.GaussianSketch, sketch_lib.UniformDenseSketch,
-    )
-    if not isinstance(op, families):
-        raise NotImplementedError(
-            f"sketch_qr for {type(op).__name__} arrives with its sketch "
-            "family (ROADMAP A5: SRHT and the sparse kinds are the next slice)"
-        )
     A_op = linop.as_operator(A, device=device)
     working = A_op.dtype
     fusable = (
         use_kernels
         and isinstance(A_op, linop.DenseOperator)
         and A_op.shape[1] <= MAX_FUSED_COLS
+        and isinstance(
+            op,
+            (
+                sketch_lib.CountSketch,
+                sketch_lib.GaussianSketch,
+                sketch_lib.UniformDenseSketch,
+                sketch_lib.SRHTSketch,
+            ),
+        )
     )
     if fusable:
         A_arr = _lowp(A_op.A, True) if precision == "mixed" else A_op.A
@@ -184,8 +188,11 @@ def sketch_qr(
             )
         elif isinstance(op, sketch_lib.GaussianSketch):
             B, G = gaussian_gram(A_arr, op.key, op.d)
-        else:
+        elif isinstance(op, sketch_lib.UniformDenseSketch):
             B, G = matmul_gram(op.S, A_arr)
+        else:  # SRHT: the transform through B8, then B2's Gram
+            B = srht_apply(A_arr, op.signs, op.rows, op.d)
+            G = panel_gram(B)
         B = B.to(working)
         G = G.to(working)
     else:

@@ -84,11 +84,18 @@ def _convert(op_j, kind, stored=True):
 
 
 def test_dense_kinds_registered_and_later_kinds_raise():
+    """The dense kinds are registered; the kinds of the later slice now are
+    too (every name of the reference's SKETCH_KINDS draws), and only an
+    unknown name raises."""
     assert SKETCH_KINDS["gaussian"] is GaussianSketch
     assert SKETCH_KINDS["uniform_dense"] is UniformDenseSketch
+    assert set(SKETCH_KINDS) == set(jsketch.SKETCH_KINDS)
     for kind in ("srht", "sparse_sign", "uniform_sparse"):
-        with pytest.raises(NotImplementedError, match="A5"):
-            sample_sketch(kind, 0, 8, 64, device=CPU)
+        op = sample_sketch(kind, 0, 8, 64, device=CPU)
+        assert type(op).__name__ == jsketch.SKETCH_KINDS[kind].__name__
+        assert (op.d, op.m) == (8, 64)
+    with pytest.raises(ValueError, match="unknown sketch kind"):
+        sample_sketch("hadamard", 0, 8, 64, device=CPU)
 
 
 @pytest.mark.parametrize("backend", ["auto", "reference"])

@@ -85,7 +85,10 @@ def _entry_points():
         CountSketch,
         GaussianSketch,
         SketchedFactor,
+        SparseSignSketch,
+        SRHTSketch,
         UniformDenseSketch,
+        UniformSparseSketch,
         as_operator,
         estimate_2norm,
         generate_problem,
@@ -112,6 +115,20 @@ def _entry_points():
         "GaussianSketch.sample": lambda: GaussianSketch.sample(0, 20, 200),
         "UniformDenseSketch.sample": lambda: UniformDenseSketch.sample(0, 20, 200),
         "lstsq_gaussian": lambda: lstsq(A, b, 0, method="saa", sketch="gaussian"),
+        "SRHTSketch.sample": lambda: SRHTSketch.sample(0, 20, 200),
+        "SparseSignSketch.sample": lambda: SparseSignSketch.sample(0, 20, 200),
+        "UniformSparseSketch.sample": lambda: UniformSparseSketch.sample(0, 20, 200),
+        "lstsq_srht": lambda: lstsq(A, b, 0, method="saa", sketch="srht"),
+        "lstsq_sparse_sign": lambda: lstsq(A, b, 0, method="saa", sketch="sparse_sign"),
+        "srht_from_reference": lambda: convert.srht_from_reference(
+            np.ones(4), np.zeros(2, np.int32), 2, 3
+        ),
+        "sparse_sign_from_reference": lambda: convert.sparse_sign_from_reference(
+            np.zeros((2, 3), np.int32), np.ones((2, 3)), 2, 2
+        ),
+        "uniform_sparse_from_reference": lambda: convert.uniform_sparse_from_reference(
+            np.zeros(3, np.int32), np.ones(3), 2
+        ),
         "as_operator": lambda: as_operator(A),
         "estimate_2norm": lambda: estimate_2norm(A, 0),
         "tsqr": lambda: tsqr(A),
@@ -157,9 +174,11 @@ def test_wrappers_refuse_other_devices():
         countsketch_gram,
         fused_gaussian_sketch,
         gaussian_gram,
+        hadamard_transform,
         matmul_gram,
         panel_gram,
         sketch_matmul,
+        srht_apply,
         threefry_bits,
     )
 
@@ -183,3 +202,7 @@ def test_wrappers_refuse_other_devices():
         gaussian_gram(A, (0, 0), 4)
     with pytest.raises(ValueError):
         threefry_bits((0, 0), 0, 0, 2, 2, "cpu")
+    with pytest.raises(ValueError):
+        hadamard_transform(A)
+    with pytest.raises(ValueError):
+        srht_apply(A, torch.ones(8, device="meta"), torch.zeros(2, dtype=torch.int64, device="meta"), 2)

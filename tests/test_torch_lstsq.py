@@ -175,7 +175,7 @@ class _RowSource:
         (dict(reg=0.1), "A8"),
         (dict(cluster=object()), "A11"),
         (dict(trace=True), "A4"),
-        (dict(sketch="srht", method="saa"), "A5"),
+        (dict(certified_probes=4), "A6"),
     ],
 )
 def test_unported_options_raise(big, kw, slice_):

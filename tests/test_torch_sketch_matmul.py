@@ -41,12 +41,14 @@ from repro_torch.kernels import (  # noqa: E402
     gaussian_cols_ref,
     gaussian_gram,
     gaussian_matrix_ref,
+    hadamard_transform,
     key_to_u32,
     matmul_gram,
     panel_gram_ref,
     reset_launches,
     sketch_matmul,
     sketch_matmul_ref,
+    srht_apply,
     threefry2x32,
 )
 
@@ -247,7 +249,9 @@ def test_plain_versions_do_not_count_launches():
     fused_gaussian_sketch(A, (1, 2), 8)
     gaussian_gram(A, (1, 2), 8)
     matmul_gram(torch.randn(8, 64, dtype=torch.float64), A)
-    assert [f.launches for f in KERNELS] == [0] * len(KERNELS) == [0] * 7
+    hadamard_transform(A)
+    srht_apply(A, torch.ones(64, dtype=torch.float64), torch.arange(8), 8)
+    assert [f.launches for f in KERNELS] == [0] * len(KERNELS) == [0] * 9
 
 
 def test_wrappers_check_their_inputs():
