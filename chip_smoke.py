@@ -38,15 +38,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
 half inputs (f32 out), and B1 bitwise against the CPU on the sparse-sign
-CSR (k·m entries) and on uniform weights.
+CSR (k·m entries) and on uniform weights.  It drives the f64 tensor-core
+engine of B6 and B2 (``csrc/dense_mma.cuh``) at each edge of its design
+(ragged d, n, m and s; m and s shorter than one ring stage; both sides of a
+change of the split plan; n = 2..8 and odd n; operands not 16-byte
+aligned), holds each call to the same bounds, checks that two calls are
+bitwise equal, and that B7's B is bitwise B6's there.  Phases 7 and 8 print
+each kernel's TFLOP/s and its share of its bound beside its time.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels, draws the
 main problem and traces one warm plain, one warm fused and one warm SRHT
 solve with ``torch.profiler``: device time by kernel and the device's busy
 share of the wall time (the breakdown in PERF.md).  Then it times the warm
 main solve at the paper's size and at a smaller, host-bound size, and
-traces one warm Gaussian and one warm uniform-dense solve at m = 2^16.  It
-prints no result line.
+traces one warm Gaussian, uniform-dense (plain and fused) and CountSketch
+solve at m = 2^16.  Each trace lists its 15 longest rows and every kernel
+of the port, so the tensor-core kernels show by name.  It prints no result
+line.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after.  TF32 is off for matmuls and cuDNN, so f32 products run in
@@ -131,6 +139,14 @@ def _bound(ops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _rates(t, ops):
+    """Add a timing's TFLOP/s (``ops`` over ``t["ms"]``) and its share of
+    its bound (``bound_ms / ms``)."""
+    t["tflops"] = ops / t["ms"] / 1e9
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    return t
+
+
 def _check_gram(torch, G, G_ref, B, what):
     """Raise unless G is exactly symmetric and within 2·γ_s·(|B|ᵀ|B|) of the
     plain Gram ``G_ref`` of the same B (s = B's rows); return max|Δ|."""
@@ -199,6 +215,7 @@ def main() -> int:
         threefry_bits,
         tsqr,
     )
+    from repro_torch.kernels.common import gram_split, sketch_split, sm_count
     from repro_torch.kernels.sketch_matmul import default_scale
 
     dev = torch.device("cuda")
@@ -380,6 +397,72 @@ def main() -> int:
             errs[name] = max(errs[name], err)
             _p(f"phase 2: {name} {str(dtype)[6:]} A({m}, {n}) d={d}: B bitwise = unfused kernel; "
                f"G max|Δ| vs plain Gram {err:.3e} (tol 2γ_d|B|ᵀ|B|), exactly symmetric")
+
+    # B6 and B2 in f64 run on the tensor-core engine (csrc/dense_mma.cuh):
+    # shapes at each edge of its design, held to the same bounds, each
+    # called twice (the split's partials are added in a fixed order, with no
+    # atomics, so the two calls are bitwise equal).  Edges: d and n not
+    # multiples of the block tile; m and s not multiples of the ring's
+    # stage; m and s shorter than one stage; lengths on both sides of a
+    # change of the split plan; n = 2..8 and odd n (8-byte copies);
+    # operands whose first element is not 16-byte aligned (8-byte copies on
+    # every row); n = MAX_FUSED_COLS is in the lists above and below.
+    sms = sm_count(dev)
+
+    def plan_edge(parts_of, start):
+        """The lengths on both sides of the last change of the split plan's
+        slab count ``parts_of(length)`` at or below ``start``."""
+        parts = parts_of(start)
+        edge = start
+        while edge > 1 and parts_of(edge - 1) == parts:
+            edge -= 1
+        return [edge - 1, edge] if edge > 1 else [edge]
+
+    def misaligned(*shape):
+        """A contiguous f64 tensor whose data starts 8 bytes past a 16-byte boundary."""
+        flat = torch.randn(math.prod(shape) + 1, generator=gen, dtype=torch.float64, device=dev)
+        return flat[1:].view(shape)
+
+    sketch_shapes = [(300, 1007, 130), (37, 5, 3), (200, 9, 17), (129, 4096, 257)]
+    sketch_shapes += [(100, 300, n) for n in range(2, 9)]
+    sketch_shapes += [(300, m, 130) for m in plan_edge(
+        lambda m: sketch_split(torch.float64, 300, m, 130, sms).parts, 700)]
+    for d, m, n in sketch_shapes + [("misaligned", 501, 33)]:
+        if d == "misaligned":
+            d, S, A = 77, misaligned(77, m), misaligned(m, n)
+        else:
+            S = torch.randn((d, m), generator=gen, dtype=torch.float64, device=dev)
+            A = torch.randn((m, n), generator=gen, dtype=torch.float64, device=dev)
+        out = sketch_matmul(S, A)
+        err6 = check_product(f"B6 engine S({d}, {m}) A({m}, {n})", out, sketch_matmul_ref(S, A), S, A, m)
+        if not torch.equal(out, sketch_matmul(S, A)):
+            raise AssertionError(f"B6 engine S({d}, {m}) A({m}, {n}): two calls differ")
+        errs["sketch_matmul"] = max(errs["sketch_matmul"], err6)
+        B, G = matmul_gram(S, A)
+        if not torch.equal(B, out):
+            raise AssertionError(f"B7 at S({d}, {m}) A({m}, {n}): B differs from B6's")
+        errs["matmul_gram"] = max(errs["matmul_gram"], _check_gram(torch, G, panel_gram_ref(B), B, "B7 G"))
+        split = sketch_split(torch.float64, d, m, n, sms)
+        _p(f"phase 2: B6 engine S({d}, {m}) A({m}, {n}) f64{' misaligned' if S.data_ptr() % 16 else ''}, "
+           f"split (slab, parts) {split[:2]}: max|Δ| vs card plain {err6:.3e} (tol 2γ_m|S||A|); "
+           f"two calls bitwise equal; B7's B bitwise B6's, its G exactly symmetric")
+    gram_shapes = [(4000, 130), (1007, 777), (3, 5), (9, 70), (333, 1)]
+    gram_shapes += [(300, n) for n in range(2, 9)]
+    gram_shapes += [(s_rows, n) for n, start in ((130, 500), (1000, 4000)) for s_rows in plan_edge(
+        lambda s_rows: gram_split(torch.float64, s_rows, n, sms).parts, start)]
+    for s_rows, n in gram_shapes + [("misaligned", 65)]:
+        if s_rows == "misaligned":
+            s_rows, B = 1001, misaligned(1001, n)
+        else:
+            B = torch.randn((s_rows, n), generator=gen, dtype=torch.float64, device=dev)
+        G = panel_gram(B)
+        err = _check_gram(torch, G, panel_gram_ref(B), B, f"B2 engine B({s_rows}, {n})")
+        if not torch.equal(G, panel_gram(B)):
+            raise AssertionError(f"B2 engine B({s_rows}, {n}): two calls differ")
+        errs["panel_gram"] = max(errs["panel_gram"], err)
+        _p(f"phase 2: B2 engine B({s_rows}, {n}) f64{' misaligned' if B.data_ptr() % 16 else ''}, split "
+           f"(slab, parts) {gram_split(torch.float64, s_rows, n, sms)[:2]}: max|Δ| vs card plain {err:.3e} "
+           f"(tol 2γ_s|B|ᵀ|B|), exactly symmetric, two calls bitwise equal")
 
     # B1 on the sparse sketches' CSRs: the sparse-sign sketch's k·m ±1
     # entries (k = 8) and the uniform-sparse sketch's uniform weights.
@@ -582,7 +665,11 @@ def main() -> int:
     )
     bytes3 = bytes1 + N_MAIN * N_MAIN * esz
     t3["bound_ms"], t3["bound_by"] = _bound(M_MAIN * N_MAIN + ops2, bytes3)
-    _p(f"phase 7: B1 {t1}; B2 {t2}; B3 {t3} (ms; f64, m=2^20, n=1000, d=4000; card: {smi})")
+    _rates(t1, M_MAIN * N_MAIN)
+    _rates(t2, ops2)
+    _rates(t3, M_MAIN * N_MAIN + ops2)
+    _p(f"phase 7: B1 {t1}; B2 {t2}; B3 {t3} (ms, TFLOP/s, share of the bound; f64, m=2^20, n=1000, "
+       f"d=4000; card: {smi})")
     del SA, Sb, Q2, R2, G_ref, csr, h, s, res, res_f, A_f
     torch.cuda.empty_cache()
 
@@ -819,14 +906,15 @@ def main() -> int:
          None, ops_p + ops_g, bytes_s + bytes_a + bytes_b + bytes_g),
     ]:
         bound_ms, bound_by = _bound(ops, nbytes)
-        t_dense[name] = dict(
+        t_dense[name] = _rates(dict(
             ms=_event_ms(torch, fn), plain_ms=_event_ms(torch, plain),
             library_ms=None if library is None else _event_ms(torch, library),
             bound_ms=bound_ms, bound_by=bound_by,
-        )
+        ), ops)
     t_dense["fused_gaussian_sketch"]["vec_ms"] = _event_ms(torch, lambda: fused_gaussian_sketch(b8, key8, d8))
     t_dense["sketch_matmul"]["vec_ms"] = _event_ms(torch, lambda: sketch_matmul(S_u, b8))
-    _p(f"phase 8: kernel times (ms; f64, m=2^16, n=1000, d=4000; B4's library_ms is S @ A on an S "
+    _p(f"phase 8: kernel times (ms, TFLOP/s, share of the bound; f64, m=2^16, n=1000, d=4000; "
+       f"B4's library_ms is S @ A on an S "
        f"generated beforehand, the product half only; card: {smi}): {json.dumps(t_dense)}")
     del S_g, S_u, p8, A8, b8
     torch.cuda.empty_cache()
@@ -918,7 +1006,10 @@ def _trace(torch, label, fn):
     busy = sum(r[0] for r in rows) / 1e6
     _p(f"profile {label}: wall {wall:.4f} s, device busy {busy:.4f} s "
        f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
-    for dev_us, count, key in rows[:15]:
+    # the 15 longest rows, and every kernel of the port (all in a top-level
+    # anonymous namespace) however short
+    own = [r for r in rows[15:] if r[2].startswith("void (anonymous namespace)::")]
+    for dev_us, count, key in rows[:15] + own:
         _p(f"profile {label}: {dev_us / 1e3:10.3f} ms {count:6d}x  {key[:110]}")
 
 
@@ -948,6 +1039,8 @@ def _profile(torch, dev, generate_problem, lstsq) -> int:
     p = generate_problem(gen, M_DENSE, N_MAIN, cond=COND, beta=BETA, device=dev)
     for sketch in ("gaussian", "uniform_dense", "clarkson_woodruff"):
         _trace(torch, f"m=2^16 sketch={sketch}", lambda: lstsq(p.A, p.b, gen, method="saa", sketch=sketch))
+    _trace(torch, "m=2^16 sketch=uniform_dense fused=True",
+           lambda: lstsq(p.A, p.b, gen, method="saa", sketch="uniform_dense", fused=True))
     return 0
 
 

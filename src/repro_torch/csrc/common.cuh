@@ -37,6 +37,6 @@ __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
 }
 
-inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+__host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 }  // namespace

@@ -15,15 +15,17 @@
 #include "countsketch.cuh"
 #include "gram.cuh"
 
-extern "C" int repro_countsketch_gram(int dtype, const void* A,
-                                      const void* rows, const void* sgn,
-                                      const void* offsets, void* B, void* G,
-                                      int64_t d, int64_t n, void* stream) {
+// The f64 Gram's sum over d runs in `parts` slabs of `slab` rows (the
+// wrapper's split plan); with parts > 1 the partials go to `scratch`.
+extern "C" int repro_countsketch_gram(int dtype, const void* A, const void* rows,
+                                      const void* sgn, const void* offsets, void* B, void* G,
+                                      void* scratch, int64_t d, int64_t n, int64_t slab,
+                                      int64_t parts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dispatch_countsketch(dtype, A, rows, sgn, offsets, B, d, n, st);
   if (err != cudaSuccess) return (int)err;
   // B is in the accumulation dtype: f64 for f64 input, f32 otherwise.
   const int acc_dtype = dtype == kF64 ? kF64 : kF32;
-  return (int)dispatch_gram(acc_dtype, B, G, d, n, st);
+  return (int)dispatch_gram(acc_dtype, B, G, scratch, d, n, slab, parts, st);
 }

@@ -1,26 +1,35 @@
-// Dense sketch apply out = S (d, m) * A (m, n): one tiled product for
-// kernels B4 (S generated in the kernel) and B6 (S read from memory).
+// Dense sketch apply out = S (d, m) * A (m, n): kernels B4 (S generated in
+// the kernel) and B6 (S read from memory).
 //
 // Replaces the TPU kernels repro/kernels/sketch_matmul/kernel.py:27
 // (matmul_kernel) and :40 (fused_gaussian_kernel), which accumulate an
-// output block in VMEM over a sequential m grid on the MXU.  On Hopper
-// blocks run in parallel, so each block owns one 128 x 128 output tile and
-// loops over m itself, in chunks of 16: it stages the (128 x 16) S tile and
-// the (16 x 128) A tile in shared memory (32 KB in f64) and every thread
-// keeps an 8 x 8 register micro-tile, with the rows and columns of a
-// micro-tile 16 apart so that shared-memory reads and global stores of a
-// warp fall on consecutive addresses.  Each output is one FMA chain over
-// k = 0 .. m-1 in order: no atomics, no split of m across blocks, and the
-// result is deterministic.  Index arithmetic is 64-bit.
+// output block in VMEM over a sequential m grid on the MXU.
 //
 // The work is 2*d*m*n operations (5.2e11 at d = 4000, m = 2^16, n = 1000)
 // against d*m + m*n + d*n elements moved (B6) or m*n + d*n (B4), so both
-// are bound by operations on this card.  This first version runs on the
-// FMA pipes, not the f64 tensor cores, and does not overlap the loads of
-// the next chunk with the products of this one; PERF.md has its time
-// against the bound.
+// are bound by operations on this card.
 //
-// Where the S tile comes from is the template argument Src:
+// B6 in f64 (n >= 2) runs on the FP64 tensor cores: dense_mma.cuh's engine
+// with 128 x 128 block tiles, sixteen warps of 32 x 32, and a 4-stage
+// cp.async ring (X = S^T, whose tile is read along m).  The f64 sum may be
+// split along m by the wrapper's plan; the partials are added in a fixed
+// order, so the result is deterministic.
+//
+// Every other route runs dense_sketch_tile_kernel below on the FMA pipes:
+// f32, because the tensor cores have no f32 product that keeps f32
+// accuracy (TF32 would break the 2*gamma_m*|S||A| bound); bf16/f16 inputs
+// (f32 sums); and B4 in every dtype.  Each block owns one 128 x 128 output
+// tile and loops over m itself, in chunks of 16: it stages the (128 x 16) S
+// tile and the (16 x 128) A tile in shared memory and every thread keeps
+// an 8 x 8 register micro-tile, with the rows and columns of a micro-tile
+// 16 apart so that shared-memory reads and global stores of a warp fall on
+// consecutive addresses.  Each output is one FMA chain over k = 0 .. m-1
+// in order: no atomics, no split of m, and the result is deterministic.
+// It does not overlap the loads of the next chunk with the products of
+// this one; PERF.md has its times against the bound.  Index arithmetic is
+// 64-bit.
+//
+// Where the S tile of that loop comes from is the template argument Src:
 //  - MatrixTile (B6): S row-major in A's dtype, read once per n-block.
 //  - GaussianTile (B4): element (i, j) from threefry2x32(k0, k1, i, j) and
 //    Box-Muller in f32, times the f32 scale, then cast to A's dtype (bf16
@@ -31,11 +40,13 @@
 //    so every element is generated cdiv(n, 128) times (8 at n = 1000).
 //
 // A vector (n = 1, the right-hand side b) uses dense_sketch_vec_kernel
-// instead: one warp per output row sums its row in a fixed lane-strided
-// order and a fixed xor-butterfly, so b is not padded to a 128-wide tile.
+// instead, in every dtype: one warp per output row sums its row in a fixed
+// lane-strided order and a fixed xor-butterfly, so b is not padded to a
+// 128-wide tile.
 #pragma once
 
 #include "common.cuh"
+#include "dense_mma.cuh"
 #include "threefry.cuh"
 
 namespace {
@@ -45,6 +56,11 @@ constexpr int kSketchTileN = 128;  // output columns of a block
 constexpr int kSketchTileK = 16;   // depth of one shared-memory stage
 constexpr int kSketchThreads = 256;
 constexpr int kSketchMicro = 8;    // 8 x 8 outputs per thread, 16 apart
+
+// B6's f64 engine: 128 x 128 tiles, 4 x 4 warps of 32 x 32, a 4-stage
+// ring, one block an SM.
+constexpr int kSketchMmaTile = 128;
+using SketchMma = MmaShape<kSketchMmaTile, kSketchMmaTile, 4, 4, 4, 1>;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x) {
@@ -183,13 +199,19 @@ cudaError_t launch_dense_sketch(Src src, const void* A, void* out, int64_t d,
 }
 
 // dtype code of A -> (input type, accumulator type): half inputs sum in
-// f32.  S is in A's dtype.
-inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S,
-                                          const void* A, void* out, int64_t d,
-                                          int64_t m, int64_t n,
-                                          cudaStream_t stream) {
+// f32.  S is in A's dtype.  An f64 matrix goes to the tensor-core engine,
+// its sum over m cut into `parts` slabs of `slab` rows (partials in
+// `scratch` when parts > 1).
+inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S, const void* A, void* out,
+                                          void* scratch, int64_t d, int64_t m, int64_t n,
+                                          int64_t slab, int64_t parts, cudaStream_t stream) {
   switch (dtype) {
     case kF64:
+      if (d > 0 && n > 1)
+        return launch_dmma_sketch<SketchMma>(
+            static_cast<const double*>(S), static_cast<const double*>(A),
+            static_cast<double*>(out), static_cast<double*>(scratch), d, m, n, slab, parts,
+            stream);
       return launch_dense_sketch<double, double>(
           MatrixTile<double>{static_cast<const double*>(S), m}, A, out, d, m, n, stream);
     case kF32:

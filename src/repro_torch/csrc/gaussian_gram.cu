@@ -13,14 +13,16 @@
 #include "dense_sketch.cuh"
 #include "gram.cuh"
 
-extern "C" int repro_gaussian_gram(int dtype, uint32_t k0, uint32_t k1,
-                                   float scale, const void* A, void* B,
-                                   void* G, int64_t d, int64_t m, int64_t n,
+// The f64 Gram's sum over d runs in `parts` slabs of `slab` rows (the
+// wrapper's split plan); with parts > 1 the partials go to `scratch`.
+extern "C" int repro_gaussian_gram(int dtype, uint32_t k0, uint32_t k1, float scale,
+                                   const void* A, void* B, void* G, void* scratch, int64_t d,
+                                   int64_t m, int64_t n, int64_t slab, int64_t parts,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dispatch_fused_gaussian(dtype, k0, k1, scale, A, B, d, m, n, st);
   if (err != cudaSuccess) return (int)err;
   const int acc_dtype = dtype == kF64 ? kF64 : kF32;
-  return (int)dispatch_gram(acc_dtype, B, G, d, n, st);
+  return (int)dispatch_gram(acc_dtype, B, G, scratch, d, n, slab, parts, st);
 }

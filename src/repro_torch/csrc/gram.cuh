@@ -5,26 +5,41 @@
 // (panel_gram_kernel), which accumulates B^T B over row panels held in VMEM
 // across a sequential grid.  On Hopper the Gram is bound by operations
 // (s*n*(n+1) multiply-adds for the symmetric result) once n is more than a
-// few dozen, so this kernel computes only the upper-triangle 64x64 tiles
-// (ti <= tj) and mirrors each off-diagonal tile into the lower triangle,
-// which halves the work of a full product.  Each block stages a 16-row
-// slab of both column panels in shared memory (2 * 16 * 64 elements, 16 KB
-// in f64) and every thread keeps a 4x4 register micro-tile, with the rows
-// and columns of a micro-tile 16 apart so that shared-memory reads and the
-// upper-triangle stores of a warp fall on consecutive addresses.  The sum
-// over s runs inside the block, in one fixed order: no atomics, no split
-// across blocks, and the result is exactly symmetric (the diagonal tiles
-// compute (i, j) and (j, i) with the same products in the same order).
-// This is the simple first version: plain FMA pipes, no tensor cores, no
-// TMA; its time against the bound is in PERF.md.
+// few dozen, so both routes compute only the upper-triangle 64x64 tiles
+// (ti <= tj), which halves the work of a full product, and write each
+// value at (i, j) and (j, i); a diagonal tile keeps only its entries with
+// i <= j.  G is therefore exactly symmetric.
+//
+// f64 runs on the FP64 tensor cores: dense_mma.cuh's engine with X = Y = B,
+// 64 x 64 tiles, four warps of 32 x 32, a 4-stage cp.async ring and three
+// blocks an SM.  At n = 1000 there are 136 upper tiles, about one per SM,
+// each with s = 4000 rows to walk, so the wrapper's plan splits s into
+// slabs; a second kernel adds the partials in slab order and mirrors them.
+// No atomics: the result is bitwise the same from run to run.
+//
+// f32 (also the Gram of the f32 B of B3, B5 and B7 for half inputs) runs
+// gram_upper_kernel below on the FMA pipes: the tensor cores have no f32
+// product that keeps f32 accuracy.  Each block stages a 16-row slab of both
+// column panels in shared memory and every thread keeps a 4x4 register
+// micro-tile, with the rows and columns of a micro-tile 16 apart so that
+// shared-memory reads and the upper-triangle stores of a warp fall on
+// consecutive addresses.  The sum over s runs inside the block, in one
+// fixed order, and the diagonal tiles compute (i, j) and (j, i) with the
+// same products in the same order.
 #pragma once
 
 #include "common.cuh"
+#include "dense_mma.cuh"
 
 namespace {
 
 constexpr int kGramTile = 64;
 constexpr int kGramK = 16;
+
+// B2's f64 engine: 64 x 64 tiles, 2 x 2 warps of 32 x 32, a 4-stage ring,
+// three blocks an SM.
+constexpr int kGramMmaTile = kGramTile;
+using GramMma = MmaShape<kGramMmaTile, kGramMmaTile, 2, 2, 4, 3>;
 
 template <typename T, typename Acc>
 __global__ void __launch_bounds__(256)
@@ -101,11 +116,15 @@ cudaError_t launch_gram(const void* B, void* G, int64_t s, int64_t n,
 }
 
 // dtype code of B -> (input type, accumulator type): half inputs sum in f32.
-inline cudaError_t dispatch_gram(int dtype, const void* B, void* G, int64_t s,
-                                 int64_t n, cudaStream_t stream) {
+// f64 goes to the tensor-core engine, its sum over s cut into `parts`
+// slabs of `slab` rows (partials in `scratch` when parts > 1).
+inline cudaError_t dispatch_gram(int dtype, const void* B, void* G, void* scratch, int64_t s,
+                                 int64_t n, int64_t slab, int64_t parts, cudaStream_t stream) {
   switch (dtype) {
     case kF64:
-      return launch_gram<double, double>(B, G, s, n, stream);
+      if (n < 1) return cudaGetLastError();
+      return launch_dmma_gram<GramMma>(static_cast<const double*>(B), static_cast<double*>(G),
+                                       static_cast<double*>(scratch), s, n, slab, parts, stream);
     case kF32:
       return launch_gram<float, float>(B, G, s, n, stream);
     case kBF16:

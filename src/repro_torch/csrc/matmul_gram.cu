@@ -11,16 +11,22 @@
 // The read-back of B is d*n elements against the d*m + m*n the product
 // reads (0.3% at d = 4000, m = 2^16, n = 1000).  Both halves are
 // deterministic, so B is bitwise B6's output and G is exactly symmetric.
+// In f64 each half runs on the tensor-core engine with its own split plan
+// (slab_b/parts_b over m, slab_g/parts_g over d); the two share `scratch`,
+// which the stream's order frees for the Gram once B6's partials are
+// summed.
 #include "dense_sketch.cuh"
 #include "gram.cuh"
 
-extern "C" int repro_matmul_gram(int dtype, const void* S, const void* A,
-                                 void* B, void* G, int64_t d, int64_t m,
-                                 int64_t n, void* stream) {
+extern "C" int repro_matmul_gram(int dtype, const void* S, const void* A, void* B, void* G,
+                                 void* scratch, int64_t d, int64_t m, int64_t n,
+                                 int64_t slab_b, int64_t parts_b, int64_t slab_g,
+                                 int64_t parts_g, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dispatch_sketch_matmul(dtype, S, A, B, d, m, n, st);
+  cudaError_t err =
+      dispatch_sketch_matmul(dtype, S, A, B, scratch, d, m, n, slab_b, parts_b, st);
   if (err != cudaSuccess) return (int)err;
   // B is in the accumulation dtype: f64 for f64 input, f32 otherwise.
   const int acc_dtype = dtype == kF64 ? kF64 : kF32;
-  return (int)dispatch_gram(acc_dtype, B, G, d, n, st);
+  return (int)dispatch_gram(acc_dtype, B, G, scratch, d, n, slab_g, parts_g, st);
 }

@@ -1,9 +1,11 @@
 // C entry for kernel B6 (dense S * A); the kernel is in dense_sketch.cuh.
 #include "dense_sketch.cuh"
 
-extern "C" int repro_sketch_matmul(int dtype, const void* S, const void* A,
-                                   void* out, int64_t d, int64_t m, int64_t n,
-                                   void* stream) {
-  return (int)dispatch_sketch_matmul(dtype, S, A, out, d, m, n,
+// The f64 sum over m runs in `parts` slabs of `slab` rows (the wrapper's
+// split plan); with parts > 1 the partials go to `scratch`.
+extern "C" int repro_sketch_matmul(int dtype, const void* S, const void* A, void* out,
+                                   void* scratch, int64_t d, int64_t m, int64_t n,
+                                   int64_t slab, int64_t parts, void* stream) {
+  return (int)dispatch_sketch_matmul(dtype, S, A, out, scratch, d, m, n, slab, parts,
                                      static_cast<cudaStream_t>(stream));
 }

@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load", "check", "dtype_code", "stream_ptr", "BUILD_DIR", "CSRC"]
+__all__ = ["load", "check", "dtype_code", "stream_ptr", "ptr", "BUILD_DIR", "CSRC"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -52,12 +52,16 @@ _F32 = ctypes.c_float
 _F64 = ctypes.c_double
 _SIGNATURES = {
     "repro_countsketch_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _P],
-    "repro_panel_gram": [_I, _P, _P, _I64, _I64, _P],
-    "repro_countsketch_gram": [_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
-    "repro_sketch_matmul": [_I, _P, _P, _P, _I64, _I64, _I64, _P],
+    "repro_panel_gram": [_I, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "repro_countsketch_gram": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "repro_sketch_matmul": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "repro_fused_gaussian": [_I, _U32, _U32, _F32, _P, _P, _I64, _I64, _I64, _P],
-    "repro_matmul_gram": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
-    "repro_gaussian_gram": [_I, _U32, _U32, _F32, _P, _P, _P, _I64, _I64, _I64, _P],
+    "repro_matmul_gram": [
+        _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P,
+    ],
+    "repro_gaussian_gram": [
+        _I, _U32, _U32, _F32, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
+    ],
     "repro_threefry_bits": [_U32, _U32, _I64, _I64, _I64, _I64, _P, _P, _P],
     "repro_hadamard": [_I, _P, _P, _I64, _I64, _P],
     "repro_srht_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F64, _P],
@@ -74,6 +78,11 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device pointer, or NULL for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _nvcc() -> str:

@@ -3,7 +3,9 @@
 Port of ``repro/kernels/common.py``: ``cdiv``, ``pad_to``, the counter-based
 ``threefry2x32`` behind the Gaussian sketch, ``bits_to_gaussian`` and
 ``key_to_u32``; plus ``sqrt_tensor``, the divisor of the SRHT and
-sparse-sign scales.
+sparse-sign scales, and the split plan of the f64 tensor-core engine
+(``csrc/dense_mma.cuh``) behind kernels B6 and B2: :func:`split_plan`,
+:func:`sketch_split` and :func:`gram_split`.
 
 PyTorch has no uint32 ``+``, ``<<`` or ``>>`` on CPU tensors, so the plain
 threefry works on int64 tensors holding values in [0, 2^32) and masks
@@ -16,7 +18,9 @@ kernels use the same arithmetic in ``csrc/threefry.cuh``.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,6 +28,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "cdiv", "pad_to", "sqrt_tensor", "threefry2x32", "bits_to_gaussian", "key_to_u32",
+    "MMA_STEP", "SKETCH_MMA_TILE", "GRAM_MMA_TILE", "Split", "split_plan", "sketch_split",
+    "gram_split", "sm_count", "scratch_for",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -36,6 +42,98 @@ _TWO_PI_F32 = float(np.float32(2.0 * math.pi))
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# The f64 tensor-core engine of csrc/dense_mma.cuh, as its C sources set it
+# (tests/test_torch_split_plan.py holds these equal to kMmaStep,
+# kSketchMmaTile and kGramMmaTile): rows of the reduction in one ring
+# stage, and the square block tiles of B6 and B2.
+MMA_STEP = 16
+SKETCH_MMA_TILE = 128
+GRAM_MMA_TILE = 64
+# Bounds of the plan: at most MAX_PARTS slabs; each block pays about
+# PART_OVERHEAD stages of set-up (the ring's fill, the partial's store);
+# one more slab must gain at least PART_GAIN of the modelled time, since
+# its partial tiles are written and read once more.
+MAX_PARTS = 16
+PART_OVERHEAD = 4
+PART_GAIN = 1 / 8
+
+
+class Split(NamedTuple):
+    """The split of one engine product's reduction, as its C entry takes it."""
+
+    slab: int  # rows of the reduction in each slab (a multiple of MMA_STEP)
+    parts: int  # slabs; the last one may be shorter
+    scratch: int  # f64 elements of partial tiles the call needs (0 when parts == 1)
+
+
+def split_plan(length: int, tiles: int, sms: int, step: int = MMA_STEP) -> tuple[int, int]:
+    """``(slab, parts)``: cut a reduction of ``length`` rows into ``parts``
+    slabs of ``slab`` rows, the last one shorter, for ``tiles`` output tiles
+    on ``sms`` SMs.
+
+    Every slab but the last is a whole number of ``step``-row stages, and
+    none is empty.  The modelled time of ``parts`` slabs is the blocks of
+    the busiest SM, ``cdiv(tiles·parts, sms)``, times each block's stages
+    plus PART_OVERHEAD.  Going up from one slab, the plan moves to more
+    slabs (at most MAX_PARTS) only where they cut the modelled time of the
+    best plan so far by PART_GAIN.  It is a function of its arguments
+    alone, so a shape always gets the same split and the same rounding.
+    """
+    if length < 0 or tiles < 1 or sms < 1 or step < 1:
+        raise ValueError(f"split_plan({length}, {tiles}, {sms}, {step})")
+    steps = max(cdiv(length, step), 1)
+    best = None
+    for p in range(1, min(MAX_PARTS, steps) + 1):
+        per = cdiv(steps, p)
+        parts = cdiv(steps, per)  # no empty slab
+        cost = cdiv(tiles * parts, sms) * (per + PART_OVERHEAD)
+        if best is None or cost < (1 - PART_GAIN) * best[0]:
+            best = (cost, per * step, parts)
+    return best[1], best[2]
+
+
+_NO_SPLIT = Split(MMA_STEP, 1, 0)
+
+
+def _split(length: int, tiles: int, tile: int, sms: int) -> Split:
+    slab, parts = split_plan(length, tiles, sms)
+    return Split(slab, parts, parts * tiles * tile * tile if parts > 1 else 0)
+
+
+def sketch_split(dtype: torch.dtype, d: int, m: int, n: int, sms: int) -> Split:
+    """The split of B6's sum over m (the engine runs f64 with n ≥ 2)."""
+    if dtype != torch.float64 or d < 1 or n < 2:
+        return _NO_SPLIT
+    tiles = cdiv(d, SKETCH_MMA_TILE) * cdiv(n, SKETCH_MMA_TILE)
+    return _split(m, tiles, SKETCH_MMA_TILE, sms)
+
+
+def gram_split(dtype: torch.dtype, s: int, n: int, sms: int) -> Split:
+    """The split of B2's sum over s for B (s, n) in ``dtype`` (the engine
+    runs f64; its upper tiles only)."""
+    if dtype != torch.float64 or n < 1:
+        return _NO_SPLIT
+    t = cdiv(n, GRAM_MMA_TILE)
+    return _split(s, t * (t + 1) // 2, GRAM_MMA_TILE, sms)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return _sm_count(torch.device(device).index or 0)
+
+
+def scratch_for(splits, device) -> torch.Tensor | None:
+    """One f64 buffer for the partial tiles of ``splits`` (calls on one
+    stream, one after the other, share it), or None when none is needed."""
+    elems = max(s.scratch for s in splits)
+    return torch.empty(elems, dtype=torch.float64, device=device) if elems else None
 
 
 def sqrt_tensor(k: int, dtype: torch.dtype, device) -> torch.Tensor:

@@ -3,11 +3,14 @@
 Replaces ``repro/kernels/sketch_matmul/kernel.py:27`` (``matmul_kernel``,
 launched at ``sketch_matmul/ops.py:51``) and ``kernel.py:40``
 (``fused_gaussian_kernel``, launched at ``ops.py:116``).  Both CUDA
-kernels are one tiled product in ``csrc/dense_sketch.cuh``, templated on
-where the S tile comes from: read from memory (B6) or generated in shared
-memory from the threefry counter (i, j) and Box–Muller (B4, so S never
-reaches device memory).  Each block owns one output tile and sums over m in
-one fixed order, with no atomics: the result is deterministic.
+kernels live in ``csrc/dense_sketch.cuh``.  B6 in f64 runs on the FP64
+tensor cores (the ``mma.sync`` engine of ``csrc/dense_mma.cuh``), its sum
+over m split into slabs by :func:`repro_torch.kernels.common.sketch_split`
+and the partials added in slab order.  f32, half inputs and B4 run one
+tiled FMA product, templated on where the S tile comes from: read from
+memory (B6) or generated in shared memory from the threefry counter (i, j)
+and Box–Muller (B4, so S never reaches device memory).  No atomics
+anywhere: the result is deterministic.
 
 Contract (as the reference's): A is (m, n) or (m,); the result is (d, n)
 or (d,); f64 and f32 keep their dtype, half inputs give f32.  S is rounded
@@ -21,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..common import scratch_for, sketch_split, sm_count
 from ..countsketch.ref import acc_dtype
 from .ref import default_scale, fused_gaussian_ref, sketch_matmul_ref
 
@@ -80,11 +84,13 @@ def sketch_matmul(S: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     S = S.to(A.dtype).contiguous()
     d, (m, n) = S.shape[0], A2.shape
     out = torch.empty((d, n), dtype=acc_dtype(A.dtype), device=A.device)
+    split = sketch_split(A.dtype, d, m, n, sm_count(A.device))
+    scratch = scratch_for([split], A.device)
     lib = _build.load()
     with torch.cuda.device(A.device):
         err = lib.repro_sketch_matmul(
-            code, S.data_ptr(), A2.data_ptr(), out.data_ptr(), d, m, n,
-            _build.stream_ptr(A.device),
+            code, S.data_ptr(), A2.data_ptr(), out.data_ptr(), _build.ptr(scratch), d, m, n,
+            split.slab, split.parts, _build.stream_ptr(A.device),
         )
     _build.check(err, "sketch_matmul")
     sketch_matmul.launches += 1

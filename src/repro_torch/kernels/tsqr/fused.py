@@ -31,12 +31,16 @@ block.  Each C entry therefore runs two hand kernels back to back on one
 stream: the sketch kernel (B1, B4 or B6) writes B once, then the panel
 Gram (B2) reads it once.  B is bitwise that sketch kernel's output and G is
 exactly symmetric.  The extra read of B is d·n elements against A's m·n.
+In f64, B6 and B2 run on the FP64 tensor cores with the split plans of
+``kernels/common.py``; when a plan splits a sum, the C entry also launches
+the kernel that adds the partials, so each fused wrapper stays one C call.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
+from ..common import gram_split, scratch_for, sketch_split, sm_count
 from ..countsketch.ops import _prepare
 from ..countsketch.ref import acc_dtype
 from ..sketch_matmul.ops import _check_key, _check_S
@@ -56,16 +60,16 @@ def countsketch_gram(A, buckets, signs, d, *, csr=None):
     if prepared is None:
         return countsketch_gram_ref(A, buckets, signs, d)
     code, A, csr = prepared
+    B, G = _outputs(A, d)
     n = A.shape[1]
-    acc = acc_dtype(A.dtype)
-    B = torch.empty((d, n), dtype=acc, device=A.device)
-    G = torch.empty((n, n), dtype=acc, device=A.device)
+    split = gram_split(B.dtype, d, n, sm_count(A.device))
+    scratch = scratch_for([split], A.device)
     lib = _build.load()
     with torch.cuda.device(A.device):
         err = lib.repro_countsketch_gram(
             code, A.data_ptr(), csr.rows.data_ptr(), csr.signs.data_ptr(),
-            csr.offsets.data_ptr(), B.data_ptr(), G.data_ptr(), d, n,
-            _build.stream_ptr(A.device),
+            csr.offsets.data_ptr(), B.data_ptr(), G.data_ptr(), _build.ptr(scratch), d, n,
+            split.slab, split.parts, _build.stream_ptr(A.device),
         )
     _build.check(err, "countsketch_gram")
     countsketch_gram.launches += 1
@@ -96,10 +100,14 @@ def matmul_gram(S, A):
     S = S.to(A.dtype).contiguous()
     d, (m, n) = S.shape[0], A.shape
     B, G = _outputs(A, d)
+    sms = sm_count(A.device)
+    split_b, split_g = sketch_split(A.dtype, d, m, n, sms), gram_split(B.dtype, d, n, sms)
+    scratch = scratch_for([split_b, split_g], A.device)
     lib = _build.load()
     with torch.cuda.device(A.device):
         err = lib.repro_matmul_gram(
-            code, S.data_ptr(), A.data_ptr(), B.data_ptr(), G.data_ptr(), d, m, n,
+            code, S.data_ptr(), A.data_ptr(), B.data_ptr(), G.data_ptr(), _build.ptr(scratch),
+            d, m, n, split_b.slab, split_b.parts, split_g.slab, split_g.parts,
             _build.stream_ptr(A.device),
         )
     _build.check(err, "matmul_gram")
@@ -122,11 +130,14 @@ def gaussian_gram(A, key, d, *, scale=None):
     code, A = prepared
     m, n = A.shape
     B, G = _outputs(A, d)
+    split = gram_split(B.dtype, d, n, sm_count(A.device))
+    scratch = scratch_for([split], A.device)
     lib = _build.load()
     with torch.cuda.device(A.device):
         err = lib.repro_gaussian_gram(
             code, k0, k1, default_scale(d, scale), A.data_ptr(), B.data_ptr(),
-            G.data_ptr(), d, m, n, _build.stream_ptr(A.device),
+            G.data_ptr(), _build.ptr(scratch), d, m, n, split.slab, split.parts,
+            _build.stream_ptr(A.device),
         )
     _build.check(err, "gaussian_gram")
     gaussian_gram.launches += 1

@@ -13,7 +13,9 @@ non-negative diagonal:
 :func:`panel_gram` wraps kernel B2 (``csrc/gram.cuh``), which replaces
 ``repro/kernels/tsqr/kernel.py:51`` (``panel_gram_kernel``, launched at
 ``tsqr/ops.py:67``): a CUDA tensor launches the kernel or raises, a CPU
-tensor runs the plain version of ``ref.py``.
+tensor runs the plain version of ``ref.py``.  In f64 the kernel runs on the
+FP64 tensor cores, its sum over s split into slabs by
+:func:`repro_torch.kernels.common.gram_split`.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 
 from ...core.backend import as_tensor
 from .. import _build
-from ..common import pad_to
+from ..common import gram_split, pad_to, scratch_for, sm_count
 from ..countsketch.ref import acc_dtype
 from .ref import panel_gram_ref
 
@@ -30,7 +32,7 @@ __all__ = ["MAX_FUSED_COLS", "panel_gram", "cholqr_finish", "tsqr"]
 # Widest A the fused CountSketch-Gram route (kernel B3) takes; wider A goes
 # through the unfused apply and a library Gram, as in the reference.  The
 # reference's 512 is a VMEM budget.  Here shared memory sets no limit: B1
-# keeps no per-block state and B2 stages two 16x64 tiles whatever n is.  The
+# keeps no per-block state and B2's block tiles are 64x64 whatever n is.  The
 # cap is instead the widest width ``chip_smoke.py`` holds kernels B2 and B3
 # against their plain versions on the card, so the fused route never runs
 # at a width that was not checked there.
@@ -49,10 +51,13 @@ def panel_gram(B: torch.Tensor) -> torch.Tensor:
     B = B.contiguous()
     s, n = B.shape
     G = torch.empty((n, n), dtype=acc_dtype(B.dtype), device=B.device)
+    split = gram_split(B.dtype, s, n, sm_count(B.device))
+    scratch = scratch_for([split], B.device)
     lib = _build.load()
     with torch.cuda.device(B.device):
         err = lib.repro_panel_gram(
-            code, B.data_ptr(), G.data_ptr(), s, n, _build.stream_ptr(B.device)
+            code, B.data_ptr(), G.data_ptr(), _build.ptr(scratch), s, n, split.slab,
+            split.parts, _build.stream_ptr(B.device),
         )
     _build.check(err, "panel_gram")
     panel_gram.launches += 1
