@@ -43,18 +43,24 @@ engine of B6 and B2 (``csrc/dense_mma.cuh``) at each edge of its design
 (ragged d, n, m and s; m and s shorter than one ring stage; both sides of a
 change of the split plan; n = 2..8 and odd n; operands not 16-byte
 aligned), holds each call to the same bounds, checks that two calls are
-bitwise equal, and that B7's B is bitwise B6's there.  Phases 7 and 8 print
-each kernel's TFLOP/s and its share of its bound beside its time.
+bitwise equal, and that B7's B is bitwise B6's there.  It does the same for
+B4's generating engine (S made in the ring and shared by a thread-block
+cluster; ragged d and n, m shorter than a stage, both sides of a split-plan
+change, n = 2..8, clusters of 1, 2, 3 and 8 blocks and a padded grid, an
+unaligned A), holding B4 to the plain product on its own S and B5's B
+bitwise to B4's, after checking that clusters of every size fit on the
+card.  Phases 7 and 8 print each kernel's TFLOP/s and its share of its
+bound beside its time; phase 8 also times B4's engine with clusters of 1.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels, draws the
 main problem and traces one warm plain, one warm fused and one warm SRHT
 solve with ``torch.profiler``: device time by kernel and the device's busy
 share of the wall time (the breakdown in PERF.md).  Then it times the warm
 main solve at the paper's size and at a smaller, host-bound size, and
-traces one warm Gaussian, uniform-dense (plain and fused) and CountSketch
-solve at m = 2^16.  Each trace lists its 15 longest rows and every kernel
-of the port, so the tensor-core kernels show by name.  It prints no result
-line.
+traces one warm Gaussian, uniform-dense and CountSketch solve at m = 2^16,
+and the fused Gaussian and uniform-dense ones.  Each trace lists its 15
+longest rows and every kernel of the port, so the tensor-core kernels show
+by name.  It prints no result line.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after.  TF32 is off for matmuls and cuDNN, so f32 products run in
@@ -215,8 +221,15 @@ def main() -> int:
         threefry_bits,
         tsqr,
     )
-    from repro_torch.kernels.common import gram_split, sketch_split, sm_count
-    from repro_torch.kernels.sketch_matmul import default_scale
+    from repro_torch.kernels.common import (
+        GEN_CLUSTER_MAX,
+        gaussian_split,
+        gen_grid,
+        gram_split,
+        sketch_split,
+        sm_count,
+    )
+    from repro_torch.kernels.sketch_matmul import default_scale, gaussian_clusters, gaussian_engine
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -463,6 +476,54 @@ def main() -> int:
         _p(f"phase 2: B2 engine B({s_rows}, {n}) f64{' misaligned' if B.data_ptr() % 16 else ''}, split "
            f"(slab, parts) {gram_split(torch.float64, s_rows, n, sms)[:2]}: max|Δ| vs card plain {err:.3e} "
            f"(tol 2γ_s|B|ᵀ|B|), exactly symmetric, two calls bitwise equal")
+
+    # B4 and B5 in f64 run on the generating engine (csrc/dense_mma.cuh):
+    # S made in the ring by a producing warpgroup, shared by a
+    # thread-block cluster of gen_cluster(n) blocks along n.  First, that
+    # clusters of every size with this shared memory fit on the card.  Then
+    # the engine's edges, as for B6: d and n ragged, m shorter than a stage,
+    # both sides of a split-plan change, n = 2..8, clusters of 1, 2, 3 and 8
+    # blocks and a padded grid (n = 1152: 9 n-tiles in two clusters of 5),
+    # an A 8 bytes off 16-byte alignment.  Each held to 2·γ_m·|S||A| of the
+    # plain product on the kernel's own S, two calls bitwise equal, B5's B
+    # bitwise B4's and its G exactly symmetric.
+    fit = {c: gaussian_clusters(c, dev) for c in range(1, GEN_CLUSTER_MAX + 1)}
+    _p(f"phase 2: B4 engine: clusters of C blocks resident at once (cudaOccupancyMaxActiveClusters) "
+       f"{json.dumps(fit)}")
+    if min(fit.values()) < 1:
+        raise AssertionError(f"B4 engine: some cluster size does not fit on the card: {fit}")
+    gauss_shapes = [(300, 1007, 130), (37, 5, 3), (200, 9, 17), (129, 4096, 257)]
+    gauss_shapes += [(100, 300, n) for n in range(2, 9)]
+    gauss_shapes += [(300, m, 130) for m in plan_edge(
+        lambda m: gaussian_split(torch.float64, 300, m, 130, sms).parts, 700)]
+    gauss_shapes += [(200, 600, n) for n in (1000, 1152, 2048)]
+    for d, m, n in gauss_shapes + [("misaligned", 501, 33)]:
+        if d == "misaligned":
+            d, A = 77, misaligned(m, n)
+        else:
+            A = torch.randn((m, n), generator=gen, dtype=torch.float64, device=dev)
+        _, S_k = kernel_S(d, m, torch.float64)
+        out = fused_gaussian_sketch(A, key, d)
+        err4 = check_product(f"B4 engine d={d} A({m}, {n})", out, sketch_matmul_ref(S_k, A), S_k, A, m)
+        if not torch.equal(out, fused_gaussian_sketch(A, key, d)):
+            raise AssertionError(f"B4 engine d={d} A({m}, {n}): two calls differ")
+        errs["fused_gaussian_sketch"] = max(errs["fused_gaussian_sketch"], err4)
+        B, G = gaussian_gram(A, key, d)
+        if not torch.equal(B, out):
+            raise AssertionError(f"B5 at d={d} A({m}, {n}): B differs from B4's")
+        errs["gaussian_gram"] = max(errs["gaussian_gram"], _check_gram(torch, G, panel_gram_ref(B), B, "B5 G"))
+        _p(f"phase 2: B4 engine d={d} A({m}, {n}) f64{' misaligned' if A.data_ptr() % 16 else ''}, cluster "
+           f"and grid width {gen_grid(n)}, split (slab, parts) {gaussian_split(torch.float64, d, m, n, sms)[:2]}: "
+           f"max|Δ| vs card plain on its S {err4:.3e} (tol 2γ_m|S||A|); two calls bitwise equal; "
+           f"B5's B bitwise B4's, its G exactly symmetric")
+    # The identity check above (n = 700, clusters of 6) once more at n = 1000,
+    # clusters of 8: B4's f64 engine on an identity A returns its G exactly.
+    G_c, _ = kernel_S(300, 1000, torch.float32)
+    if not torch.equal(fused_gaussian_sketch(torch.eye(1000, dtype=torch.float64, device=dev), key, 300,
+                                             scale=1.0), G_c.double()):
+        raise AssertionError("B4's f64 engine with clusters of 8 generated another G than B4's FMA route")
+    _p("phase 2: B4 engine on an identity A(1000, 1000), clusters of 8: bitwise the G of the FMA route")
+    del G_c
 
     # B1 on the sparse sketches' CSRs: the sparse-sign sketch's k·m ±1
     # entries (k = 8) and the uniform-sparse sketch's uniform weights.
@@ -912,6 +973,17 @@ def main() -> int:
             bound_ms=bound_ms, bound_by=bound_by,
         ), ops)
     t_dense["fused_gaussian_sketch"]["vec_ms"] = _event_ms(torch, lambda: fused_gaussian_sketch(b8, key8, d8))
+    # B4's engine with clusters of 1 (each block generates its whole S tile)
+    # beside the planned clusters: the same sums in the same order, so
+    # bitwise the same B where the plan keeps one slab.
+    t4 = t_dense["fused_gaussian_sketch"]
+    t4["cluster"], _ = gen_grid(N_MAIN)
+    t4["split_parts"] = gaussian_split(torch.float64, d8, M_DENSE, N_MAIN, sm_count(dev)).parts
+    if t4["split_parts"] == 1 and not torch.equal(gaussian_engine(A8, key8, d8, 1),
+                                                  fused_gaussian_sketch(A8, key8, d8)):
+        raise AssertionError("B4's engine with clusters of 1 differs from the planned clusters")
+    t4["cluster1_ms"] = _event_ms(torch, lambda: gaussian_engine(A8, key8, d8, 1))
+    t4["cluster1_tflops"] = ops_p / t4["cluster1_ms"] / 1e9
     t_dense["sketch_matmul"]["vec_ms"] = _event_ms(torch, lambda: sketch_matmul(S_u, b8))
     _p(f"phase 8: kernel times (ms, TFLOP/s, share of the bound; f64, m=2^16, n=1000, d=4000; "
        f"B4's library_ms is S @ A on an S "
@@ -1039,8 +1111,9 @@ def _profile(torch, dev, generate_problem, lstsq) -> int:
     p = generate_problem(gen, M_DENSE, N_MAIN, cond=COND, beta=BETA, device=dev)
     for sketch in ("gaussian", "uniform_dense", "clarkson_woodruff"):
         _trace(torch, f"m=2^16 sketch={sketch}", lambda: lstsq(p.A, p.b, gen, method="saa", sketch=sketch))
-    _trace(torch, "m=2^16 sketch=uniform_dense fused=True",
-           lambda: lstsq(p.A, p.b, gen, method="saa", sketch="uniform_dense", fused=True))
+    for sketch in ("gaussian", "uniform_dense"):
+        _trace(torch, f"m=2^16 sketch={sketch} fused=True",
+               lambda: lstsq(p.A, p.b, gen, method="saa", sketch=sketch, fused=True))
     return 0
 
 

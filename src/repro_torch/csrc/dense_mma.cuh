@@ -1,10 +1,14 @@
-// The f64 tensor-core tile engine of kernels B6 (dense S * A) and B2
-// (panel Gram B^T B), and so of the f64 halves of B3, B5 and B7.
+// The f64 tensor-core tile engine of kernels B6 (dense S * A), B4 (S * A
+// with S generated in the kernel) and B2 (panel Gram B^T B), and so of the
+// f64 halves of B3, B5 and B7.
 //
 // Replaces, with dense_sketch.cuh and gram.cuh, the TPU kernels
-// repro/kernels/sketch_matmul/kernel.py:27 (matmul_kernel) and
-// repro/kernels/tsqr/kernel.py:51 (panel_gram_kernel), which accumulate an
-// output block in VMEM over a sequential grid on the MXU.
+// repro/kernels/sketch_matmul/kernel.py:27 (matmul_kernel), :40
+// (fused_gaussian_kernel) and repro/kernels/tsqr/kernel.py:51
+// (panel_gram_kernel), which accumulate an output block in VMEM over a
+// sequential grid on the MXU (the Gaussian one generating its S tile in
+// VMEM first).  B4's generating producer is described at its kernel,
+// dmma_gen_sketch_kernel, below.
 //
 // Both products are C = sum over k of X[k, rows]^T * Y[k, cols] with the
 // reduction index k running along the long axis: S (d, m) * A (m, n) has X
@@ -131,29 +135,39 @@ __device__ __forceinline__ bool aligned16(const double* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// An 8-byte cp.async of `bytes` (8 or 0) bytes; the rest of the 8 is zeros.
+__device__ __forceinline__ void cp_async_8z(double* dst, const double* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
 // A thread's share of one operand's stage: kMmaStep rows of the reduction
 // [k0, k0 + kMmaStep) x COLS columns [c0, c0 + COLS) of a row-major g
-// (leading dimension ld, rows along k) into s ([kMmaStep][COLS + kMmaPad]).
-// A thread always copies the same column pair, kRowsPerIt rows apart, so
-// the pair's columns inside the matrix and its 16-byte alignment (the rows
-// it visits differ by an even count, and stages by kMmaStep rows) are
-// worked out once; a full stage then costs one copy per pair.  Rows >=
-// k_end and columns >= c_end read as zeros.
-template <int COLS, int THREADS>
+// (leading dimension ld, rows along k) into s ([kMmaStep][COLS + kMmaPad]),
+// for thread `tid` of THREADS.  A thread always copies the same column
+// pair, kRowsPerIt rows apart, so the pair's columns inside the matrix and
+// its 16-byte alignment (the rows it visits differ by an even count, and
+// stages by kMmaStep rows) are worked out once; a full stage then costs one
+// copy per pair.  Rows >= k_end and columns >= c_end read as zeros: stored
+// (a cp.async wait and a __syncthreads cover them), or with ASYNC_ZEROS
+// cp.asyncs of 0 bytes, so that an mbarrier tracking the copies covers
+// every write of the stage.
+template <int COLS, int THREADS, bool ASYNC_ZEROS = false>
 struct KRowsCopy {
   static constexpr int kPairsPerRow = COLS / 2;
   static constexpr int kRowsPerIt = THREADS / kPairsPerRow;
   static_assert(THREADS % kPairsPerRow == 0 && kMmaStep % kRowsPerIt == 0 && kRowsPerIt % 2 == 0,
                 "whole rows per pass, an even count");
+  const double* g;    // the matrix: the source of a copy of 0 bytes
   const double* src;  // this thread's pair in row k = 0
   int64_t ld;
   int row, shared, valid;
   bool vec;
 
-  __device__ __forceinline__ KRowsCopy(const double* g, int64_t ld_, int64_t c0, int64_t c_end)
-      : ld(ld_) {
-    row = threadIdx.x / kPairsPerRow;
-    const int c = 2 * (threadIdx.x % kPairsPerRow);
+  __device__ __forceinline__ KRowsCopy(const double* g_, int64_t ld_, int64_t c0, int64_t c_end,
+                                       int tid)
+      : g(g_), ld(ld_) {
+    row = tid / kPairsPerRow;
+    const int c = 2 * (tid % kPairsPerRow);
     src = g + row * ld + c0 + c;
     shared = row * (COLS + kMmaPad) + c;
     valid = clamp_pair(c_end - (c0 + c));
@@ -166,8 +180,17 @@ struct KRowsCopy {
 #pragma unroll
     for (int it = 0; it < kMmaStep / kRowsPerIt; ++it) {
       const bool inside = full || k0 + row + it * kRowsPerIt < k_end;
-      copy_pair(s + shared + it * kRowsPerIt * (COLS + kMmaPad), p + it * kRowsPerIt * ld,
-                inside ? valid : 0, inside && vec);
+      const int v = inside ? valid : 0;
+      double* dst = s + shared + it * kRowsPerIt * (COLS + kMmaPad);
+      const double* q = p + it * kRowsPerIt * ld;
+      if (!ASYNC_ZEROS) {
+        copy_pair(dst, q, v, v == 2 && vec);
+      } else if (v == 2 && vec) {
+        cp_async_16(dst, q);
+      } else {
+        cp_async_8z(dst, v >= 1 ? q : g, v >= 1 ? 8 : 0);
+        cp_async_8z(dst + 1, v == 2 ? q + 1 : g, v == 2 ? 8 : 0);
+      }
     }
   }
 };
@@ -175,7 +198,7 @@ struct KRowsCopy {
 // The same for the transposed operand: ROWS rows [r0, r0 + ROWS) x
 // kMmaStep columns [k0, k0 + kMmaStep) of a row-major g (columns along k)
 // into s ([ROWS][kMmaStep + kMmaPad]).  Rows >= r_end and columns >= k_end
-// read as zeros.
+// read as zeros, stored.
 template <int ROWS, int THREADS>
 struct RowsKCopy {
   static constexpr int kPairsPerRow = kMmaStep / 2;
@@ -187,10 +210,11 @@ struct RowsKCopy {
   int col, shared, rows_left;
   bool vec;
 
-  __device__ __forceinline__ RowsKCopy(const double* g, int64_t ld_, int64_t r0, int64_t r_end)
+  __device__ __forceinline__ RowsKCopy(const double* g, int64_t ld_, int64_t r0, int64_t r_end,
+                                       int tid)
       : ld(ld_) {
-    const int r = threadIdx.x / kPairsPerRow;
-    col = 2 * (threadIdx.x % kPairsPerRow);
+    const int r = tid / kPairsPerRow;
+    col = 2 * (tid % kPairsPerRow);
     src = g + (r0 + r) * ld + col;
     shared = r * (kMmaStep + kMmaPad) + col;
     const int64_t left = r_end - (r0 + r);
@@ -210,6 +234,48 @@ struct RowsKCopy {
   }
 };
 
+template <class Shape>
+__device__ __forceinline__ void mma_zero(double (&acc)[Shape::MT][Shape::NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < Shape::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < Shape::NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0;
+}
+
+// The products of one ring stage xs (X half, then the Y half at
+// xs + kXElems) into the warp's accumulators.
+template <class Shape, bool X_MK>
+__device__ __forceinline__ void mma_stage(double (&acc)[Shape::MT][Shape::NT][4],
+                                          const double* xs) {
+  using Sm = MmaSmem<Shape, X_MK>;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int xr = (warp / Shape::WARPS_N) * Shape::WM + g;  // this lane's first X row
+  const int yc = (warp % Shape::WARPS_N) * Shape::WN + g;  // and first Y column
+  const double* ys = xs + Sm::kXElems;
+#pragma unroll
+  for (int kk = 0; kk < kMmaStep; kk += kMmaK) {
+    double b[Shape::NT][2];
+#pragma unroll
+    for (int nt = 0; nt < Shape::NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) b[nt][i] = ys[(kk + t + 4 * i) * Sm::kYLd + yc + 8 * nt];
+#pragma unroll
+    for (int mt = 0; mt < Shape::MT; ++mt) {
+      double a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = xr + 16 * mt + 8 * (i % 2), k = kk + t + 4 * (i / 2);
+        a[i] = X_MK ? xs[r * Sm::kXLd + k] : xs[k * Sm::kXLd + r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < Shape::NT; ++nt) dmma_16x8x8(acc[mt][nt], a, b[nt]);
+    }
+  }
+}
+
 // The block's tile: acc = sum over k in [k_begin, k_end) of X(k, x0 + r) *
 // Y(k, y0 + c).  X is S (X_MK: row r of S, ld = m, rows < x_end) or a
 // (K, rows) row-major matrix (column r, columns < x_end); Y is (K, cols)
@@ -222,21 +288,11 @@ __device__ __forceinline__ void mma_block(double (&acc)[Shape::MT][Shape::NT][4]
                                           int64_t k_end) {
   using Sm = MmaSmem<Shape, X_MK>;
   constexpr int kT = Shape::kThreads;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int xr = (warp / Shape::WARPS_N) * Shape::WM + g;  // this lane's first X row
-  const int yc = (warp % Shape::WARPS_N) * Shape::WN + g;  // and first Y column
-
-#pragma unroll
-  for (int mt = 0; mt < Shape::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < Shape::NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0;
+  mma_zero<Shape>(acc);
 
   using XCopy = std::conditional_t<X_MK, RowsKCopy<Shape::BM, kT>, KRowsCopy<Shape::BM, kT>>;
-  const XCopy xcopy(X, ldx, x0, x_end);
-  const KRowsCopy<Shape::BN, kT> ycopy(Y, ldy, y0, y_end);
+  const XCopy xcopy(X, ldx, x0, x_end, threadIdx.x);
+  const KRowsCopy<Shape::BN, kT> ycopy(Y, ldy, y0, y_end, threadIdx.x);
   auto load_stage = [&](int64_t slot, int64_t k0) {
     double* xs = smem + slot * Sm::kStage;
     xcopy(xs, k0, k_end);
@@ -255,28 +311,7 @@ __device__ __forceinline__ void mma_block(double (&acc)[Shape::MT][Shape::NT][4]
     const int64_t next = kt + Shape::STAGES - 1;
     if (next < steps) load_stage(next % Shape::STAGES, k_begin + next * kMmaStep);
     cp_async_commit();
-
-    const double* xs = smem + (kt % Shape::STAGES) * Sm::kStage;
-    const double* ys = xs + Sm::kXElems;
-#pragma unroll
-    for (int kk = 0; kk < kMmaStep; kk += kMmaK) {
-      double b[Shape::NT][2];
-#pragma unroll
-      for (int nt = 0; nt < Shape::NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) b[nt][i] = ys[(kk + t + 4 * i) * Sm::kYLd + yc + 8 * nt];
-#pragma unroll
-      for (int mt = 0; mt < Shape::MT; ++mt) {
-        double a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = xr + 16 * mt + 8 * (i % 2), k = kk + t + 4 * (i / 2);
-          a[i] = X_MK ? xs[r * Sm::kXLd + k] : xs[k * Sm::kXLd + r];
-        }
-#pragma unroll
-        for (int nt = 0; nt < Shape::NT; ++nt) dmma_16x8x8(acc[mt][nt], a, b[nt]);
-      }
-    }
+    mma_stage<Shape, X_MK>(acc, smem + (kt % Shape::STAGES) * Sm::kStage);
   }
   cp_async_wait<0>();
 }
@@ -489,6 +524,292 @@ cudaError_t launch_dmma_gram(const double* B, double* G, double* scratch, int64_
     dmma_sum_sym_kernel<Shape::BM><<<(unsigned)tiles, 256, 0, stream>>>(scratch, G, n, parts);
   }
   return cudaGetLastError();
+}
+
+
+// ---- The generating producer: kernel B4's S made in the ring ---------------
+//
+// B4 is S (d, m) * A (m, n) with S = scale * G never in device memory: the
+// X half of each ring stage is generated, element (i, k) from Src::at (the
+// threefry counter (i, k) and Box-Muller, exactly as the FMA route), and
+// only A's half is a cp.async.  Generating an element costs about as much
+// issue as 25 of its products, so S is generated once per cluster, not
+// once per n-tile: the blocks that share a row tile of S (same blockIdx.y
+// and slab, consecutive blockIdx.x) form a thread-block cluster of C <=
+// kGenClusterMax blocks along n.  Each block generates 1/C of each stage's
+// rows and stores them, 16 bytes a thread, into that stage's slot in every
+// block of the cluster through distributed shared memory.
+//
+// The block is warp-specialized.  Shape's warps (3 x 4 warps of 32 x 32 on
+// a 96 x 128 tile for B4) only multiply; one more warpgroup produces each
+// stage: it generates its share of S, releases it to the cluster, then
+// issues A's copies, whose landing an mbarrier tracks.  The producer runs
+// up to STAGES stages ahead, so the integer and FP32 pipes of the
+// generation work while the tensor cores multiply, and no block-wide
+// barrier stalls the loop.  Each slot has two mbarriers in every block:
+// `full` completes when all C blocks have stored their shares (release /
+// acquire at cluster scope) and this block's A has landed; `empty` when
+// every multiplying warp of all C blocks is done reading it, so no block
+// overwrites a peer's slot before the peer has read it.  A 96-row tile
+// keeps the multiplying warps at B6's 128 registers (64 x 32 warp tiles
+// for a 128-row tile spill even with setmaxnreg).  A grid whose n-tiles
+// are not a multiple of C is padded with blocks that generate their share
+// but neither multiply nor store.
+
+constexpr int kGenClusterMax = 8;  // blocks of a cluster along n
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// The address of this block's shared `addr` in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void cluster_store2(uint32_t addr, double a, double b) {
+  asm volatile("st.shared::cluster.v2.f64 [%0], {%1, %2};\n" ::"r"(addr), "d"(a), "d"(b)
+               : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t addr, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(addr), "r"(count) : "memory");
+}
+// One arrival on an mbarrier of any block of the cluster; the writes that
+// precede it (this block's, through the __syncthreads before it) are
+// released to the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   cluster_addr)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// Wait for the phase of parity `parity` of this block's mbarrier `addr`.
+// A phase that has not completed after kBarrierTimeoutNs is a fault of
+// the protocol: the launch fails rather than hanging the card.
+constexpr uint64_t kBarrierTimeoutNs = 10000000000ull;
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
+  if (mbar_try_wait(addr, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(addr, parity))
+    if (global_ns() - t0 > kBarrierTimeoutNs) __trap();
+}
+
+constexpr int kGenGroup = 128;  // threads of the producing warpgroup
+
+// An arrival on this block's mbarrier `bar` once this thread's cp.asyncs
+// so far have landed (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Dynamic shared memory of the generating engine: the ring, then the full
+// and the empty mbarrier of each slot.
+template <class Shape>
+struct GenSmem {
+  static constexpr size_t kRing = MmaSmem<Shape, true>::kBytes;
+  static constexpr size_t kBytes = kRing + 2 * Shape::STAGES * sizeof(uint64_t);
+  static constexpr int kThreads = Shape::kThreads + kGenGroup;
+};
+
+// out = S (d, m) * A (m, n) with S(i, k) = src.at(i, k): tile (blockIdx.y,
+// blockIdx.x), reduction slab blockIdx.z of `slab` rows; blocks with
+// blockIdx.x * BN >= n are the grid's padding.  Shape's warps multiply;
+// the last warpgroup produces each stage: it generates this block's share
+// of S's half into every block of the cluster, then copies A's half.  No
+// block-wide barrier inside the loop: each role waits only on the slots'
+// mbarriers.
+//  full[s]:  C arrivals (one per block of the cluster, after its share of
+//            S is stored) + kGenGroup (this block's copies of A, as they
+//            land);
+//  empty[s]: C * (Shape's warps) arrivals (each multiplying warp of each
+//            block, when it is done reading the slot).
+template <class Shape, class Src>
+__global__ void __launch_bounds__(GenSmem<Shape>::kThreads, 1)
+dmma_gen_sketch_kernel(Src src, const double* __restrict__ A, double* __restrict__ out,
+                       double* __restrict__ part, int64_t d, int64_t m, int64_t n,
+                       int64_t slab) {
+  using Sm = MmaSmem<Shape, true>;
+  constexpr int kS = Shape::STAGES, kMma = Shape::kThreads, kMmaWarps = kMma / 32;
+  constexpr int kPairs = kMmaStep / 2;  // pairs of k in a row of one stage
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  double* smem = reinterpret_cast<double*>(mma_smem);
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t full = ring + (uint32_t)GenSmem<Shape>::kRing, empty = full + 8 * kS;
+  const uint32_t rank = cluster_rank(), blocks = cluster_blocks();
+
+  const int64_t r0 = (int64_t)blockIdx.y * Shape::BM, c0 = (int64_t)blockIdx.x * Shape::BN;
+  const bool active = c0 < n;
+  const int64_t k_begin = (int64_t)blockIdx.z * slab;
+  const int64_t k_end = k_begin + slab < m ? k_begin + slab : m;
+  const int64_t steps = k_end > k_begin ? cdiv(k_end - k_begin, kMmaStep) : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full + 8 * s, blocks + kGenGroup);
+      mbar_init(empty + 8 * s, blocks * kMmaWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every block's barriers are set before a peer uses them
+
+  if (threadIdx.x >= kMma) {  // produce
+    const int t = threadIdx.x - kMma;
+    const KRowsCopy<Shape::BN, kGenGroup, true> acopy(A, n, c0, n, t);
+    // Rows [row_lo, row_hi) of each stage's S tile, as pairs of adjacent
+    // k: eight threads cover a row's 16 doubles, 128 contiguous bytes, so
+    // the 16-byte stores of a quarter-warp fall on distinct banks.
+    const int share = (Shape::BM + (int)blocks - 1) / (int)blocks;
+    const int row_lo = (int)rank * share < Shape::BM ? (int)rank * share : Shape::BM;
+    const int row_hi = row_lo + share < Shape::BM ? row_lo + share : Shape::BM;
+    const int pairs = (row_hi - row_lo) * kPairs;
+    for (int64_t g = 0; g < steps; ++g) {
+      const int s = (int)(g % kS);
+      // every block of the cluster is done with stage g - kS, the slot's last use
+      if (g >= kS) mbar_wait(empty + 8 * s, (uint32_t)(g / kS - 1) & 1);
+      const int64_t k0 = k_begin + g * kMmaStep;
+      const uint32_t slot = ring + (uint32_t)(sizeof(double) * s * Sm::kStage);
+      for (int p = t; p < pairs; p += kGenGroup) {
+        const int r = row_lo + p / kPairs, kk = 2 * (p % kPairs);
+        const int64_t i = r0 + r;
+        // Both values without a branch around them, so that their chains
+        // overlap: rows >= d and columns >= k_end are zeros, generated
+        // from a counter inside S and dropped.
+        double v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool inside = i < d && k0 + kk + e < k_end;
+          const double x = src.template at<double>(inside ? i : 0, inside ? k0 + kk + e : 0);
+          v[e] = inside ? x : 0.0;
+        }
+        const uint32_t at = slot + (uint32_t)(sizeof(double) * (r * Sm::kXLd + kk));
+        for (uint32_t q = 0; q < blocks; ++q) cluster_store2(cluster_map(at, q), v[0], v[1]);
+      }
+      // The group's stores are done; one thread a block releases them to
+      // it.  The release waits for this thread's memory operations, so A's
+      // copies of the stage are issued after it.
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kGenGroup) : "memory");
+      if (t < (int)blocks) mbar_arrive_cluster(cluster_map(full + 8 * s, t));
+      acopy(smem + s * Sm::kStage + Sm::kXElems, k0, k_end);
+      cp_async_arrive(full + 8 * s);
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  } else {  // multiply
+    const int lane = threadIdx.x % 32;
+    double acc[Shape::MT][Shape::NT][4];
+    mma_zero<Shape>(acc);
+    for (int64_t kt = 0; kt < steps; ++kt) {
+      const int s = (int)(kt % kS);
+      mbar_wait(full + 8 * s, (uint32_t)(kt / kS) & 1);  // all C shares and A landed
+      if (active) mma_stage<Shape, true>(acc, smem + s * Sm::kStage);
+      if (kt + kS < steps) {  // the slot is reused: tell every block this warp is done
+        __syncwarp();
+        if (lane < (int)blocks) mbar_arrive_cluster(cluster_map(empty + 8 * s, lane));
+      }
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    if (active) {
+      if (gridDim.z == 1) {
+        store_rect<Shape>(acc, out, d, n, r0, c0);
+      } else {
+        const int64_t tiles_x = cdiv(n, Shape::BN);
+        const int64_t tile =
+            ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * tiles_x + blockIdx.x;
+        store_partial<Shape>(acc, part + tile * Shape::BM * Shape::BN);
+      }
+    }
+  }
+  // No block leaves while a peer may still store to it or arrive on its
+  // barriers.
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Blocks of the generating engine's cluster for n output columns: the
+// n-tiles that share a row tile of S, in the fewest groups of at most
+// kGenClusterMax, as even as possible (kernels/common.py:gen_cluster).
+inline int gen_cluster(int64_t n, int64_t tile) {
+  const int64_t tiles = n > tile ? cdiv(n, tile) : 1;
+  return (int)cdiv(tiles, cdiv(tiles, kGenClusterMax));
+}
+
+template <class Shape>
+cudaLaunchConfig_t gen_config(int64_t gx, int64_t gy, int64_t parts, cudaLaunchAttribute* attr,
+                              int cluster, cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)gx, (unsigned)gy, (unsigned)parts);
+  config.blockDim = dim3(GenSmem<Shape>::kThreads);
+  config.dynamicSmemBytes = GenSmem<Shape>::kBytes;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+// out = S * A through the generating engine with clusters of `cluster`
+// blocks; the sum over m in `parts` slabs of `slab` rows, as for B6.  A
+// refused cluster launch returns its error: there is no other route.
+template <class Shape, class Src>
+cudaError_t launch_dmma_gen_sketch(Src src, const double* A, double* out, double* scratch,
+                                   int64_t d, int64_t m, int64_t n, int64_t slab, int64_t parts,
+                                   int cluster, cudaStream_t stream) {
+  if (!valid_split(m, slab, parts, scratch)) return cudaErrorInvalidValue;
+  if (cluster < 1 || cluster > kGenClusterMax) return cudaErrorInvalidValue;
+  const int64_t gy = cdiv(d, Shape::BM), tiles_x = cdiv(n, Shape::BN);
+  const int64_t gx = cdiv(tiles_x, cluster) * cluster;
+  if (gy > 65535 || gx * gy > 2147483647) return cudaErrorInvalidConfiguration;
+  auto kernel = dmma_gen_sketch_kernel<Shape, Src>;
+  cudaError_t err = allow_smem(kernel, GenSmem<Shape>::kBytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = gen_config<Shape>(gx, gy, parts, &attr, cluster, stream);
+  err = cudaLaunchKernelEx(&config, kernel, src, A, out, scratch, d, m, n, slab);
+  if (err != cudaSuccess) return err;
+  if (parts > 1)
+    dmma_sum_rect_kernel<Shape::BM, Shape::BN>
+        <<<(unsigned)(tiles_x * gy), 256, 0, stream>>>(scratch, out, d, n, tiles_x, parts);
+  return cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of the generating engine, with its
+// shared memory, can be resident on the card at once.
+template <class Shape, class Src>
+cudaError_t dmma_gen_clusters(int cluster, int* count) {
+  if (cluster < 1 || cluster > kGenClusterMax) return cudaErrorInvalidValue;
+  auto kernel = dmma_gen_sketch_kernel<Shape, Src>;
+  cudaError_t err = allow_smem(kernel, GenSmem<Shape>::kBytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = gen_config<Shape>(cluster, 1, 1, &attr, cluster, nullptr);
+  return cudaOccupancyMaxActiveClusters(count, kernel, &config);
 }
 
 }  // namespace

@@ -11,14 +11,23 @@
 //
 // B6 in f64 (n >= 2) runs on the FP64 tensor cores: dense_mma.cuh's engine
 // with 128 x 128 block tiles, sixteen warps of 32 x 32, and a 4-stage
-// cp.async ring (X = S^T, whose tile is read along m).  The f64 sum may be
-// split along m by the wrapper's plan; the partials are added in a fixed
-// order, so the result is deterministic.
+// cp.async ring (X = S^T, whose tile is read along m).
+//
+// B4 in f64 (n >= 2) runs on the same tensor cores through the engine's
+// generating producer (dense_mma.cuh, dmma_gen_sketch_kernel): 96 x 128
+// tiles, twelve warps of 32 x 32 that only multiply, and a warpgroup that
+// generates each stage's S tile into the ring (GaussianTile's values, the
+// same bits as the FMA route) and copies A's.  S is generated once per
+// thread-block cluster of up to 8 blocks along n, which share it through
+// distributed shared memory: at n = 1000 each element once, where the FMA
+// route generated it once per n-block (8 times).  The f64 sums of both may
+// be split along m by the wrapper's plan; the partials are added in a
+// fixed order, so the results are deterministic.
 //
 // Every other route runs dense_sketch_tile_kernel below on the FMA pipes:
 // f32, because the tensor cores have no f32 product that keeps f32
-// accuracy (TF32 would break the 2*gamma_m*|S||A| bound); bf16/f16 inputs
-// (f32 sums); and B4 in every dtype.  Each block owns one 128 x 128 output
+// accuracy (TF32 would break the 2*gamma_m*|S||A| bound), and bf16/f16
+// inputs (f32 sums), for B4 and B6.  Each block owns one 128 x 128 output
 // tile and loops over m itself, in chunks of 16: it stages the (128 x 16) S
 // tile and the (16 x 128) A tile in shared memory and every thread keeps
 // an 8 x 8 register micro-tile, with the rows and columns of a micro-tile
@@ -26,8 +35,10 @@
 // consecutive addresses.  Each output is one FMA chain over k = 0 .. m-1
 // in order: no atomics, no split of m, and the result is deterministic.
 // It does not overlap the loads of the next chunk with the products of
-// this one; PERF.md has its times against the bound.  Index arithmetic is
-// 64-bit.
+// this one, and its generated S tile is stored transposed (Ss[kk][r]), so
+// the 16 threads of a half-warp that share a row store 128 doubles apart,
+// on one bank; PERF.md has its times against the bound.  Index arithmetic
+// is 64-bit.
 //
 // Where the S tile of that loop comes from is the template argument Src:
 //  - MatrixTile (B6): S row-major in A's dtype, read once per n-block.
@@ -36,8 +47,8 @@
 //    A: S rounded to bf16, products summed in f32).  The counter is the
 //    reference's, so the values do not depend on the tiling.  Rows >= d
 //    and columns >= m are never generated.  S never reaches device
-//    memory; each block regenerates its rows of S once for each n-block,
-//    so every element is generated cdiv(n, 128) times (8 at n = 1000).
+//    memory; on this route each block regenerates its rows of S once for
+//    each n-block.
 //
 // A vector (n = 1, the right-hand side b) uses dense_sketch_vec_kernel
 // instead, in every dtype: one warp per output row sums its row in a fixed
@@ -61,6 +72,10 @@ constexpr int kSketchMicro = 8;    // 8 x 8 outputs per thread, 16 apart
 // ring, one block an SM.
 constexpr int kSketchMmaTile = 128;
 using SketchMma = MmaShape<kSketchMmaTile, kSketchMmaTile, 4, 4, 4, 1>;
+// B4's f64 engine: 96 x 128 tiles, 3 x 4 warps of 32 x 32 beside a
+// producing warpgroup, a 4-stage ring, one block an SM.
+constexpr int kGaussMmaRows = 96;
+using GaussianMma = MmaShape<kGaussMmaRows, kSketchMmaTile, 3, 4, 4, 1>;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x) {
@@ -229,12 +244,20 @@ inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S, const void* 
   }
 }
 
-inline cudaError_t dispatch_fused_gaussian(int dtype, uint32_t k0, uint32_t k1,
-                                           float scale, const void* A,
-                                           void* out, int64_t d, int64_t m,
-                                           int64_t n, cudaStream_t stream) {
+// B4: an f64 matrix goes to the tensor-core engine with the generating
+// producer, clusters of gen_cluster(n) blocks, its sum over m cut into
+// `parts` slabs of `slab` rows (partials in `scratch` when parts > 1).
+inline cudaError_t dispatch_fused_gaussian(int dtype, uint32_t k0, uint32_t k1, float scale,
+                                           const void* A, void* out, void* scratch, int64_t d,
+                                           int64_t m, int64_t n, int64_t slab, int64_t parts,
+                                           cudaStream_t stream) {
   switch (dtype) {
     case kF64:
+      if (d > 0 && n > 1)
+        return launch_dmma_gen_sketch<GaussianMma>(
+            GaussianTile<double>{k0, k1, scale}, static_cast<const double*>(A),
+            static_cast<double*>(out), static_cast<double*>(scratch), d, m, n, slab, parts,
+            gen_cluster(n, kSketchMmaTile), stream);
       return launch_dense_sketch<double, double>(
           GaussianTile<double>{k0, k1, scale}, A, out, d, m, n, stream);
     case kF32:

@@ -55,12 +55,16 @@ _SIGNATURES = {
     "repro_panel_gram": [_I, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "repro_countsketch_gram": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "repro_sketch_matmul": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
-    "repro_fused_gaussian": [_I, _U32, _U32, _F32, _P, _P, _I64, _I64, _I64, _P],
+    "repro_fused_gaussian": [
+        _I, _U32, _U32, _F32, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
+    ],
+    "repro_gaussian_engine": [_U32, _U32, _F32, _P, _P, _I64, _I64, _I64, _I, _P],
+    "repro_gaussian_clusters": [_I, _P],
     "repro_matmul_gram": [
         _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P,
     ],
     "repro_gaussian_gram": [
-        _I, _U32, _U32, _F32, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
+        _I, _U32, _U32, _F32, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P,
     ],
     "repro_threefry_bits": [_U32, _U32, _I64, _I64, _I64, _I64, _P, _P, _P],
     "repro_hadamard": [_I, _P, _P, _I64, _I64, _P],

@@ -3,9 +3,10 @@
 Port of ``repro/kernels/common.py``: ``cdiv``, ``pad_to``, the counter-based
 ``threefry2x32`` behind the Gaussian sketch, ``bits_to_gaussian`` and
 ``key_to_u32``; plus ``sqrt_tensor``, the divisor of the SRHT and
-sparse-sign scales, and the split plan of the f64 tensor-core engine
-(``csrc/dense_mma.cuh``) behind kernels B6 and B2: :func:`split_plan`,
-:func:`sketch_split` and :func:`gram_split`.
+sparse-sign scales, and the plan of the f64 tensor-core engine
+(``csrc/dense_mma.cuh``) behind kernels B6, B4 and B2: :func:`split_plan`,
+:func:`sketch_split`, :func:`gen_cluster`, :func:`gaussian_split` and
+:func:`gram_split`.
 
 PyTorch has no uint32 ``+``, ``<<`` or ``>>`` on CPU tensors, so the plain
 threefry works on int64 tensors holding values in [0, 2^32) and masks
@@ -28,8 +29,9 @@ import torch.nn.functional as F
 
 __all__ = [
     "cdiv", "pad_to", "sqrt_tensor", "threefry2x32", "bits_to_gaussian", "key_to_u32",
-    "MMA_STEP", "SKETCH_MMA_TILE", "GRAM_MMA_TILE", "Split", "split_plan", "sketch_split",
-    "gram_split", "sm_count", "scratch_for",
+    "MMA_STEP", "SKETCH_MMA_TILE", "GRAM_MMA_TILE", "GAUSS_MMA_ROWS", "GEN_CLUSTER_MAX", "Split", "split_plan",
+    "sketch_split", "gen_cluster", "gen_grid", "gaussian_split", "gram_split", "sm_count",
+    "scratch_for",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -45,12 +47,16 @@ def cdiv(a: int, b: int) -> int:
 
 
 # The f64 tensor-core engine of csrc/dense_mma.cuh, as its C sources set it
-# (tests/test_torch_split_plan.py holds these equal to kMmaStep,
-# kSketchMmaTile and kGramMmaTile): rows of the reduction in one ring
-# stage, and the square block tiles of B6 and B2.
+# (the tests hold these equal to kMmaStep, kSketchMmaTile, kGramMmaTile,
+# kGaussMmaRows and kGenClusterMax): rows of the reduction in one ring
+# stage, the square block tiles of B6 and of B2, the rows of B4's block
+# tile (its columns are SKETCH_MMA_TILE), and the most blocks of B4's
+# thread-block cluster.
 MMA_STEP = 16
 SKETCH_MMA_TILE = 128
 GRAM_MMA_TILE = 64
+GAUSS_MMA_ROWS = 96
+GEN_CLUSTER_MAX = 8
 # Bounds of the plan: at most MAX_PARTS slabs; each block pays about
 # PART_OVERHEAD stages of set-up (the ring's fill, the partial's store);
 # one more slab must gain at least PART_GAIN of the modelled time, since
@@ -108,6 +114,40 @@ def sketch_split(dtype: torch.dtype, d: int, m: int, n: int, sms: int) -> Split:
         return _NO_SPLIT
     tiles = cdiv(d, SKETCH_MMA_TILE) * cdiv(n, SKETCH_MMA_TILE)
     return _split(m, tiles, SKETCH_MMA_TILE, sms)
+
+
+def gen_cluster(n: int) -> int:
+    """Blocks C of B4's thread-block cluster for n output columns.
+
+    The blocks that share a row tile of S (its n-tiles) split the
+    generation of S between them; they form the fewest clusters of at most
+    GEN_CLUSTER_MAX blocks, as even as possible, so that the grid is padded
+    by fewer than one block a cluster (``csrc/dense_mma.cuh:gen_cluster``).
+    """
+    tiles = max(cdiv(n, SKETCH_MMA_TILE), 1)
+    return cdiv(tiles, cdiv(tiles, GEN_CLUSTER_MAX))
+
+
+def gen_grid(n: int) -> tuple[int, int]:
+    """``(C, gx)``: B4's cluster size and its grid's width along n, the
+    n-tiles rounded up to whole clusters."""
+    c = gen_cluster(n)
+    return c, cdiv(max(cdiv(n, SKETCH_MMA_TILE), 1), c) * c
+
+
+def gaussian_split(dtype: torch.dtype, d: int, m: int, n: int, sms: int) -> Split:
+    """The split of B4's sum over m (the engine runs f64 with n ≥ 2).
+
+    The plan counts the padded grid's blocks, on the SMs that whole
+    clusters can fill; the partials are those of the real tiles only.
+    """
+    if dtype != torch.float64 or d < 1 or n < 2:
+        return _NO_SPLIT
+    c, gx = gen_grid(n)
+    rows = cdiv(d, GAUSS_MMA_ROWS)
+    slab, parts = split_plan(m, rows * gx, max(sms // c, 1) * c)
+    tiles = rows * cdiv(n, SKETCH_MMA_TILE)
+    return Split(slab, parts, parts * tiles * GAUSS_MMA_ROWS * SKETCH_MMA_TILE if parts > 1 else 0)
 
 
 def gram_split(dtype: torch.dtype, s: int, n: int, sms: int) -> Split:

@@ -2,15 +2,18 @@
 
 Replaces ``repro/kernels/sketch_matmul/kernel.py:27`` (``matmul_kernel``,
 launched at ``sketch_matmul/ops.py:51``) and ``kernel.py:40``
-(``fused_gaussian_kernel``, launched at ``ops.py:116``).  Both CUDA
-kernels live in ``csrc/dense_sketch.cuh``.  B6 in f64 runs on the FP64
-tensor cores (the ``mma.sync`` engine of ``csrc/dense_mma.cuh``), its sum
-over m split into slabs by :func:`repro_torch.kernels.common.sketch_split`
-and the partials added in slab order.  f32, half inputs and B4 run one
-tiled FMA product, templated on where the S tile comes from: read from
-memory (B6) or generated in shared memory from the threefry counter (i, j)
-and Box–Muller (B4, so S never reaches device memory).  No atomics
-anywhere: the result is deterministic.
+(``fused_gaussian_kernel``, launched at ``ops.py:116``).  Both are bound
+by operations (2·d·m·n) and in f64 (n ≥ 2) run on the FP64 tensor cores,
+the ``mma.sync`` engine of ``csrc/dense_mma.cuh``, their sums over m split
+into slabs by :func:`repro_torch.kernels.common.sketch_split` or
+:func:`~repro_torch.kernels.common.gaussian_split` and the partials added
+in slab order.  B6 copies its S tiles into the engine's ring; B4 generates
+them there from the threefry counter (i, j) and Box–Muller, so S never
+reaches device memory, and generates each once per thread-block cluster of
+:func:`~repro_torch.kernels.common.gen_cluster` blocks along n, which share
+it through distributed shared memory.  f32, half inputs and the vector b
+run tiled FMA kernels (``csrc/dense_sketch.cuh``), templated on where the
+S tile comes from.  No atomics anywhere: the result is deterministic.
 
 Contract (as the reference's): A is (m, n) or (m,); the result is (d, n)
 or (d,); f64 and f32 keep their dtype, half inputs give f32.  S is rounded
@@ -21,14 +24,19 @@ launches the kernel or raises; a CPU tensor runs the plain version of
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
-from ..common import scratch_for, sketch_split, sm_count
+from ..common import gaussian_split, scratch_for, sketch_split, sm_count
 from ..countsketch.ref import acc_dtype
 from .ref import default_scale, fused_gaussian_ref, sketch_matmul_ref
 
-__all__ = ["sketch_matmul", "fused_gaussian_sketch", "threefry_bits"]
+__all__ = [
+    "sketch_matmul", "fused_gaussian_sketch", "threefry_bits", "gaussian_engine",
+    "gaussian_clusters",
+]
 
 _U32 = 2**32
 
@@ -111,11 +119,13 @@ def fused_gaussian_sketch(A: torch.Tensor, key, d: int, *, scale=None) -> torch.
     code, A2 = prepared
     m, n = A2.shape
     out = torch.empty((d, n), dtype=acc_dtype(A.dtype), device=A.device)
+    split = gaussian_split(A.dtype, d, m, n, sm_count(A.device))
+    scratch = scratch_for([split], A.device)
     lib = _build.load()
     with torch.cuda.device(A.device):
         err = lib.repro_fused_gaussian(
             code, k0, k1, default_scale(d, scale), A2.data_ptr(), out.data_ptr(),
-            d, m, n, _build.stream_ptr(A.device),
+            _build.ptr(scratch), d, m, n, split.slab, split.parts, _build.stream_ptr(A.device),
         )
     _build.check(err, "fused_gaussian_sketch")
     fused_gaussian_sketch.launches += 1
@@ -123,6 +133,13 @@ def fused_gaussian_sketch(A: torch.Tensor, key, d: int, *, scale=None) -> torch.
 
 
 fused_gaussian_sketch.launches = 0
+
+
+def _cuda_device(device, name):
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{name} reads the CUDA kernel library; got {device}")
+    return device
 
 
 def threefry_bits(key, row0: int, col0: int, rows: int, cols: int, device) -> tuple:
@@ -133,9 +150,7 @@ def threefry_bits(key, row0: int, col0: int, rows: int, cols: int, device) -> tu
     bitwise against :func:`repro_torch.kernels.common.threefry2x32`.
     """
     k0, k1 = _check_key(key, row0 + rows)
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"threefry_bits reads the CUDA device function; got {device}")
+    device = _cuda_device(device, "threefry_bits")
     out = torch.empty((2, rows, cols), dtype=torch.int32, device=device)
     lib = _build.load()
     with torch.cuda.device(device):
@@ -146,3 +161,43 @@ def threefry_bits(key, row0: int, col0: int, rows: int, cols: int, device) -> tu
     _build.check(err, "threefry_bits")
     bits = out.to(torch.int64) & 0xFFFFFFFF
     return bits[0], bits[1]
+
+
+def gaussian_engine(A: torch.Tensor, key, d: int, cluster: int, *, scale=None) -> torch.Tensor:
+    """B4's f64 engine on A (m, n ≥ 2) with clusters of ``cluster`` blocks
+    and no split of m: the result of :func:`fused_gaussian_sketch`, for any
+    cluster size from 1 (each block generates its whole S tile) to
+    GEN_CLUSTER_MAX.
+
+    A check, not a kernel of any path: it lets a run time the design at
+    other cluster sizes than the one B4 plans.  It counts no launches.
+    """
+    k0, k1 = _check_key(key, d)
+    device = _cuda_device(A.device, "gaussian_engine")
+    if A.dtype != torch.float64 or A.ndim != 2 or A.shape[1] < 2:
+        raise ValueError(f"gaussian_engine takes an f64 (m, n ≥ 2) A, got {A.dtype} {tuple(A.shape)}")
+    A = A.contiguous()
+    m, n = A.shape
+    out = torch.empty((d, n), dtype=torch.float64, device=device)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        err = lib.repro_gaussian_engine(
+            k0, k1, default_scale(d, scale), A.data_ptr(), out.data_ptr(), d, m, n, cluster,
+            _build.stream_ptr(device),
+        )
+    _build.check(err, "gaussian_engine")
+    return out
+
+
+def gaussian_clusters(cluster: int, device) -> int:
+    """How many thread-block clusters of ``cluster`` blocks of B4's f64
+    engine, with its shared memory, the card can hold at once
+    (``cudaOccupancyMaxActiveClusters``); 0 means such a cluster does not
+    fit and its launch is refused."""
+    device = _cuda_device(device, "gaussian_clusters")
+    count = ctypes.c_int(0)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        err = lib.repro_gaussian_clusters(cluster, ctypes.byref(count))
+    _build.check(err, "gaussian_clusters")
+    return count.value

@@ -31,8 +31,9 @@ block.  Each C entry therefore runs two hand kernels back to back on one
 stream: the sketch kernel (B1, B4 or B6) writes B once, then the panel
 Gram (B2) reads it once.  B is bitwise that sketch kernel's output and G is
 exactly symmetric.  The extra read of B is d·n elements against A's m·n.
-In f64, B6 and B2 run on the FP64 tensor cores with the split plans of
-``kernels/common.py``; when a plan splits a sum, the C entry also launches
+In f64, B6, B4 and B2 run on the FP64 tensor cores with the split plans
+of ``kernels/common.py`` (B4 generating S in the engine's ring, once per
+thread-block cluster); when a plan splits a sum, the C entry also launches
 the kernel that adds the partials, so each fused wrapper stays one C call.
 """
 from __future__ import annotations
@@ -40,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..common import gram_split, scratch_for, sketch_split, sm_count
+from ..common import gaussian_split, gram_split, scratch_for, sketch_split, sm_count
 from ..countsketch.ops import _prepare
 from ..countsketch.ref import acc_dtype
 from ..sketch_matmul.ops import _check_key, _check_S
@@ -130,14 +131,15 @@ def gaussian_gram(A, key, d, *, scale=None):
     code, A = prepared
     m, n = A.shape
     B, G = _outputs(A, d)
-    split = gram_split(B.dtype, d, n, sm_count(A.device))
-    scratch = scratch_for([split], A.device)
+    sms = sm_count(A.device)
+    split_b, split_g = gaussian_split(A.dtype, d, m, n, sms), gram_split(B.dtype, d, n, sms)
+    scratch = scratch_for([split_b, split_g], A.device)
     lib = _build.load()
     with torch.cuda.device(A.device):
         err = lib.repro_gaussian_gram(
             code, k0, k1, default_scale(d, scale), A.data_ptr(), B.data_ptr(),
-            G.data_ptr(), _build.ptr(scratch), d, m, n, split.slab, split.parts,
-            _build.stream_ptr(A.device),
+            G.data_ptr(), _build.ptr(scratch), d, m, n, split_b.slab, split_b.parts,
+            split_g.slab, split_g.parts, _build.stream_ptr(A.device),
         )
     _build.check(err, "gaussian_gram")
     gaussian_gram.launches += 1
