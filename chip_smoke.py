@@ -29,7 +29,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    A and b) and fused (B8, then B2), ``"sparse_sign"`` and
    ``"uniform_sparse"`` (B1 on their CSRs), each with its error beside
    ``qr_solve``'s, its warm wall time and its launches; B8 held bitwise
-   against its plain version at A (2^20, 1000) and timed there and on b;
+   against its plain version at A (2^20, 1000) and timed there and on b,
+   beside its bound, with its plan's panel width, its peak scratch memory
+   (under 100 MB) and its time at other panel widths, as one panel of all
+   columns (the design's first step) and replayed from a CUDA graph;
    B1 on the sparse-sign and uniform-sparse CSRs at A (2^20, 1000), held
    against its plain version there; ``hadamard_transform`` through
    ``SRHTSketch.as_dense_t``; and, on phase 6's κ = 1e4 problem, one mixed
@@ -37,7 +40,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
-half inputs (f32 out), and B1 bitwise against the CPU on the sparse-sign
+half inputs (f32 out), at one, two and three passes and at n not a multiple
+of the panel width, checks that other panel widths, an unaligned A and a
+second call give the same bits and that rows out of range give NaN rows,
+and B1 bitwise against the CPU on the sparse-sign
 CSR (k·m entries) and on uniform weights.  It drives the f64 tensor-core
 engine of B6 and B2 (``csrc/dense_mma.cuh``) at each edge of its design
 (ragged d, n, m and s; m and s shorter than one ring stage; both sides of a
@@ -60,7 +66,8 @@ main solve at the paper's size and at a smaller, host-bound size, and
 traces one warm Gaussian, uniform-dense and CountSketch solve at m = 2^16,
 and the fused Gaussian and uniform-dense ones.  Each trace lists its 15
 longest rows and every kernel of the port, so the tensor-core kernels show
-by name.  It prints no result line.
+by name; where a port kernel the call launched has no device record, it
+says so instead of printing a busy share.  It prints no result line.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after.  TF32 is off for matmuls and cuDNN, so f32 products run in
@@ -123,6 +130,19 @@ def _event_ms(torch, fn, reps=5):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _with_panels(w, fn):
+    """``fn()`` with B8's SRHT taking panels of w columns, not the plan's
+    (a check and a measurement; the result does not depend on w)."""
+    from repro_torch.kernels.srht import ops as srht_ops
+
+    plan = srht_ops.hadamard_panel
+    srht_ops.hadamard_panel = lambda in_bytes: w
+    try:
+        return fn()
+    finally:
+        srht_ops.hadamard_panel = plan
 
 
 def _gamma(torch, k, dtype):
@@ -226,6 +246,8 @@ def main() -> int:
         gaussian_split,
         gen_grid,
         gram_split,
+        hadamard_panel,
+        hadamard_passes,
         sketch_split,
         sm_count,
     )
@@ -559,6 +581,9 @@ def main() -> int:
     # padded to 4096 (rows ≥ m read as zeros); d > m_pad draws the rows
     # with replacement; half inputs give f32, and the plain version then
     # transforms the same rounded data in f32, so those are bitwise too.
+    # The edges of the panel schedule: n not a multiple of the panel width
+    # (8 f64 or 16 f32 columns at m = 2^20: n = 1, 3, 5, 37), one pass
+    # (m ≤ 2^10), two, and three (m = 2^21), half inputs at two passes.
     def srht_draw(m, d):
         m_pad = 1 << max(0, (m - 1).bit_length())
         signs = (torch.randint(0, 2, (m_pad,), generator=gen, device=dev) * 2 - 1).double()
@@ -590,25 +615,54 @@ def main() -> int:
         (3000, 1, 300, torch.float32), (3000, 37, 300, torch.float64), (3000, 1000, 4000, torch.float64),
         (2**20, 1, 4000, torch.float64), (2**20, 1, 4000, torch.float32), (2**20, 37, 4000, torch.float64),
         (2**20, 37, 4000, torch.float32), (4096, 33, 100, torch.bfloat16), (3000, 1, 11, torch.float16),
+        (2**20, 3, 4000, torch.float64), (2**20, 5, 4000, torch.float64), (2**21, 37, 4000, torch.float64),
+        (2**20, 5, 4000, torch.bfloat16), (2**20, 3, 4000, torch.float16),
     ]:
         A = torch.randn((m, n) if n > 1 else (m,), generator=gen, dtype=torch.float64, device=dev).to(dtype)
         signs, rows = srht_draw(m, d)
         check_b8(A, signs, rows, d)
         _p(f"phase 2: B8 srht_apply{' / hadamard_transform' if m & (m - 1) == 0 else ''} {str(dtype)[6:]} "
-           f"A{tuple(A.shape)} d={d}{' (rows with replacement)' if d > 1 << (m - 1).bit_length() else ''}: "
-           f"bitwise = plain on the card and on the CPU")
+           f"A{tuple(A.shape)} d={d}{' (rows with replacement)' if d > 1 << (m - 1).bit_length() else ''}, "
+           f"passes {hadamard_passes(1 << (m - 1).bit_length())}: bitwise = plain on the card and on the CPU")
+    # The result does not depend on the panel width (every output is the
+    # same sequence of adds) nor on the order the items ran in: other
+    # widths, an A whose first element is 8 bytes off 16-byte alignment,
+    # and two calls, all bitwise equal.
+    A = torch.randn((2**20, 37), generator=gen, dtype=torch.float64, device=dev)
+    signs, rows = srht_draw(2**20, 4000)
+    want, want_h = srht_apply(A, signs, rows, 4000), hadamard_transform(A)
+    for w in (1, 2, 3, 8, 16, 37):
+        if not torch.equal(_with_panels(w, lambda: srht_apply(A, signs, rows, 4000)), want):
+            raise AssertionError(f"B8 at A(2^20, 37) with panels of {w} columns: not bitwise the default")
+    flat = torch.empty(2**20 * 37 + 1, dtype=torch.float64, device=dev)
+    A_off = flat[1:].view(2**20, 37)
+    A_off.copy_(A)
+    if A_off.data_ptr() % 16 != 8:
+        raise AssertionError("the unaligned B8 operand is aligned")
+    check_b8(A_off, signs, rows, 4000)
+    if not (torch.equal(srht_apply(A_off, signs, rows, 4000), want)
+            and torch.equal(srht_apply(A, signs, rows, 4000), want)
+            and torch.equal(hadamard_transform(A_off), want_h)):
+        raise AssertionError("B8: two calls, or an unaligned A, gave other bits")
+    _p("phase 2: B8 at A(2^20, 37) f64: srht_apply with panels of 1, 2, 3, 8, 16 and 37 columns (37: one "
+       "panel, ordinary launches), an A 8 bytes off 16-byte alignment, and two calls of each wrapper: "
+       "bitwise the same")
+    del flat, A_off, want, want_h
     # A row index outside [0, m_pad) is not checked on the host on the card
-    # (a round trip per call): the gather writes NaN into that row instead.
-    A = torch.randn((1024, 5), generator=gen, dtype=torch.float64, device=dev)
-    signs, rows = srht_draw(1024, 8)
-    bad = rows.clone()
-    bad[3], bad[5] = 1024, -1
-    out, good = srht_apply(A, signs, bad, 8), srht_apply(A, signs, rows, 8)
-    keep = torch.ones(8, dtype=torch.bool, device=dev)
-    keep[[3, 5]] = False
-    if not (bool(torch.isnan(out[~keep]).all()) and torch.equal(out[keep], good[keep])):
-        raise AssertionError("B8 with rows out of range: expected NaN rows there and the rest unchanged")
-    _p("phase 2: B8 srht_apply with two rows out of [0, m_pad): NaN rows there, the rest bitwise unchanged")
+    # (a round trip per call): the last pass writes NaN into that row
+    # instead.  One pass (m = 1024) and two (m = 2^20, over several panels).
+    for m_bad, n_bad in ((1024, 5), (2**20, 21)):
+        A = torch.randn((m_bad, n_bad), generator=gen, dtype=torch.float64, device=dev)
+        signs, rows = srht_draw(m_bad, 8)
+        bad = rows.clone()
+        bad[3], bad[5] = m_bad, -1
+        out, good = srht_apply(A, signs, bad, 8), srht_apply(A, signs, rows, 8)
+        keep = torch.ones(8, dtype=torch.bool, device=dev)
+        keep[[3, 5]] = False
+        if not (bool(torch.isnan(out[~keep]).all()) and torch.equal(out[keep], good[keep])):
+            raise AssertionError("B8 with rows out of range: expected NaN rows there and the rest unchanged")
+    _p("phase 2: B8 srht_apply with two rows out of [0, m_pad), at m = 1024 and 2^20: NaN rows there, "
+       "the rest bitwise unchanged")
     del bad, good, keep
     _p(f"phase 2: kernels {json.dumps({f.__name__: {'launches': f.launches, 'match': True} for f in KERNELS})}")
     del A, S, B, G, B_ref, S_k, G_k, out, B5_eye, eye64, e5, b0, b1, card0, card1
@@ -744,11 +798,14 @@ def main() -> int:
     ]:
         res9 = run_path(name, lambda: lstsq(A, b, gen, method="saa", **kw))
         e9 = _rel(res9.x, x_true)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         _, walls9[name] = _sync_time(torch, lambda: lstsq(A, b, gen, method="saa", **kw))
+        peak9 = (torch.cuda.max_memory_allocated() - before) / 2**30
         _p(f"phase 9: lstsq(method='saa', {', '.join(f'{k}={v!r}' for k, v in kw.items())}) m=2^20: "
            f"itn {int(res9.itn)} istop {int(res9.istop)} used_fallback {bool(res9.used_fallback)} "
            f"rel.err {e9:.3e}; qr_solve rel.err {e_qr:.3e}; warm wall {walls9[name]:.4f} s; "
-           f"launches {paths[name]}")
+           f"peak device memory {peak9:.2f} GiB above its start; launches {paths[name]}")
         if not (e9 < 1e-5 and e9 <= 100 * max(e_qr, 1e-12)):
             raise AssertionError(f"{name} path: rel.err {e9} (qr_solve {e_qr})")
         if any(paths[name][k] < v for k, v in need.items()):
@@ -766,17 +823,48 @@ def main() -> int:
     _p("phase 9: B8 srht_apply / hadamard_transform at A(2^20, 1000) and b(2^20,) d=4000: bitwise = plain "
        "on the card and on the CPU (A's first 64 columns there)")
     p_bits = M_MAIN.bit_length() - 1
+    # The operator's cached plan (sign bits and gather list), as the solves
+    # use it.  Peak device memory of one call beyond A and its (d, n)
+    # output: the (m_pad, w) panel buffer.
+    plan9 = SRHTSketch(signs=s9, rows=rows9, d=d9, m=M_MAIN, m_pad=M_MAIN).plan()
+    w9 = hadamard_panel(esz)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out9 = srht_apply(A, s9, rows9, d9, plan=plan9)
+    torch.cuda.synchronize()
+    extra_mb = (torch.cuda.max_memory_allocated() - before - out9.numel() * esz) / 1e6
+    del out9
+    if extra_mb >= 100:
+        raise AssertionError(f"B8 srht_apply at A(2^20, 1000) took {extra_mb:.1f} MB of scratch")
     # bytes: the input read once, the output written once (plus signs and
     # rows); operations: p·m adds per column, the signs' products, the
     # divisions by √d
     t8 = dict(
-        ms=_event_ms(torch, lambda: srht_apply(A, s9, rows9, d9)),
+        ms=_event_ms(torch, lambda: srht_apply(A, s9, rows9, d9, plan=plan9)),
         plain_ms=_event_ms(torch, lambda: srht_ref(A, s9, rows9, d9)),
         library_ms=None,
     )
     t8["bound_ms"], t8["bound_by"] = _bound(
         (p_bits + 1) * M_MAIN * N_MAIN + d9 * N_MAIN, (M_MAIN * N_MAIN + M_MAIN + d9 + d9 * N_MAIN) * esz)
-    t8["vec_ms"] = _event_ms(torch, lambda: srht_apply(b, s9, rows9, d9))
+    t8["panel_width"], t8["scratch_mb"] = w9, extra_mb
+    # the other panel widths, beside the plan's (the same bits); w = n is
+    # one panel of all columns through an (m_pad, n) buffer in two launches:
+    # the design's first step, sampled rows and sign bits alone
+    for w in (2, 4, 8, 16, N_MAIN):
+        t8[f"w{w}_ms"] = _with_panels(
+            w, lambda: _event_ms(torch, lambda: srht_apply(A, s9, rows9, d9, plan=plan9)))
+    # What the plan's 250 launches cost the host and the gaps between them:
+    # the same launches replayed from one CUDA graph (the same bits)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = srht_apply(A, s9, rows9, d9, plan=plan9)
+    graph.replay()
+    if not torch.equal(out_g, srht_apply(A, s9, rows9, d9, plan=plan9)):
+        raise AssertionError("B8 srht_apply replayed from a CUDA graph: other bits")
+    t8["graph_ms"] = _event_ms(torch, graph.replay)
+    del graph, out_g
+    t8["vec_ms"] = _event_ms(torch, lambda: srht_apply(b, s9, rows9, d9, plan=plan9))
     t8["vec_plain_ms"] = _event_ms(torch, lambda: srht_ref(b, s9, rows9, d9))
     t8["vec_bound_ms"], _ = _bound((p_bits + 1) * M_MAIN + d9, (2 * M_MAIN + 2 * d9) * esz)
     tH = dict(
@@ -785,9 +873,16 @@ def main() -> int:
         library_ms=None,
     )
     tH["bound_ms"], tH["bound_by"] = _bound(p_bits * M_MAIN * N_MAIN, 2 * M_MAIN * N_MAIN * esz)
+    _p(f"phase 9: B8 srht_apply at A(2^20, 1000) f64 d=4000: {t8['ms']:.3f} ms against its "
+       f"{t8['bound_ms']:.3f} ms bound, panels of {w9} columns (the plan: 64-byte row segments of A), "
+       f"peak scratch {extra_mb:.1f} MB beyond A and its output; on b {t8['vec_ms']:.4f} ms against "
+       f"{t8['vec_bound_ms']:.4f} (card: {smi})")
     _p(f"phase 9: B8 srht_apply {t8}; hadamard_transform {tH} (ms; f64, m=2^20, n=1000, d=4000; "
-       f"no single PyTorch call computes a Walsh-Hadamard transform; card: {smi})")
-    del s9, rows9
+       f"wN_ms: panels of N columns, w{N_MAIN}_ms one panel, graph_ms the plan's launches replayed "
+       f"from a CUDA graph; no single PyTorch call computes a "
+       f"Walsh-Hadamard transform; "
+       f"card: {smi})")
+    del s9, rows9, plan9
 
     # B1 on the sparse sketches' CSRs at the same shape (the sparse kinds
     # have no kernel row of their own): the sparse-sign sketch's 8m ±1
@@ -1054,18 +1149,41 @@ def main() -> int:
     return 0
 
 
+# The device kernels each wrapper launches on the traced solves' routes
+# (f64 A with n = 1000, and the vector b), by name.
+_SYMBOLS = {
+    "countsketch_apply": ("countsketch_csr_kernel",),
+    "countsketch_gram": ("countsketch_csr_kernel",),
+    "panel_gram": ("gram_upper_kernel", "dmma_gram_kernel"),
+    "fused_gaussian_sketch": ("dmma_gen_sketch_kernel", "dense_sketch_tile_kernel", "dense_sketch_vec_kernel"),
+    "gaussian_gram": ("dmma_gen_sketch_kernel", "dense_sketch_tile_kernel"),
+    "sketch_matmul": ("dmma_sketch_kernel", "dense_sketch_tile_kernel", "dense_sketch_vec_kernel"),
+    "matmul_gram": ("dmma_sketch_kernel", "dense_sketch_tile_kernel"),
+    "hadamard_transform": ("hadamard_pass_kernel",),
+    "srht_apply": ("hadamard_pass_kernel",),
+}
+
+
 def _trace(torch, label, fn):
-    """Device time by kernel, and the device's busy share, of one warm call."""
+    """Device time by kernel, and the device's busy share, of one warm call.
+
+    A port kernel that the traced call launched (its wrapper's count) but
+    that has no device record in the trace is reported as lost, and the
+    busy share, which would leave it out, is not printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import KERNELS, reset_launches
+
     fn()  # warm-up
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launched = {f.__name__: f.launches for f in KERNELS if f.launches}
     rows = []  # device kernels and copies only: operator rows repeat their time
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -1076,8 +1194,15 @@ def _trace(torch, label, fn):
         rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    _p(f"profile {label}: wall {wall:.4f} s, device busy {busy:.4f} s "
-       f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
+    lost = [name for name in launched
+            if not any(sym in key for _, _, key in rows for sym in _SYMBOLS[name])]
+    if lost:
+        _p(f"profile {label}: wall {wall:.4f} s; the trace lost the device record of "
+           f"{', '.join(f'{k} ({launched[k]} launches)' for k in lost)}: no busy share "
+           f"(the recorded kernels sum to {busy:.4f} s)")
+    else:
+        _p(f"profile {label}: wall {wall:.4f} s, device busy {busy:.4f} s "
+           f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%; port launches {launched}")
     # the 15 longest rows, and every kernel of the port (all in a top-level
     # anonymous namespace) however short
     own = [r for r in rows[15:] if r[2].startswith("void (anonymous namespace)::")]

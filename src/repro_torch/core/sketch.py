@@ -45,7 +45,7 @@ from ..kernels.sketch_matmul import (
     gaussian_cols_ref,
     sketch_matmul,
 )
-from ..kernels.srht import fwht, hadamard_transform, srht_apply, srht_ref
+from ..kernels.srht import SRHTPlan, fwht, hadamard_transform, srht_apply, srht_plan, srht_ref
 from . import backend as backend_lib
 from . import linop
 
@@ -364,7 +364,8 @@ class SRHTSketch(_OperatorApply):
     two ≥ m; A is padded with zero rows), D a random ±1 diagonal, P a
     uniform sample of d rows: without replacement, or with it when
     d > m_pad, as the reference.  The kernel route applies it through B8
-    (``srht_apply``), bitwise equal to the reference route's :func:`fwht`.
+    (``srht_apply``), bitwise equal to the reference route's :func:`fwht`,
+    with B8's sign mask and gather list built once and cached (:meth:`plan`).
     """
 
     signs: torch.Tensor  # (m_pad,) ±1
@@ -372,6 +373,9 @@ class SRHTSketch(_OperatorApply):
     d: int
     m: int
     m_pad: int
+    _plan: dict = dataclasses.field(
+        default_factory=dict, compare=False, repr=False
+    )
 
     @classmethod
     def sample(cls, key, d, m, dtype=torch.float64, *, device=None):
@@ -391,10 +395,16 @@ class SRHTSketch(_OperatorApply):
     def device(self) -> torch.device:
         return self.signs.device
 
+    def plan(self) -> SRHTPlan:
+        """B8's cached sign mask and gather list of this operator."""
+        if "plan" not in self._plan:
+            self._plan["plan"] = srht_plan(self.signs, self.rows)
+        return self._plan["plan"]
+
     def apply(self, A, *, backend: str = "auto"):
         A = backend_lib.as_tensor(A, self.device)
         if backend_lib.uses_kernels(backend):
-            return srht_apply(A, self.signs, self.rows, self.d)
+            return srht_apply(A, self.signs, self.rows, self.d, plan=self.plan())
         return srht_ref(A, self.signs, self.rows, self.d)
 
     # H mixes every row, so the SRHT streams by placement: the restriction

@@ -68,7 +68,9 @@ _SIGNATURES = {
     ],
     "repro_threefry_bits": [_U32, _U32, _I64, _I64, _I64, _I64, _P, _P, _P],
     "repro_hadamard": [_I, _P, _P, _I64, _I64, _P],
-    "repro_srht_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F64, _P],
+    "repro_srht_apply": [
+        _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F64, _P,
+    ],
 }
 
 def dtype_code(dtype: torch.dtype) -> int:

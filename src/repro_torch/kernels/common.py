@@ -6,7 +6,8 @@ Port of ``repro/kernels/common.py``: ``cdiv``, ``pad_to``, the counter-based
 sparse-sign scales, and the plan of the f64 tensor-core engine
 (``csrc/dense_mma.cuh``) behind kernels B6, B4 and B2: :func:`split_plan`,
 :func:`sketch_split`, :func:`gen_cluster`, :func:`gaussian_split` and
-:func:`gram_split`.
+:func:`gram_split`; and the schedule of kernel B8 (``csrc/hadamard.cuh``):
+:func:`hadamard_passes` and :func:`hadamard_panel`.
 
 PyTorch has no uint32 ``+``, ``<<`` or ``>>`` on CPU tensors, so the plain
 threefry works on int64 tensors holding values in [0, 2^32) and masks
@@ -31,7 +32,7 @@ __all__ = [
     "cdiv", "pad_to", "sqrt_tensor", "threefry2x32", "bits_to_gaussian", "key_to_u32",
     "MMA_STEP", "SKETCH_MMA_TILE", "GRAM_MMA_TILE", "GAUSS_MMA_ROWS", "GEN_CLUSTER_MAX", "Split", "split_plan",
     "sketch_split", "gen_cluster", "gen_grid", "gaussian_split", "gram_split", "sm_count",
-    "scratch_for",
+    "scratch_for", "HAD_MAX_BITS", "HAD_SEGMENT_BYTES", "hadamard_passes", "hadamard_panel",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -174,6 +175,46 @@ def scratch_for(splits, device) -> torch.Tensor | None:
     stream, one after the other, share it), or None when none is needed."""
     elems = max(s.scratch for s in splits)
     return torch.empty(elems, dtype=torch.float64, device=device) if elems else None
+
+
+# Kernel B8 (csrc/hadamard.cuh; the tests hold HAD_MAX_BITS equal to
+# kHadMaxBits): the most bits of one pass, and the width in bytes of the row
+# segments in which the SRHT's first pass reads A.  Those segments lie 2^10
+# rows apart, and on the H100 HBM serves them at a rate counted in segments,
+# not bytes (PERF.md, PR 16): at m_pad = 2^20 in f64, panels of 2, 4, 8 and
+# 16 columns took 30.2, 19.7, 15.0 and 14.1 ms.  64-byte segments are where
+# the gain flattens.
+HAD_MAX_BITS = 10
+HAD_SEGMENT_BYTES = 64
+
+
+def hadamard_passes(m_pad: int) -> tuple[int, ...]:
+    """The bits of each pass of B8's transform of length ``m_pad`` (a power
+    of two), highest bits first: p = log2(m_pad) split into the fewest passes
+    of at most HAD_MAX_BITS bits, as evenly as they go, the earlier passes
+    taking the extra bit (``csrc/hadamard.cuh:plan_hadamard``)."""
+    if m_pad < 1 or m_pad & (m_pad - 1):
+        raise ValueError(f"hadamard_passes: m_pad must be a power of two, got {m_pad}")
+    left = m_pad.bit_length() - 1
+    passes = max(cdiv(left, HAD_MAX_BITS), 1)
+    bits = []
+    for i in range(passes):
+        bits.append(cdiv(left, passes - i))
+        left -= bits[-1]
+    return tuple(bits)
+
+
+def hadamard_panel(in_bytes: int) -> int:
+    """Columns w of the SRHT's panel in B8 for input elements of
+    ``in_bytes``: the fewest whose row segment of A is HAD_SEGMENT_BYTES
+    long (8 in f64, 16 in f32, 32 in half), whatever m_pad.  The wrapper
+    caps it at n, so the (m_pad, w) panel buffer takes at most
+    HAD_SEGMENT_BYTES · acc / in_bytes bytes a row (64 in f64 and f32, 128
+    for half input: 67 MB and 134 MB at m_pad = 2^20), and never more than
+    an (m_pad, n) buffer."""
+    if in_bytes < 1 or HAD_SEGMENT_BYTES % in_bytes:
+        raise ValueError(f"hadamard_panel: no panel for {in_bytes}-byte elements")
+    return HAD_SEGMENT_BYTES // in_bytes
 
 
 def sqrt_tensor(k: int, dtype: torch.dtype, device) -> torch.Tensor:

@@ -1,11 +1,15 @@
-from .ops import hadamard_transform, srht_apply
+from .ops import SRHTPlan, gather_list, hadamard_transform, sign_mask, srht_apply, srht_plan
 from .ref import fwht, hadamard_matrix, hadamard_ref, srht_ref
 
 __all__ = [
+    "SRHTPlan",
     "fwht",
+    "gather_list",
     "hadamard_matrix",
     "hadamard_ref",
     "hadamard_transform",
+    "sign_mask",
     "srht_apply",
+    "srht_plan",
     "srht_ref",
 ]

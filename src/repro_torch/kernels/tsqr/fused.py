@@ -204,7 +204,7 @@ def sketch_qr(
         elif isinstance(op, sketch_lib.UniformDenseSketch):
             B, G = matmul_gram(op.S, A_arr)
         else:  # SRHT: the transform through B8, then B2's Gram
-            B = srht_apply(A_arr, op.signs, op.rows, op.d)
+            B = srht_apply(A_arr, op.signs, op.rows, op.d, plan=op.plan())
             G = panel_gram(B)
         B = B.to(working)
         G = G.to(working)
