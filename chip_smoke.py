@@ -36,7 +36,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    B1 on the sparse-sign and uniform-sparse CSRs at A (2^20, 1000), held
    against its plain version there; ``hadamard_transform`` through
    ``SRHTSketch.as_dense_t``; and, on phase 6's κ = 1e4 problem, one mixed
-   SRHT solve (B8 on bf16 A, held against its plain version on that A).
+   SRHT solve (B8 on bf16 A, held against its plain version on that A);
+10. the forward-stable solvers and the certified tier (class ``_Phase10``),
+   each gated by the bounds of the reference's own tests: on the main
+   problem the default ``lstsq(A, b, gen)`` (auto → ``iterative``),
+   ``fossils`` (forced and through ``accuracy="high"``), ``sap``,
+   ``accuracy="certified"`` from the default sketch and from n + 2 rows
+   (counting the 2-D sketch applies: one, plus one per escalation),
+   ``saa_sas_batch`` with 8 right-hand sides (each column bitwise its own
+   block solve, its whitened solution within 1e-10 of its single solve),
+   and the loops' time per pair of products with A; then 4 problems at
+   m = 2^16 under one S, the default call with every sketch kind (plain
+   and fused) at m = 2^16, forward stability at β = 1e-5, and, on
+   phase 6's problem, a mixed certified run with the exact σ_min pass
+   timed by its two routes.  Each run prints itn, istop, launches, error
+   and the median warm wall of 3.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -60,7 +74,7 @@ bound beside its time; phase 8 also times B4's engine with clusters of 1.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels, draws the
 main problem and traces one warm plain, one warm fused and one warm SRHT
-solve with ``torch.profiler``: device time by kernel and the device's busy
+solve, and one warm default call (iterative sketching), with ``torch.profiler``: device time by kernel and the device's busy
 share of the wall time (the breakdown in PERF.md).  Then it times the warm
 main solve at the paper's size and at a smaller, host-bound size, and
 traces one warm Gaussian, uniform-dense and CountSketch solve at m = 2^16,
@@ -78,6 +92,7 @@ kernels as JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -143,6 +158,28 @@ def _with_panels(w, fn):
         return fn()
     finally:
         srht_ops.hadamard_panel = plan
+
+
+class _Count2D:
+    """Within ``with``: record the shape of every 2-D (matrix) apply of the
+    sketch class ``cls`` (as tests/test_certify.py counts them)."""
+
+    def __init__(self, cls):
+        self.cls, self.shapes = cls, []
+
+    def __enter__(self):
+        real = self.real = self.cls.apply
+
+        def counting(op, M, *, backend="auto"):
+            if M.ndim == 2:
+                self.shapes.append(tuple(M.shape))
+            return real(op, M, backend=backend)
+
+        self.cls.apply = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.apply = self.real
 
 
 def _gamma(torch, k, dtype):
@@ -922,8 +959,14 @@ def main() -> int:
         raise AssertionError("SRHTSketch.as_dense_t is not the transpose of as_dense, or skipped B8")
     _p(f"phase 9: SRHTSketch(d=300, m=3000).as_dense_t() = as_dense().T bitwise; "
        f"launches {paths['srht_as_dense_t']}")
+
+    # ---- phase 10: the forward-stable solvers and the certified tier -----
+    # (its mixed run comes with phase 6's problem)
+    phase10 = _Phase10(torch, dev, gen, smi, run_path, paths)
+    phase10.main_problem(A, b, x_true, e_qr)
     del op_t, St, prob, A, b, x_true
     torch.cuda.empty_cache()
+    phase10.after_main()
 
     # ---- phase 5: the perturbation fallback -------------------------------
     p5 = generate_problem(gen, 2**18, N_MAIN, cond=COND, beta=BETA, device=dev)
@@ -953,13 +996,14 @@ def main() -> int:
         raise AssertionError("mixed precision did not feed bf16 to B1")
     _p(f"phase 6: B1 ran on bf16 input; peak device memory "
        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    e_qr6 = _rel(qr_solve(p6.A, p6.b), p6.x_true)
+    phase10.mixed(p6, e_qr6)
 
     # phase 9's mixed SRHT solve, on this κ = 1e4 problem: B8 on bf16 A.
     # iter_lim=200 for the reason given at phase 8's mixed run.
     kw_m = dict(method="saa", sketch="srht", precision="mixed", iter_lim=200)
     res_m = run_path("srht_mixed", lambda: lstsq(p6.A, p6.b, gen, **kw_m))
     e_m = _rel(res_m.x, p6.x_true)
-    e_qr6 = _rel(qr_solve(p6.A, p6.b), p6.x_true)
     _, walls9["srht_mixed"] = _sync_time(torch, lambda: lstsq(p6.A, p6.b, gen, **kw_m))
     _p(f"phase 9: lstsq(sketch='srht', precision='mixed', iter_lim=200) cond=1e4 m=2^20: itn {int(res_m.itn)} "
        f"istop {int(res_m.istop)} used_fallback {bool(res_m.used_fallback)} rel.err {e_m:.3e}; qr_solve "
@@ -1149,6 +1193,293 @@ def main() -> int:
     return 0
 
 
+class _Phase10:
+    """Phase 10: the forward-stable solvers and the certified tier, each run
+    gated by the bounds of the reference's own tests (tests/test_iterative.py,
+    test_sap.py, test_certify.py).  ``run_path(name, fn)`` runs ``fn`` with
+    every launch count set to 0 just before and stores the counts in
+    ``paths[name]`` just after."""
+
+    def __init__(self, torch, dev, gen, smi, run_path, paths):
+        self.torch, self.dev, self.gen, self.smi = torch, dev, gen, smi
+        self.run_path, self.paths = run_path, paths
+        self.walls = {}
+        self.steptol = 32 * torch.finfo(torch.float64).eps
+
+    def run(self, name, fn, x_ref, e_ref, first=None):
+        """One counted run (inside the context ``first``, if given), then the
+        median warm wall of 3; prints and returns the counted run's result
+        and its error against ``x_ref``."""
+        torch = self.torch
+        with first or contextlib.nullcontext():
+            res = self.run_path(name, fn)
+        e = _rel(res.x, x_ref)
+        self.walls[name] = sorted(_sync_time(torch, fn)[1] for _ in range(3))[1]
+        cert, more = res.certificate, ""
+        if cert is not None:
+            more = (f"; certificate passed {bool(cert.passed)} rel_error_bound {float(cert.rel_error_bound):.3e} "
+                    f"error_bound {float(cert.error_bound):.3e} cond_R {float(cert.cond_R):.3e} distortion "
+                    f"{float(cert.distortion):.3f} sketch_rows {cert.sketch_rows} escalations "
+                    f"{cert.escalations} precision {cert.precision}")
+        _p(f"phase 10: {name}: method {res.method} itn {res.itn.tolist()} istop {res.istop.tolist()} "
+           f"rel.err {e:.3e}; qr_solve rel.err {e_ref:.3e}; median warm wall of 3 {self.walls[name]:.4f} s; "
+           f"launches {self.paths[name]}{more} (card: {self.smi})")
+        return res, e
+
+    def main_problem(self, A, b, x_true, e_qr):
+        """On the main problem: the default call (auto → iterative), FOSSILS
+        (forced and through accuracy='high'), SAP, the certified ladder from
+        the default sketch and from an n + 2 row one, the multi-RHS batch,
+        and the loops' time per iteration."""
+        from repro_torch.core import CountSketch, lstsq, qr_solve, select_method
+
+        torch, gen = self.torch, self.gen
+        m, n = A.shape
+        paths = self.paths
+        x_qr = qr_solve(A, b)
+        good = lambda e, f: e < 1e-5 and e <= f * max(e_qr, 1e-12)  # noqa: E731
+
+        res, e = self.run("default", lambda: lstsq(A, b, gen), x_true, e_qr)
+        if not (res.method == "iterative" and good(e, 10)):
+            raise AssertionError(f"lstsq default: method {res.method}, rel.err {e} (qr_solve {e_qr})")
+        if paths["default"]["countsketch_apply"] < 2:
+            raise AssertionError("the default call did not launch B1 for A and for b")
+        for name, kw in [("fossils", dict(method="fossils")), ("high", dict(accuracy="high"))]:
+            res, e = self.run(name, lambda: lstsq(A, b, gen, **kw), x_true, e_qr)
+            if not (res.method == "fossils" == select_method(m, n, accuracy="high") and good(e, 10)):
+                raise AssertionError(f"{name}: method {res.method}, rel.err {e} (qr_solve {e_qr})")
+            # B1 on A, on b, and on each of the two refinement residuals
+            if paths[name]["countsketch_apply"] < 4:
+                raise AssertionError(f"{name} did not launch B1 on A, b and its residuals: {paths[name]}")
+        res, e = self.run("sap", lambda: lstsq(A, b, gen, method="sap"), x_true, e_qr)
+        if not (good(e, 100) and int(res.itn) < 40 and bool(res.converged)):
+            raise AssertionError(f"sap: itn {int(res.itn)} rel.err {e} (qr_solve {e_qr})")
+        res, e = self.run("certified", lambda: lstsq(A, b, gen, accuracy="certified"), x_true, e_qr)
+        cert = res.certificate
+        gap = float((res.x - x_qr).norm())
+        _p(f"phase 10: certified: ‖x − x_qr‖ {gap:.3e} against 10 × error_bound {10 * float(cert.error_bound):.3e}")
+        if not (bool(cert.passed) and gap <= 10 * float(cert.error_bound)
+                and float(cert.rel_error_bound) < 1e-4 and float(cert.cond_R) > 1e9):
+            raise AssertionError(f"certified: {cert}")
+
+        # From an n + 2 row sketch the ladder must escalate, sketching A once
+        # at the start and once per escalation (its fresh block), never again.
+        counted = _Count2D(CountSketch)
+        res, e = self.run("certified_n+2", lambda: lstsq(A, b, gen, accuracy="certified", sketch_size=n + 2),
+                          x_true, e_qr, first=counted)
+        cert = res.certificate
+        _p(f"phase 10: certified_n+2: 2-D sketch applies {counted.shapes} (1 + escalations = {1 + cert.escalations})")
+        if not (bool(cert.passed) and cert.escalations >= 1 and cert.sketch_rows > n + 2 and res.method != "saa"
+                and len(counted.shapes) == 1 + cert.escalations and all(sh[0] == m for sh in counted.shapes)):
+            raise AssertionError(f"certified from n + 2 rows: method {res.method}, {cert}, applies {counted.shapes}")
+        del x_qr, res
+        self.batch(A, b, x_true)
+        self.loops(A, b)
+
+    def batch(self, A, b, x_true):
+        """The multi-RHS batch: b and 7 more right-hand sides made as
+        generate_problem makes b (A·x_j plus a residual of norm β orthogonal
+        to range(A)) under one S.  Each column must stop as its own solve: bitwise column
+        0 of the block LSQR of 8 copies of it (the same product kernels),
+        and, against the single solve on the same factor (matrix-vector
+        products, which cuBLAS rounds otherwise than the (m, n)·(n, 8)
+        ones), the same istop, itn within 2 and the whitened solution
+        z = R x within 1e-10.  x = R⁻¹z itself moves by up to about
+        κ(R)·1e-16 there; its gap is printed beside."""
+        from repro_torch.core import SketchedFactor, default_sketch_size, saa_sas_batch, sample_sketch
+        from repro_torch.core.lsqr import lsqr
+        from repro_torch.core.saa import _solve_with_factor
+
+        torch, gen = self.torch, self.gen
+        m, n = A.shape
+        k = 8
+        X = torch.randn(n, k - 1, generator=gen, dtype=torch.float64, device=self.dev)
+        X /= X.norm(dim=0)
+        Qa, Ra = torch.linalg.qr(A)
+        G = torch.randn(m, k - 1, generator=gen, dtype=torch.float64, device=self.dev)
+        G -= Qa @ (Qa.T @ G)
+        B = torch.cat([b[:, None], A @ X + BETA * G / G.norm(dim=0)], dim=1)
+        X_true = torch.cat([x_true[:, None], X], dim=1)
+        X_qr = torch.linalg.solve_triangular(Ra, Qa.T @ B, upper=True)
+        del Qa, Ra, G
+        op = sample_sketch("clarkson_woodruff", gen, default_sketch_size(n, m), m, device=self.dev)
+        res, _ = self.run("batch_k8", lambda: saa_sas_batch(A, B, gen, sketch=op), X_true, _rel(X_qr, X_true))
+        factor, _ = SketchedFactor.build(A, gen, sketch=op)
+        Y = factor.materialize_whitened(A)
+        C = op.apply(B)
+        Z0 = factor.warm_start(C)
+
+        def block_lsqr(Bk, Zk):
+            return lsqr(lambda z: Y @ z, lambda u: Y.T @ u, Bk, x0=Zk, atol=0.0, btol=0.0, iter_lim=100,
+                        steptol=self.steptol)
+
+        block = block_lsqr(B, Z0)
+        if not torch.equal(factor.precondition(block.x), res.x):
+            raise AssertionError("saa_sas_batch is not the block LSQR on its factor")
+        cols = []
+        for j in range(k):
+            copies = block_lsqr(B[:, j:j + 1].repeat(1, k), Z0[:, j:j + 1].repeat(1, k))
+            exact = (torch.equal(copies.x[:, 0], block.x[:, j]) and int(copies.itn[0]) == int(block.itn[j])
+                     and int(copies.istop[0]) == int(block.istop[j]))
+            x1, single = _solve_with_factor(A, B[:, j], factor, C[:, j], materialize_y=True, atol=0.0, btol=0.0,
+                                            iter_lim=100, steptol=self.steptol)
+            z_gap = float((factor.R @ (res.x[:, j] - x1)).norm() / (factor.R @ x1).norm())
+            e, e_qr = _rel(res.x[:, j], X_true[:, j]), _rel(X_qr[:, j], X_true[:, j])
+            cols.append(dict(itn=int(res.itn[j]), istop=int(res.istop[j]), single_itn=int(single.itn),
+                             single_istop=int(single.istop), freeze_bitwise=exact, z_gap=z_gap,
+                             x_gap=_rel(res.x[:, j], x1), err=e, qr_err=e_qr))
+            if not (exact and int(res.istop[j]) == int(single.istop) and abs(int(res.itn[j]) - int(single.itn)) <= 2
+                    and z_gap <= 1e-10 and e < 1e-5 and e <= 100 * max(e_qr, 1e-12)):
+                raise AssertionError(f"saa_sas_batch column {j}: {cols[-1]}")
+        _p(f"phase 10: batch_k8 columns {json.dumps(cols)}")
+        del Y, C, Z0, block, copies
+        torch.cuda.empty_cache()
+
+    def loops(self, A, b):
+        """The loops alone, on one prebuilt factor: time per pair of
+        products with A (a matvec and an rmatvec: one iteration) beside the
+        bound of the pair's two reads of A at the HBM rate."""
+        from repro_torch.core import SketchedFactor, damping_momentum, fossils_refine, heavy_ball_refine
+        from repro_torch.core.iterative import default_inner_iter_lim
+        from repro_torch.core.lsqr import lsqr
+
+        torch, gen, steptol = self.torch, self.gen, self.steptol
+        m, n = A.shape
+        f, op = SketchedFactor.build(A, gen)
+        x0 = f.sketch_and_solve(op.apply(b))
+        alpha, beta = damping_momentum(op.d, n)
+        loops = {}
+        for name, fn, products in [
+            # itn + 1 matvecs and rmatvecs
+            ("heavy_ball_refine", lambda: heavy_ball_refine(A, b, f, x0, alpha, beta, steptol=steptol),
+             lambda itn: 2 * itn + 2),
+            # a pair per inner step, a residual matvec per refinement step,
+            # a pair at the end
+            ("fossils_refine", lambda: fossils_refine(A, b, f, op, x0, alpha, beta,
+                                                      inner_iter_lim=default_inner_iter_lim(beta),
+                                                      steptol=steptol), lambda itn: 2 * itn + 4),
+            # SAP's LSQR in operator form: a pair per iteration, one to start
+            ("sap_lsqr", lambda: lsqr(lambda z: f.whiten_mv(A, z), lambda u: f.whiten_rmv(A, u), b,
+                                      x0=f.warm_start(op.apply(b)), atol=0.0, btol=0.0, iter_lim=200,
+                                      steptol=steptol), lambda itn: 2 * itn + 2),
+        ]:
+            itn = int(fn().itn)
+            t = sorted(_sync_time(torch, fn)[1] for _ in range(3))[1]
+            loops[name] = dict(itn=itn, products_with_A=products(itn), wall_s=t,
+                               ms_per_pair=2e3 * t / products(itn),
+                               bound_ms_per_pair=1e3 * 2 * m * n * A.element_size() / PEAK_BYTES_PER_S)
+        _p(f"phase 10: refinement loops on one factor (median of 3; card: {self.smi}): {json.dumps(loops)}")
+
+    def after_main(self):
+        """Four problems at m = 2^16 under one S, each x as its own saa_sas;
+        the default call with each sketch kind, plain and fused, at
+        m = 2^16; then forward stability (tests/test_iterative.py:29–41): at β = 1e-5
+        the forward-stable solvers stay within 10x of QR's error.  The
+        operator-form SAA's ratio (the reference's test chose its seed to
+        keep that gap clear of 10x) is printed, not gated."""
+        from repro_torch.core import (
+            default_sketch_size,
+            fossils,
+            generate_problem,
+            iterative_sketching,
+            lstsq,
+            qr_solve,
+            saa_sas,
+            saa_sas_batch,
+            sample_sketch,
+        )
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        n = N_MAIN
+        P = [generate_problem(gen, M_DENSE, n, cond=COND, beta=BETA, device=dev) for _ in range(4)]
+        A4, b4 = torch.stack([p.A for p in P]), torch.stack([p.b for p in P])
+        x4 = [p.x_true for p in P]
+        del P
+        op = sample_sketch("clarkson_woodruff", gen, default_sketch_size(n, M_DENSE), M_DENSE, device=dev)
+        res = self.run_path("problem_batch", lambda: saa_sas_batch(A4, b4, gen, sketch=op))
+        self.walls["problem_batch"] = sorted(
+            _sync_time(torch, lambda: saa_sas_batch(A4, b4, gen, sketch=op))[1] for _ in range(3))[1]
+        probs = []
+        for i in range(4):
+            single = saa_sas(A4[i], b4[i], gen, sketch=op)
+            probs.append(dict(itn=int(res.itn[i]), istop=int(res.istop[i]), gap=_rel(res.x[i], single.x),
+                              bitwise=torch.equal(res.x[i], single.x), err=_rel(res.x[i], x4[i])))
+            if not (probs[-1]["gap"] <= 1e-10 and probs[-1]["err"] < 1e-5):
+                raise AssertionError(f"problem batch, problem {i}: {probs[-1]}")
+        _p(f"phase 10: problem_batch (4 × A(2^16, 1000), one S): {json.dumps(probs)}; median warm wall of 3 "
+           f"{self.walls['problem_batch']:.4f} s; launches {self.paths['problem_batch']} (card: {self.smi})")
+        del A4, b4, x4, res
+
+        # The default call with every sketch kind, plain and fused, on one
+        # of these problems: each kind's kernels on the new path.
+        p = generate_problem(gen, M_DENSE, n, cond=COND, beta=BETA, device=dev)
+        e_qr = _rel(qr_solve(p.A, p.b), p.x_true)
+        for kind, kernel in [("clarkson_woodruff", "countsketch_apply"),
+                             ("gaussian", "fused_gaussian_sketch"), ("uniform_dense", "sketch_matmul"),
+                             ("srht", "srht_apply"), ("sparse_sign", "countsketch_apply"),
+                             ("uniform_sparse", "countsketch_apply")]:
+            for fused in (False, True):
+                name = f"default_{kind}{'_fused' if fused else ''}"
+                res = self.run_path(name, lambda: lstsq(p.A, p.b, gen, sketch=kind, fused=fused))
+                e = _rel(res.x, p.x_true)
+                _p(f"phase 10: {name} m=2^16: method {res.method} itn {int(res.itn)} istop {int(res.istop)} "
+                   f"rel.err {e:.3e}; qr_solve rel.err {e_qr:.3e}; launches {self.paths[name]}")
+                if not (res.method == "iterative" and e < 1e-5 and e <= 10 * max(e_qr, 1e-12)
+                        and self.paths[name][kernel] >= 1):
+                    raise AssertionError(f"{name}: method {res.method}, rel.err {e}, launches {self.paths[name]}")
+        del p, res
+        torch.cuda.empty_cache()
+
+        p = generate_problem(gen, M_MAIN, n, cond=COND, beta=1e-5, device=dev)
+        e_qr = _rel(qr_solve(p.A, p.b), p.x_true)
+        ratios = {}
+        for name, fn in [
+            ("stability_iterative", lambda: iterative_sketching(p.A, p.b, gen)),
+            ("stability_fossils", lambda: fossils(p.A, p.b, gen)),
+            ("stability_saa_operator", lambda: saa_sas(p.A, p.b, gen, materialize_y=False)),
+        ]:
+            _, e = self.run(name, fn, p.x_true, e_qr)
+            ratios[name] = e / e_qr
+            if name != "stability_saa_operator" and not e <= 10 * e_qr:
+                raise AssertionError(f"{name}: rel.err {e} against qr_solve's {e_qr}")
+        _p(f"phase 10: forward stability at beta=1e-5: error over qr_solve's {json.dumps(ratios)}")
+        del p
+        torch.cuda.empty_cache()
+
+    def mixed(self, p, e_qr):
+        """The mixed certified run on phase 6's κ = 1e4 problem: a bf16
+        sketch, certified, escalating precision if its certificate fails.
+        A mixed certificate pays one exact σ_min(A R⁻¹): timed here on a
+        mixed factor by the port's route (σ_min of the R factor of a QR of
+        Y) and by an SVD of Y itself, with the peak memory of each."""
+        from repro_torch.core import SketchedFactor, lstsq
+        from repro_torch.core.certify import _exact_whitened_floor
+
+        torch, gen = self.torch, self.gen
+        res, _ = self.run("certified_mixed", lambda: lstsq(p.A, p.b, gen, accuracy="certified", precision="mixed"),
+                          p.x_true, e_qr)
+        if not bool(res.certificate.passed):
+            raise AssertionError(f"certified mixed: {res.certificate}")
+        f, _ = SketchedFactor.build(p.A, gen, precision="mixed")
+        floor = {}
+        for route, fn in [
+            ("qr_of_Y", lambda: _exact_whitened_floor(p.A, f)),
+            ("svd_of_Y", lambda: torch.linalg.svdvals(f.materialize_whitened(p.A))[-1]),
+        ]:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            sigma, t = _sync_time(torch, fn)
+            floor[route] = dict(sigma_min=float(sigma), s=t,
+                                peak_gib=(torch.cuda.max_memory_allocated() - before) / 2**30)
+        _p(f"phase 10: certified_mixed certified at precision {res.certificate.precision} after "
+           f"{res.certificate.escalations} escalations; the exact σ_min(A R⁻¹) pass on a mixed factor: "
+           f"{json.dumps(floor)} (card: {self.smi})")
+        if abs(floor["qr_of_Y"]["sigma_min"] - floor["svd_of_Y"]["sigma_min"]) > 1e-12:
+            raise AssertionError(f"the two routes to σ_min(A R⁻¹) disagree: {floor}")
+
+
 # The device kernels each wrapper launches on the traced solves' routes
 # (f64 A with n = 1000, and the vector b), by name.
 _SYMBOLS = {
@@ -1217,6 +1548,7 @@ def _profile(torch, dev, generate_problem, lstsq) -> int:
     for fused in (False, True):
         _trace(torch, f"fused={fused}", lambda: lstsq(prob.A, prob.b, gen, method="saa", fused=fused))
     _trace(torch, "sketch=srht", lambda: lstsq(prob.A, prob.b, gen, method="saa", sketch="srht"))
+    _trace(torch, "default (iterative)", lambda: lstsq(prob.A, prob.b, gen))
 
     # Warm wall time of the main solve, on the same sketch each time, at the
     # paper's size and at a size where the host's launches bound the solve.

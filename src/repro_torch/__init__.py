@@ -8,6 +8,22 @@ kernels, each beside its plain PyTorch version.  Entry points run on the
 card unless the caller passes ``device="cpu"``.
 """
 from . import convert, core, kernels
-from .core import generate_problem, lsqr_dense, lstsq, qr_solve, saa_sas
+from .core import (
+    Certificate,
+    certify_solution,
+    fossils,
+    generate_problem,
+    iterative_sketching,
+    lsqr_dense,
+    lstsq,
+    qr_solve,
+    saa_sas,
+    saa_sas_batch,
+    sap_sas,
+)
 
-__all__ = ["convert", "core", "kernels", "generate_problem", "lsqr_dense", "lstsq", "qr_solve", "saa_sas"]
+__all__ = [
+    "convert", "core", "kernels", "Certificate", "certify_solution", "fossils",
+    "generate_problem", "iterative_sketching", "lsqr_dense", "lstsq", "qr_solve",
+    "saa_sas", "saa_sas_batch", "sap_sas",
+]

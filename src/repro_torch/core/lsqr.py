@@ -13,6 +13,15 @@ only every few iterations, with the updates after a stop frozen by
 products each; on an H100 the frozen products cost more than the syncs
 they save (PERF.md, "LSQR's wasted operator products").
 
+A block ``b`` of shape (m, k) runs k solves in one loop: each operator
+product takes all k columns (the matrix is read once per iteration for
+all of them), and a column whose stop test fired keeps its state while
+the others go on, as each lane of the reference's ``vmap`` of a
+``lax.while_loop`` does (``saa_sas_batch``).  A column thus ends as it
+would alone through the same block products; a matrix-vector product
+rounds otherwise, so a lone solve of that column agrees to rounding, which
+the coordinate change x = R⁻¹z then scales by up to κ(R).
+
 istop codes follow SciPy's convention:
   0 x=0 is the exact solution;  1 residual-level convergence (btol/atol);
   2 least-squares convergence (AᵀR small);  7 iteration limit;
@@ -51,6 +60,11 @@ class _State(NamedTuple):
     rhist: torch.Tensor  # (iter_lim,) residual history, or (0,) when disabled
 
 
+def _dot(a, b):
+    """Inner product of two vectors, or of matching columns of two blocks."""
+    return torch.dot(a, b) if a.ndim == 1 else (a * b).sum(0)
+
+
 def _nonzero(t):
     """``t`` where it is non-zero, else 1 (safe denominator)."""
     return torch.where(t == 0, torch.ones_like(t), t)
@@ -80,14 +94,18 @@ def lsqr(
 ) -> SolveResult:
     """Minimize ‖Ax − b‖₂ for the operator given by ``matvec``/``rmatvec``.
 
-    ``b`` (and ``x0``) are tensors on the operator's device.
+    ``b`` (and ``x0``) are tensors on the operator's device: vectors, or
+    (m, k) and (n, k) blocks of k right-hand sides solved together.
     ``history=True`` records per-iteration residual norms (``(iter_lim,)``,
-    nan-padded).
+    nan-padded; vectors only).
     """
     dtype, device = b.dtype, b.device
+    block = b.ndim == 2
+    if block and history:
+        raise ValueError("history=True records one solve; b must be a vector")
 
     def norm(t):
-        return torch.sqrt(torch.dot(t, t))
+        return torch.sqrt(_dot(t, t))
 
     # Warm start: iterate on the correction dx against r0 = b − A x0, but
     # keep the ORIGINAL ‖b‖ and ‖x0 + dx‖ in the stopping tests.
@@ -153,7 +171,7 @@ def lsqr(
         t2 = -theta / rho_safe
         x = s.x + t1 * s.w
         dk = s.w / rho_safe
-        ddnorm = s.ddnorm + torch.dot(dk, dk)
+        ddnorm = s.ddnorm + _dot(dk, dk)
         w = v + t2 * s.w
 
         anorm = torch.sqrt(anorm2)
@@ -199,8 +217,16 @@ def lsqr(
 
     state = init
     for _ in range(iter_lim):
-        state = body(state)
-        if bool(state.istop != 0):  # the host sync of this iteration
+        if block:
+            # a column that has stopped keeps its state (rhist is unused)
+            live = state.istop == 0
+            new = body(state)
+            state = _State(*(torch.where(live, n, o) for n, o in zip(new[:-1], state[:-1])),
+                           rhist=state.rhist)
+        else:
+            state = body(state)
+        done = (state.istop != 0).all() if block else state.istop != 0
+        if bool(done):  # the host sync of this iteration
             break
 
     istop = torch.where((bnorm == 0) | (init.arnorm == 0), 0, state.istop)

@@ -1,8 +1,9 @@
 """``lstsq`` — the one-call driver over the port's least-squares solvers.
 
-Port of ``repro/core/lstsq.py``.  ``select_method`` is ported whole (pure
-arithmetic over shape, sketch-size regime and accuracy, every accuracy).
-``lstsq`` runs the methods of this slice:
+Port of ``repro/core/lstsq.py``.  ``lstsq(A, b, gen)`` auto-selects a
+solver by shape, sketch-size regime and requested accuracy (or runs the
+one ``method=`` forces) and returns the unified ``SolveResult`` with
+``.method`` naming the solver that ran:
 
 =============  ============================================================
 method         solver
@@ -10,28 +11,45 @@ method         solver
 ``direct``     Householder-QR ``qr_solve`` (ground truth; small problems)
 ``lsqr``       plain LSQR on A (no sketching; works without a key)
 ``saa``        SAA-SAS, paper Algorithm 1 (fastest sketched path)
+``sap``        sketch-and-precondition baseline (paper §4)
+``iterative``  iterative sketching with damping + momentum (forward stable)
+``fossils``    sketch-and-precondition + iterative refinement (forward
+               stable, direct-method accuracy)
 =============  ============================================================
 
-``method="auto"`` runs when it selects one of them (``accuracy="fast"``,
-or shapes that route to ``direct``/``lsqr``).  The rest raises
-``NotImplementedError`` naming its ROADMAP slice: ``sap``, ``iterative``
-and ``fossils`` and ``accuracy="certified"`` (A6), ``reg=`` (A8), row
-sources (A9), ``cluster=`` (A11), ``trace=True`` (A4).
+``accuracy="certified"`` is the adaptive tier: solve, certify the answer
+with ``repro_torch.core.certify``, and on a failed certificate escalate
+along :data:`CERTIFIED_LADDER`, growing the sketch by appended rows (the
+stored B = SA is extended, never recomputed).  ``reg=`` (A8), row sources
+(A9), ``cluster=`` (A11) and ``trace=True`` (A4) raise
+``NotImplementedError`` naming their ROADMAP slice.
 
 The tolerance forwarding audit (``TOL_SUPPORT``) and ``precision=``/
-``fused=`` for ``saa`` are as in the reference.
+``fused=`` for the sketched methods are as in the reference.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from . import backend as backend_lib
+from . import certify as certify_lib
 from . import linop
 from .direct import qr_solve
+from .iterative import (
+    damping_momentum,
+    default_inner_iter_lim,
+    fossils,
+    fossils_refine,
+    heavy_ball_refine,
+    iterative_sketching,
+)
 from .lsqr import lsqr_operator
-from .precond import default_sketch_size
+from .precond import SketchedFactor, default_sketch_size
 from .result import SolveResult
-from .saa import saa_sas
+from .saa import _solve_with_factor, saa_sas
+from .sap import sap_sas
 
 __all__ = [
     "lstsq",
@@ -63,12 +81,12 @@ TOL_SUPPORT = {
     "fossils": frozenset({"steptol"}),
 }
 
+# The certified tier's escalation ladder: each failed certificate both
+# grows the sketch (appended rows, stored B reused) and climbs one rung.
 CERTIFIED_LADDER = ("saa", "iterative", "fossils", "direct")
 
 # Methods whose factor build honours ``precision=``/``fused=``.
 PRECISION_SUPPORT = frozenset({"saa", "iterative", "fossils"})
-
-_PORTED_METHODS = frozenset({"direct", "lsqr", "saa"})
 
 
 def select_method(
@@ -120,6 +138,107 @@ def _not_ported(what: str, slice_: str):
     return NotImplementedError(f"{what} arrives with ROADMAP {slice_}")
 
 
+def _certified_lstsq(
+    A_op, b, gen, *, sketch, sketch_size, backend, tol, history, rtol,
+    n_probes, precision="full", fused=None,
+):
+    """The adaptive certified driver: solve → certify → escalate.
+
+    One factor is built at the initial sketch size; every escalation
+    appends rows to it (``SketchedFactor.extend``: only the new rows are
+    sketched, the stored B is reused) and climbs one rung of
+    :data:`CERTIFIED_LADDER`.  Under ``precision="mixed"`` the first
+    escalation re-applies the same operator at full precision and retries
+    the same rung.  Returns ``(result, method)`` for the first certificate
+    that passes, else the attempt with the smallest relative error bound
+    (its certificate has ``passed`` False).
+
+    Draws from ``gen``, in order: S; then, for each attempt, its probe
+    matrix W (n × ``n_probes``) and, when it escalates by rows, the
+    extension block.  The ``direct`` rung is a Householder QR of A on A's
+    device.  Each rung reads ``passed`` and the relative bound to the host
+    once.
+    """
+    m, n = A_op.shape
+    dtype = A_op.dtype
+    dense = isinstance(A_op, linop.DenseOperator)
+    steptol = tol.get("steptol")
+    if steptol is None:
+        steptol = 32 * float(torch.finfo(dtype).eps)
+    atol = tol.get("atol", 0.0)
+    btol = tol.get("btol", 0.0)
+    iter_lim = tol.get("iter_lim", 100)
+
+    factor, op, B = SketchedFactor.build_full(
+        A_op, gen, sketch=sketch, sketch_size=sketch_size, backend=backend,
+        precision=precision, fused=fused,
+    )
+    s = op.d
+    prec_now = precision
+    escalations = 0
+    best = None  # (bound, result, method) of the best failed attempt
+    rung = 0
+    while rung < len(CERTIFIED_LADDER):
+        meth = CERTIFIED_LADDER[rung]
+        if meth == "direct":
+            res = _direct_result(linop.ensure_dense(A_op, who="the certified QR rung"), b)
+        elif meth == "saa":
+            c = op.apply(b, backend=backend)
+            x, inner = _solve_with_factor(
+                A_op, b, factor, c, materialize_y=dense, atol=atol, btol=btol,
+                iter_lim=iter_lim, steptol=steptol, history=history,
+            )
+            res = inner._replace(x=x)
+        else:
+            alpha, beta = damping_momentum(s, n)
+            x0 = factor.sketch_and_solve(op.apply(b, backend=backend))
+            if meth == "iterative":
+                res = heavy_ball_refine(
+                    A_op, b, factor, x0, alpha, beta, atol=atol, btol=btol,
+                    steptol=steptol, iter_lim=iter_lim, history=history,
+                )
+            else:  # fossils
+                res = fossils_refine(
+                    A_op, b, factor, op, x0, alpha, beta,
+                    inner_iter_lim=default_inner_iter_lim(beta, dtype),
+                    steptol=steptol, backend=backend, history=history,
+                )
+        cert = certify_lib.certify(
+            A_op, b, res.x, factor, gen, n_probes=n_probes, target=rtol,
+            sketch_rows=s, escalations=escalations, precision=prec_now,
+        )
+        res = res._replace(certificate=cert)
+        passed, bound = torch.stack(
+            [cert.passed.to(dtype), cert.rel_error_bound]
+        ).tolist()  # the host read of this rung
+        if passed:
+            return res, meth
+        if not math.isfinite(bound):
+            bound = math.inf
+        if best is None or bound < best[0]:
+            best = (bound, res, meth)
+        if prec_now == "mixed" and meth != "direct":
+            # Precision escalation: the SAME operator at full precision (one
+            # sketch apply, no extra rows), and this rung again
+            B = op.apply_op(A_op, backend=backend)
+            factor = SketchedFactor.from_sketch(B)
+            prec_now = "full"
+            escalations += 1
+            continue
+        # Before the next sketched rung, double the sketch by appending
+        # rows, capped at the data's row count
+        if rung + 1 < len(CERTIFIED_LADDER):
+            extra = min(s, max(m - s, 0))
+            if extra > 0 and CERTIFIED_LADDER[rung + 1] != "direct":
+                factor, op, B = factor.extend(A_op, op, gen, extra, B=B, backend=backend)
+                s += extra
+                escalations += 1
+        rung += 1
+
+    _, res, meth = best
+    return res, meth
+
+
 def lstsq(
     A,
     b,
@@ -148,11 +267,20 @@ def lstsq(
 
     ``A`` is a dense matrix (tensor or numpy array) or a
     ``repro_torch.core.linop.DenseOperator``; ``key`` a ``torch.Generator``
-    on the data's device (or an int seed), needed by ``saa``.  ``sketch``
-    is a kind name or an already-drawn operator.  ``device=None`` means
-    ``"cuda"``.  The arguments of unported features (``reg``,
-    ``certified_*``, ``cluster``, ``trace``) keep the reference's names and
-    accept only their defaults.
+    on the data's device (or an int seed), needed by the sketched methods
+    and the certified tier.  ``sketch`` is a kind name or an already-drawn
+    operator.  ``device=None`` means ``"cuda"``.
+
+    ``accuracy="certified"`` (``method="auto"`` only) runs the certified
+    driver: ``certified_rtol`` is the relative forward-error target
+    (``None`` → the adaptive QR-attainable default), ``certified_probes``
+    the distortion probe count; ``SolveResult.certificate`` carries the
+    final posterior bound.  ``precision="mixed"`` sketches a bf16-rounded
+    copy of A for the sketched methods; the certified tier then verifies
+    the factor and escalates back to full precision when rounding broke
+    the embedding.  The arguments of unported features (``reg``,
+    ``cluster``, ``trace``) keep the reference's names and accept only
+    their defaults.
     """
     if accuracy not in ACCURACIES:
         raise ValueError(f"unknown accuracy {accuracy!r}; have {ACCURACIES}")
@@ -166,8 +294,6 @@ def lstsq(
         raise _not_ported("row-streamed inputs", "A9")
     if reg is not None:
         raise _not_ported("reg= (Tikhonov)", "A8")
-    if accuracy == "certified" or certified_rtol is not None or certified_probes != 8:
-        raise _not_ported("the certified tier (accuracy='certified', certified_*)", "A6")
 
     A_op = linop.as_operator(A, device=device)
     b = backend_lib.as_tensor(b, A_op.device, A_op.dtype)
@@ -181,6 +307,22 @@ def lstsq(
         if v is not None
     }
 
+    if accuracy == "certified":
+        if forced:
+            raise ValueError(
+                "accuracy='certified' drives its own method ladder "
+                f"{CERTIFIED_LADDER}; don't force method={method!r}"
+            )
+        if key is None:
+            raise ValueError("accuracy='certified' needs a key (torch.Generator)")
+        res, used = _certified_lstsq(
+            A_op, b, backend_lib.as_generator(key, A_op.device), sketch=sketch,
+            sketch_size=sketch_size, backend=backend, tol=tol, history=history,
+            rtol=certified_rtol, n_probes=certified_probes, precision=precision,
+            fused=fused,
+        )
+        return res._replace(method=used)
+
     if method == "auto":
         method = select_method(
             m, n, has_key=key is not None, accuracy=accuracy,
@@ -189,9 +331,7 @@ def lstsq(
         )
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; have {('auto',) + METHODS}")
-    if method not in _PORTED_METHODS:
-        raise _not_ported(f"method {method!r}", "A6")
-    if method == "saa" and key is None:
+    if method in ("saa", "sap", "iterative", "fossils") and key is None:
         raise ValueError(f"method {method!r} needs a key (torch.Generator)")
 
     unsupported = sorted(set(tol) - TOL_SUPPORT[method])
@@ -219,6 +359,12 @@ def lstsq(
         res = _direct_result(linop.ensure_dense(A_op, who="method='direct'"), b)
     elif method == "lsqr":
         res = lsqr_operator(A_op, b, history=history, **tol)
-    else:
+    elif method == "saa":
         res = saa_sas(A_op, b, key, history=history, **sk, **tol)
+    elif method == "sap":
+        res = sap_sas(A_op, b, key, history=history, **sk, **tol)
+    elif method == "iterative":
+        res = iterative_sketching(A_op, b, key, history=history, **sk, **tol)
+    else:  # fossils (tol holds at most steptol after the audit above)
+        res = fossils(A_op, b, key, history=history, **sk, **tol)
     return res._replace(method=method)

@@ -11,8 +11,9 @@ second form is the carry-across hook: a test draws S with the reference
 package, converts it with ``repro_torch.convert`` (one converter per
 kind) and runs both packages on the same S.
 
-``extend`` and ``build_streaming`` arrive with ROADMAP A6 and A9, the
-tracing spans with A4.
+``extend`` grows the sketch by appended rows for the certified tier's
+escalation.  ``build_streaming`` arrives with ROADMAP A9, the tracing spans
+with A4.
 """
 from __future__ import annotations
 
@@ -165,6 +166,24 @@ class SketchedFactor(NamedTuple):
             return cls(Q=Q, R=R), op, B
         B = _sketch_apply(op, A, backend=backend, precision=precision)
         return cls.from_sketch(B), op, B
+
+    def extend(self, A, op, key, extra: int, *, B=None, backend: str = "auto"):
+        """Grow the sketch by ``extra`` appended rows and re-QR: returns
+        ``(factor, op_new, B_new)``.
+
+        ``op.extend_rows(key, extra)`` stacks a fresh block drawn from
+        ``key`` under the first d rows, and only that block is applied to
+        A (on the card, through the kind's kernel).  ``B`` is the stored
+        sketch this factor was built from (``build_full``); ``B_new``'s top
+        block is then ``B`` times its weight, bitwise.  Without ``B`` it is
+        rebuilt as Q·R, exact to rounding.
+        """
+        A = linop.as_operator(A, device=self.R.device)
+        op_new = op.extend_rows(key, extra)
+        if B is None:
+            B = self.Q @ self.R
+        B_new = op_new.extend_sketch(B, A, backend=backend)
+        return SketchedFactor.from_sketch(B_new), op_new, B_new
 
     @property
     def n(self) -> int:

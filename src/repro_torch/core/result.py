@@ -3,8 +3,10 @@
 Port of ``repro/core/result.py``: every solver of the port returns this
 one :class:`SolveResult`, with tensors in place of JAX arrays.  ``method``
 is filled in by :func:`repro_torch.core.lstsq.lstsq` and is ``None`` when a
-solver is called directly.  ``certificate`` and ``timeline`` stay ``None``
-until the certified tier (ROADMAP A6) and the tracer (A4) are ported.
+solver is called directly.  ``certificate`` holds the
+:class:`repro_torch.core.certify.Certificate` of a certified solve
+(``accuracy="certified"``) and is ``None`` otherwise; ``timeline`` stays
+``None`` until the tracer (ROADMAP A4) is ported.
 """
 from __future__ import annotations
 

@@ -18,7 +18,12 @@ The reference's ``lax.cond`` fallback is a Python branch here, on one host
 read of ``converged``.  All draws come from one ``torch.Generator`` in this
 order: S (unless an operator is passed as ``sketch=``), then, on the
 fallback only, the power-iteration start vector and the Gaussian G.
-``saa_sas_batch`` arrives with ROADMAP A6.
+
+``saa_sas_batch`` amortizes one draw of S over many solves: k right-hand
+sides of one A share its factor and one LSQR over the block (a column
+stops at its own stop, as each lane of the reference's ``vmap`` does), and
+a batch of equally-shaped problems shares S, each solved as ``saa_sas``
+solves it.
 """
 from __future__ import annotations
 
@@ -30,10 +35,10 @@ from . import backend as backend_lib
 from . import linop
 from .linop import estimate_2norm
 from .lsqr import lsqr
-from .precond import SketchedFactor, default_sketch_size
+from .precond import SketchedFactor, _operator_for, default_sketch_size
 from .result import SolveResult
 
-__all__ = ["saa_sas", "default_sketch_size"]
+__all__ = ["saa_sas", "saa_sas_batch", "default_sketch_size"]
 
 
 def _solve_with_factor(
@@ -117,3 +122,100 @@ def saa_sas(
     factor2 = SketchedFactor.from_sketch(op.apply(A_t, backend=backend))
     x2, res2 = _solve_with_factor(A_t, b, factor2, c, **kw)
     return res2._replace(x=x2, used_fallback=torch.tensor(True, device=A.device))
+
+
+def saa_sas_batch(
+    A,
+    b,
+    key,
+    *,
+    sketch="clarkson_woodruff",
+    sketch_size: int | None = None,
+    atol: float = 0.0,
+    btol: float = 0.0,
+    steptol: float | None = None,
+    iter_lim: int = 100,
+    materialize_y: bool | None = None,
+    backend: str = "auto",
+    device=None,
+) -> SolveResult:
+    """Batched SAA-SAS: one operator draw amortized over many solves.
+
+    - ``A (m, n), b (m, k)``: one design matrix, k right-hand sides.  The
+      sketch, the factor and Y = A R⁻¹ are made once; one LSQR runs over
+      the (m, k) block, each product taking all k columns (Y is read once
+      per iteration), and a column that has stopped keeps its state, so
+      it ends as its own solve through those products would.  Returns x
+      of shape (n, k) and per-column istop, itn, rnorm and arnorm.
+    - ``A (batch, m, n), b (batch, m)``: equally-shaped problems sharing
+      one S; each is factored and solved as :func:`saa_sas` does it.
+      Returns x of shape (batch, n).
+
+    The perturbation fallback is not taken (``used_fallback`` is all
+    False); re-solve a non-converged column or problem on its own.
+    ``key`` is a ``torch.Generator`` on the data's device (or an int
+    seed); ``sketch`` a kind name or an already-drawn operator.
+    """
+    if getattr(A, "ndim", 2) == 3:
+        return _problem_batch(
+            A, b, key, sketch=sketch, sketch_size=sketch_size, atol=atol,
+            btol=btol, steptol=steptol, iter_lim=iter_lim,
+            materialize_y=materialize_y, backend=backend, device=device,
+        )
+    A = linop.as_operator(A, device=device)
+    b = backend_lib.as_tensor(b, A.device, A.dtype)
+    gen = backend_lib.as_generator(key, A.device)
+    if b.ndim != 2 or b.shape[0] != A.shape[0]:
+        raise ValueError(
+            f"multi-RHS mode needs b of shape ({A.shape[0]}, k), got {tuple(b.shape)}"
+        )
+    if materialize_y is None:
+        materialize_y = isinstance(A, linop.DenseOperator)
+    if steptol is None:
+        steptol = 32 * float(torch.finfo(A.dtype).eps)
+    factor, op = SketchedFactor.build(
+        A, gen, sketch=sketch, sketch_size=sketch_size, backend=backend
+    )
+    C = op.apply(b, backend=backend)  # (s, k)
+    X, res = _solve_with_factor(
+        A, b, factor, C, materialize_y=materialize_y, atol=atol, btol=btol,
+        iter_lim=iter_lim, steptol=steptol,
+    )
+    k = b.shape[1]
+    return res._replace(x=X, used_fallback=torch.zeros(k, dtype=torch.bool, device=A.device))
+
+
+def _problem_batch(
+    A, b, key, *, sketch, sketch_size, atol, btol, steptol, iter_lim,
+    materialize_y, backend, device,
+):
+    A = backend_lib.as_tensor(A, device)
+    b = backend_lib.as_tensor(b, A.device, A.dtype)
+    gen = backend_lib.as_generator(key, A.device)
+    batch, m, n = A.shape
+    if b.shape != (batch, m):
+        raise ValueError(
+            f"problem-batch mode needs b of shape {(batch, m)}, got {tuple(b.shape)}"
+        )
+    if materialize_y is None:
+        materialize_y = True
+    if steptol is None:
+        steptol = 32 * float(torch.finfo(A.dtype).eps)
+    kw = dict(
+        materialize_y=materialize_y, atol=atol, btol=btol, iter_lim=iter_lim,
+        steptol=steptol,
+    )
+    op = _operator_for(sketch, linop.DenseOperator(A[0]), sketch_size, gen)
+    results = []
+    for A_i, b_i in zip(A, b):
+        factor = SketchedFactor.from_sketch(op.apply(A_i, backend=backend))
+        c = op.apply(b_i, backend=backend)
+        x, res = _solve_with_factor(A_i, b_i, factor, c, **kw)
+        results.append(res._replace(x=x))
+    stacked = {
+        f: torch.stack([getattr(r, f) for r in results])
+        for f in ("x", "istop", "itn", "rnorm", "arnorm")
+    }
+    return SolveResult(
+        **stacked, used_fallback=torch.zeros(batch, dtype=torch.bool, device=A.device)
+    )

@@ -23,7 +23,7 @@ from repro.core import select_method as j_select  # noqa: E402
 from repro.core import sketch as jsketch  # noqa: E402
 from repro.core.precond import default_sketch_size  # noqa: E402
 from repro_torch.convert import countsketch_from_reference, problem_from_reference  # noqa: E402
-from repro_torch.core import generate_problem, lstsq, select_method  # noqa: E402
+from repro_torch.core import generate_problem, lstsq, qr_solve, select_method  # noqa: E402
 
 CPU = "cpu"
 M, N = 4000, 64
@@ -166,21 +166,47 @@ class _RowSource:
 @pytest.mark.parametrize(
     "kw,slice_",
     [
-        (dict(method="sap"), "A6"),
-        (dict(method="iterative"), "A6"),
-        (dict(method="fossils"), "A6"),
-        (dict(), "A6"),  # auto + balanced selects iterative at this shape
-        (dict(accuracy="certified"), "A6"),
-        (dict(certified_rtol=1e-6), "A6"),
         (dict(reg=0.1), "A8"),
         (dict(cluster=object()), "A11"),
         (dict(trace=True), "A4"),
-        (dict(certified_probes=4), "A6"),
     ],
 )
 def test_unported_options_raise(big, kw, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         lstsq(big.A, big.b, 0, device=CPU, **kw)
+
+
+@pytest.mark.parametrize(
+    "kw,method",
+    [
+        (dict(method="sap"), "sap"),
+        (dict(method="iterative"), "iterative"),
+        (dict(method="fossils"), "fossils"),
+        (dict(), "iterative"),  # auto + balanced selects iterative at this shape
+        (dict(accuracy="high"), "fossils"),
+        (dict(accuracy="certified"), None),  # a rung of the certified ladder
+        (dict(certified_rtol=1e-6), "iterative"),  # read only by the certified tier
+        (dict(certified_probes=4), "iterative"),
+    ],
+)
+def test_forward_stable_and_certified_calls_reach_truth(big, kw, method):
+    """The calls that raised before the forward-stable solvers and the
+    certified tier were ported: the selected method, a converged stop
+    (istop 8, the step floor) and the error within 100x ``qr_solve``'s; a
+    certificate that passed, with the distance to QR's x within 10x its
+    bound (``tests/test_certify.py``)."""
+    res = lstsq(big.A, big.b, 0, device=CPU, **kw)
+    x_qr = qr_solve(big.A, big.b, device=CPU)
+    e_qr = _rel(x_qr, big.x_true)
+    if method is None:
+        assert res.method in ("saa", "iterative", "fossils", "direct")
+        cert = res.certificate
+        assert bool(cert.passed)
+        assert float((res.x - x_qr).norm()) <= 10 * float(cert.error_bound)
+    else:
+        assert res.method == method and res.certificate is None
+        assert int(res.istop) == 8
+    assert _rel(res.x, big.x_true) <= 100 * max(e_qr, 1e-12)
 
 
 def test_unported_inputs_raise(prob):
