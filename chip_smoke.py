@@ -50,7 +50,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    and fused) at m = 2^16, forward stability at β = 1e-5, and, on
    phase 6's problem, a mixed certified run with the exact σ_min pass
    timed by its two routes.  Each run prints itn, istop, launches, error
-   and the median warm wall of 3.
+   and the median warm wall of 3;
+11. the span tracer and the session (class ``_Phase11``), on the main
+   problem: ``lstsq(..., trace=True)`` for the default call, ``method=
+   "saa"`` and ``accuracy="certified"``, each timeline printed with its
+   spans' durations on the card and checked for its span names and their
+   nesting; the default call's median warm wall traced and untraced, and
+   the disabled tracer against ``obs_trace.stripped()`` (5 alternating
+   rounds, least of each, ≤ 1.05x); a ``SketchedSolver`` serving 8
+   ``solve`` calls and one ``solve_many`` of 8 (each within 1e-5 and
+   100x ``qr_solve``'s error, each block column bitwise its block solve of
+   8 copies) from one operator draw, one QR and one B1 launch on A; row
+   updates of 4096 rows (the CountSketch's delta-sketch, B1 on a CSR of
+   4096 entries; the SRHT's re-sketch with the same S through B8; an
+   auto-recertifying session from n + 2 rows), each updated B held against
+   a fresh sketch of the new A, the caller's rows unchanged, the next
+   solve against ``qr_solve`` on the new A, the update's wall and peak
+   memory printed; at m = 2^16 a Gaussian and a uniform-dense session
+   with one update each (B4/B6 on A and b, B6 on the delta); and the
+   registry's ``repro_session_*`` counters against the sessions' stats.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -71,6 +89,10 @@ unaligned A), holding B4 to the plain product on its own S and B5's B
 bitwise to B4's, after checking that clusters of every size fit on the
 card.  Phases 7 and 8 print each kernel's TFLOP/s and its share of its
 bound beside its time; phase 8 also times B4's engine with clusters of 1.
+
+Phases 7 and 9 also time cuSPARSE's SpMM (``torch.sparse.mm`` on S as a
+(d, m) CSR matrix) beside B1 on the CountSketch's and the sparse-sign
+sketch's CSRs, and B1's plain version on the sparse-sign CSR.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels, draws the
 main problem and traces one warm plain, one warm fused and one warm SRHT
@@ -208,6 +230,23 @@ def _rates(t, ops):
     t["tflops"] = ops / t["ms"] / 1e9
     t["bound_share"] = t["bound_ms"] / t["ms"]
     return t
+
+
+def _sparse_s(torch, buckets, weights, d, m):
+    """S as a (d, m) sparse CSR matrix: the bucket sketch's entries
+    (weights[j, i] at row buckets[j, i], column i; repeated entries
+    summed), for cuSPARSE's SpMM."""
+    rows = buckets.reshape(-1).to(torch.int64)
+    cols = torch.arange(m, device=rows.device).repeat(rows.numel() // m)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), weights.reshape(-1), (d, m))
+    return coo.coalesce().to_sparse_csr()
+
+
+def _spmm(torch, S_csr, A, B1_out):
+    """Time ``torch.sparse.mm(S_csr, A)`` (mean of 5 after a warm-up) and
+    return it with its max|Δ| from B1's output on the same inputs."""
+    err = float((torch.sparse.mm(S_csr, A) - B1_out).abs().max())
+    return _event_ms(torch, lambda: torch.sparse.mm(S_csr, A)), err
 
 
 def _check_gram(torch, G, G_ref, B, what):
@@ -783,6 +822,11 @@ def main() -> int:
     bytes1 = M_MAIN * N_MAIN * esz + M_MAIN * (4 + esz) + d * N_MAIN * esz
     t1["bound_ms"], t1["bound_by"] = _bound(M_MAIN * N_MAIN, bytes1)
     t1["vec_ms"] = _event_ms(torch, lambda: countsketch_apply(b, h, s, d, csr=csr))
+    # cuSPARSE's SpMM on S as a (d, m) CSR matrix, built once here: a second
+    # one-call yardstick (timed only; no path of the port calls it)
+    S_csr = _sparse_s(torch, h, s, d, M_MAIN)
+    t1["spmm_ms"], t1["spmm_err"] = _spmm(torch, S_csr, A, SA)
+    del S_csr
 
     # ---- phase 7b: the tsqr CholeskyQR path (B2) on the main path's sketch
     Q2, R2 = run_path("tsqr_cholqr", lambda: tsqr(SA, mode="cholqr"))
@@ -944,10 +988,18 @@ def main() -> int:
         e_b1 = float(err.max())
         errs["countsketch_apply"] = max(errs["countsketch_apply"], e_b1)
         del out, err, tol
-        t_b1[sparse_kind] = _event_ms(torch, lambda: countsketch_apply(A, op9.buckets, w9, d9, csr=csr9))
+        t_b1[sparse_kind] = dict(
+            ms=_event_ms(torch, lambda: countsketch_apply(A, op9.buckets, w9, d9, csr=csr9)),
+            plain_ms=_event_ms(torch, lambda: countsketch_ref(A, op9.buckets, w9, d9)),
+        )
+        S_csr = _sparse_s(torch, op9.buckets, w9, d9, M_MAIN)
+        out = countsketch_apply(A, op9.buckets, w9, d9, csr=csr9)
+        t_b1[sparse_kind]["spmm_ms"], t_b1[sparse_kind]["spmm_err"] = _spmm(torch, S_csr, A, out)
+        del S_csr, out
         _p(f"phase 9: B1 on the {sparse_kind} CSR ({op9.buckets.numel()} entries) at A(2^20, 1000) d=4000: "
            f"max|Δ| vs card plain {e_b1:.3e} (tol 2γ_{k}|S||A|), bitwise = CPU plain "
-           f"on 64 columns; {t_b1[sparse_kind]:.3f} ms (card: {smi})")
+           f"on 64 columns; {json.dumps(t_b1[sparse_kind])} (ms; spmm: torch.sparse.mm on S as a (d, m) "
+           f"CSR, spmm_err its max|Δ| from B1; card: {smi})")
     del op_ss, op_us, op9, w9, csr9
 
     # hadamard_transform's own path: the SRHT's Sᵀ (as_dense_t), one
@@ -964,9 +1016,17 @@ def main() -> int:
     # (its mixed run comes with phase 6's problem)
     phase10 = _Phase10(torch, dev, gen, smi, run_path, paths)
     phase10.main_problem(A, b, x_true, e_qr)
+
+    # ---- phase 11: the span tracer and the SketchedSolver session --------
+    # (its m = 2^16 sessions come after phase 10's m = 2^16 runs)
+    phase11 = _Phase11(torch, dev, gen, smi, run_path, paths, t_saa)
+    phase11.tracing(A, b, x_true, e_qr)
+    phase11.main_problem(A, b, x_true, e_qr)
     del op_t, St, prob, A, b, x_true
     torch.cuda.empty_cache()
     phase10.after_main()
+    phase11.dense()
+    phase11.metrics()
 
     # ---- phase 5: the perturbation fallback -------------------------------
     p5 = generate_problem(gen, 2**18, N_MAIN, cond=COND, beta=BETA, device=dev)
@@ -1478,6 +1538,378 @@ class _Phase10:
            f"{json.dumps(floor)} (card: {self.smi})")
         if abs(floor["qr_of_Y"]["sigma_min"] - floor["svd_of_Y"]["sigma_min"]) > 1e-12:
             raise AssertionError(f"the two routes to σ_min(A R⁻¹) disagree: {floor}")
+
+
+class _Phase11:
+    """Phase 11: the span tracer and the ``SketchedSolver`` session.
+
+    On the main problem: the default call, ``method="saa"`` and the
+    certified tier with ``trace=True`` (each timeline printed, its spans
+    nested, every child no longer than its parent), the warm walls traced
+    and untraced, and the disabled tracer's overhead against a stripped
+    build (``obs_trace.stripped()``, ≤ 1.05x); a session serving 8
+    solves and one ``solve_many`` of 8 from one sketch and one QR; row
+    updates (CountSketch delta-sketch, the SRHT's re-sketch, an
+    auto-recertifying session from n + 2 rows).  At m = 2^16 a Gaussian
+    and a uniform-dense session, each with one row update.  Then the
+    registry's ``session`` counters against the sessions' stats.
+    ``run_path(name, fn)`` counts launches as for phase 10."""
+
+    SPANS = ("lstsq", "lstsq.select", "lstsq.solve", "factor.build", "sketch.apply", "factor.qr")
+
+    def __init__(self, torch, dev, gen, smi, run_path, paths, t_saa):
+        from repro_torch.obs import REGISTRY
+
+        self.torch, self.dev, self.gen, self.smi = torch, dev, gen, smi
+        self.run_path, self.paths, self.t_saa = run_path, paths, t_saa
+        self.stats_seen = []  # the stats dict of every session built here
+        REGISTRY.reset()  # the session counters read at the end are this phase's
+
+    # ------------------------------------------------------------ tracing
+    def _timeline(self, name, tl, need):
+        """Print ``tl`` and its time by span name; raise unless every name
+        in ``need`` is there, each span lies within its parent's window
+        and no child lasts longer than its parent."""
+        names = tl.names()
+        missing = [n for n in need if n not in names]
+        spans = sorted(tl.spans(), key=lambda e: (e["ts"], e["depth"]))
+        open_ = []  # the chain of enclosing spans
+        for e in spans:
+            while open_ and open_[-1]["depth"] >= e["depth"]:
+                open_.pop()
+            if e["depth"] > 0:
+                parent = open_[-1] if open_ else None
+                if (parent is None or parent["depth"] != e["depth"] - 1 or e["dur"] > parent["dur"]
+                        or e["ts"] + e["dur"] > parent["ts"] + parent["dur"]):
+                    raise AssertionError(f"{name}: span {e['name']} is not nested in its parent {parent}")
+            open_.append(e)
+        by_name = {}
+        for e in spans:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+        _p(f"phase 11: {name} timeline (span durations on the card; card: {self.smi}):\n{tl.render()}")
+        _p(f"phase 11: {name} ms by span name {json.dumps(by_name)}")
+        if missing:
+            raise AssertionError(f"{name}: timeline lacks {missing}: {names}")
+        return spans
+
+    def tracing(self, A, b, x_true, e_qr):
+        from repro_torch.core import lstsq
+        from repro_torch.obs import trace as obs_trace
+
+        torch, gen = self.torch, self.gen
+        good = lambda e: e < 1e-5 and e <= 10 * max(e_qr, 1e-12)  # noqa: E731
+        res = self.run_path("traced_default", lambda: lstsq(A, b, gen, trace=True))
+        e = _rel(res.x, x_true)
+        if not (good(e) and res.method == "iterative"):
+            raise AssertionError(f"traced default: method {res.method}, rel.err {e}")
+        self._timeline("default (iterative)", res.timeline, self.SPANS)
+        res = self.run_path("traced_saa", lambda: lstsq(A, b, gen, method="saa", trace=True))
+        e_saa = _rel(res.x, x_true)
+        if not (e_saa < 1e-5 and e_saa <= 100 * max(e_qr, 1e-12)):
+            raise AssertionError(f"traced saa: rel.err {e_saa}")
+        # a forced method selects nothing: no lstsq.select span
+        self._timeline("saa", res.timeline, [n for n in self.SPANS if n != "lstsq.select"])
+        res = self.run_path("traced_certified", lambda: lstsq(A, b, gen, accuracy="certified", trace=True))
+        spans = self._timeline("certified", res.timeline, ("lstsq", "certified.rung", "certify.probe",
+                                                           "certify.floor", "factor.build"))
+        rungs = [e for e in spans if e["name"] == "certified.rung"]
+        if not (all("passed" in r["args"] for r in rungs) and rungs[-1]["args"]["passed"] is True
+                and bool(res.certificate.passed)):
+            raise AssertionError(f"traced certified: rungs {[r['args'] for r in rungs]}")
+        for name, p in (("traced_default", "countsketch_apply"), ("traced_saa", "countsketch_apply")):
+            if self.paths[name][p] < 2:
+                raise AssertionError(f"{name} did not launch B1 on A and b: {self.paths[name]}")
+        if obs_trace.enabled():
+            raise AssertionError("a per-call trace left its tracer active")
+
+        def call(trace=None):
+            # a generator seeded alike for every call: the same S, the same
+            # iterations, so the walls differ only by what is timed
+            g = torch.Generator(device=self.dev).manual_seed(11)
+            return lstsq(A, b, g, trace=trace)
+
+        walls = {
+            "traced": sorted(_sync_time(torch, lambda: call(True))[1] for _ in range(3))[1],
+            "untraced": sorted(_sync_time(torch, call)[1] for _ in range(3))[1],
+        }
+        # The disabled tracer against a build whose call sites do nothing:
+        # alternate rounds, the least wall of each.
+        plain, bare = [], []
+        for _ in range(5):
+            plain.append(_sync_time(torch, call)[1])
+            with obs_trace.stripped():
+                bare.append(_sync_time(torch, call)[1])
+        overhead_x = min(plain) / min(bare)
+        _p(f"phase 11: default call (one seed, itn {int(call().itn)}) median warm wall of 3: traced "
+           f"{walls['traced']:.4f} s, untraced "
+           f"{walls['untraced']:.4f} s; disabled tracer vs stripped (min of 5, alternating): "
+           f"{min(plain):.4f} s vs {min(bare):.4f} s, overhead_x {overhead_x:.4f} (gate ≤ 1.05; card: {self.smi})")
+        if overhead_x > 1.05:
+            raise AssertionError(f"disabled-tracer overhead {overhead_x} > 1.05")
+
+    # ------------------------------------------------------------ session
+    def _session(self, *a, **kw):
+        from repro_torch.core import SketchedSolver
+
+        s = SketchedSolver(*a, **kw)
+        self.stats_seen.append(s.stats)
+        return s
+
+    def main_problem(self, A, b, x_true, e_qr):
+        """The session at the paper's size: one build, 8 solves on
+        b_i = b + A·δ_i (solution x_true + δ_i, the same residual), one
+        solve_many of those 8; then the row updates."""
+        from repro_torch.core import CountSketch, SketchedFactor
+        from repro_torch.core import sketch as sketch_lib
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = A.shape
+        k = 8
+        D = torch.randn(n, k, generator=gen, dtype=A.dtype, device=dev)
+        B = b[:, None] + A @ D
+        X_true = x_true[:, None] + D
+        Qa, Ra = torch.linalg.qr(A)
+        X_qr = torch.linalg.solve_triangular(Ra, Qa.T @ B, upper=True)
+        del Qa, Ra
+        e_qrs = [_rel(X_qr[:, j], X_true[:, j]) for j in range(k)]
+
+        counts = {"sample": 0, "qr": 0}
+        real_sample, real_qr = sketch_lib.sample, SketchedFactor.from_sketch.__func__
+
+        def counting_sample(*a, **kw):
+            counts["sample"] += 1
+            return real_sample(*a, **kw)
+
+        def counting_qr(cls, Bm):
+            counts["qr"] += 1
+            return real_qr(cls, Bm)
+
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        t = {}
+
+        def serve():
+            s = self._session(A, gen)
+            torch.cuda.synchronize()
+            t["build"] = time.perf_counter() - t0
+            out, walls = [], []
+            for j in range(k):
+                res, w = _sync_time(torch, lambda: s.solve(B[:, j]))
+                out.append(res)
+                walls.append(w)
+            t["solve"] = sorted(walls)[k // 2]
+            many, t["solve_many"] = _sync_time(torch, lambda: s.solve_many(B))
+            return s, out, many
+
+        sketch_lib.sample, SketchedFactor.from_sketch = counting_sample, classmethod(counting_qr)
+        try:
+            with _Count2D(CountSketch) as counted:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s, singles, many = self.run_path("session", serve)
+        finally:
+            sketch_lib.sample, SketchedFactor.from_sketch = real_sample, classmethod(real_qr)
+        on_A = [sh for sh in counted.shapes if sh == (m, n)]
+        launches = self.paths["session"]["countsketch_apply"]
+        stats = dict(s.stats)
+        cols = []
+        for j in range(k):
+            e1, e8 = _rel(singles[j].x, X_true[:, j]), _rel(many.x[:, j], X_true[:, j])
+            copies = s.solve_many(B[:, j:j + 1].repeat(1, k))
+            frozen = (torch.equal(copies.x[:, 0], many.x[:, j]) and int(copies.itn[0]) == int(many.itn[j])
+                      and int(copies.istop[0]) == int(many.istop[j]))
+            cols.append(dict(solve_itn=int(singles[j].itn), solve_err=e1, many_itn=int(many.itn[j]),
+                             many_err=e8, qr_err=e_qrs[j], freeze_bitwise=frozen))
+            ok = lambda e: e < 1e-5 and e <= 100 * max(e_qrs[j], 1e-12)  # noqa: E731
+            if not (ok(e1) and ok(e8) and frozen and singles[j].method == many.method == "session"):
+                raise AssertionError(f"session column {j}: {cols[-1]}")
+        _p(f"phase 11: session at A({m}, {n}) clarkson_woodruff: columns {json.dumps(cols)}")
+        _p(f"phase 11: session stats {stats}; operator draws {counts['sample']}, QR factorizations "
+           f"{counts['qr']}, 2-D sketch applies on A {len(on_A)}, B1 launches {launches} (1 on A + {k} "
+           f"solves + 1 solve_many); launches {self.paths['session']}")
+        if not (stats == {"sketches": 1, "qr_factorizations": 1, "solves": 2 * k}
+                and counts == {"sample": 1, "qr": 1} and len(on_A) == 1 and launches == 1 + k + 1):
+            raise AssertionError("the session sketched or factored more than once")
+        _p(f"phase 11: session walls: build {t['build']:.4f} s, median solve {t['solve']:.4f} s, solve_many "
+           f"(k = {k}) {t['solve_many']:.4f} s; phase 3's lstsq(method='saa') {self.t_saa:.4f} s "
+           f"(card: {self.smi})")
+        del singles, many, copies, D, B, X_true, X_qr
+        self.updates(A, b, s, start)
+
+    def _update(self, name, s, A, idx, rows, start, tol_of):
+        """One counted, timed update_rows; hold its B against a fresh
+        sketch of the new A (``tol_of(A_new)`` gives the bound, None for
+        bitwise) and the caller's rows against a saved copy."""
+        torch = self.torch
+        saved = A[idx].clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, wall = _sync_time(torch, lambda: self.run_path(name, lambda: s.update_rows(idx, rows)))
+        peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+        # where the update's time goes: the same update again (its memory
+        # now cached by the allocator), and forming Y alone
+        _, again = _sync_time(torch, lambda: s.update_rows(idx, rows))
+        _, t_y = _sync_time(torch, lambda: s.factor.materialize_whitened(s.A))
+        if not torch.equal(A[idx], saved):
+            raise AssertionError(f"{name}: update_rows wrote into the caller's A")
+        A_new = s.A.A
+        if not torch.equal(A_new[idx], rows):
+            raise AssertionError(f"{name}: the session's A does not hold the new rows")
+        fresh = s._sketch_op.apply(A_new)
+        err = float((s._B - fresh).abs().max())
+        tol = tol_of(A_new)
+        if (tol is None and not torch.equal(s._B, fresh)) or (tol is not None and not bool(((s._B - fresh).abs() <= tol).all())):
+            raise AssertionError(f"{name}: updated B off a fresh sketch of the new A by {err}")
+        _p(f"phase 11: {name}: update_rows of {idx.numel()} rows: wall {wall:.4f} s (again {again:.4f} s; "
+           f"Y = A R⁻¹ alone {t_y:.4f} s), peak device memory "
+           f"{peak:.2f} GiB above the session's start; updated B vs a fresh sketch of the new A: max|Δ| "
+           f"{err:.3e} ({'bitwise' if tol is None else 'within its bound'}); stats {dict(s.stats)}; "
+           f"launches {self.paths[name]} (card: {self.smi})")
+        return A_new
+
+    def _bucket_tol(self, op, idx, delta_abs):
+        """2·γ_{k+2}·|S|(|A_new| + |A_new − A|) for a CountSketch, k its
+        largest bucket: B = SA, plus the delta-sketch, plus one add.
+        ``delta_abs`` is |rows − A[idx]|."""
+        from repro_torch.kernels import countsketch_ref
+
+        torch = self.torch
+
+        def tol(A_new):
+            k = int(torch.bincount(op.buckets.long(), minlength=op.d).max())
+            w = op.signs.abs()
+            return 2 * _gamma(torch, k + 2, A_new.dtype) * (
+                countsketch_ref(A_new.abs(), op.buckets, w, op.d)
+                + countsketch_ref(delta_abs, op.buckets[idx], w[idx], op.d))
+        return tol
+
+    def updates(self, A, b, s, start):
+        """update_rows on the session of ``main_problem`` (CountSketch
+        delta-sketch, B1 on a CSR of |idx| entries), then an SRHT session
+        (B8 on the whole new A) and an auto-recertifying one from n + 2
+        rows.  Each next solve is held against qr_solve on the new A."""
+        from repro_torch.core import SRHTSketch, qr_solve
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = A.shape
+        n_rows = min(4096, m // 16)
+        idx = torch.randperm(m, generator=gen, device=dev)[:n_rows]
+        # new rows of A's own scale (its entries' RMS), a second draw
+        scale = float(A.norm() / math.sqrt(A.numel()))
+        rows = torch.randn(n_rows, n, generator=gen, dtype=A.dtype, device=dev) * scale
+        A_new = self._update("session_update", s, A, idx, rows, start,
+                             self._bucket_tol(s._sketch_op, idx, (rows - A[idx]).abs()))
+        if self.paths["session_update"]["countsketch_apply"] != 1:
+            raise AssertionError(f"the delta-sketch did not launch B1 once: {self.paths['session_update']}")
+        x_qr = qr_solve(A_new, b)
+        del A_new
+
+        def check_solve(name, sess):
+            res, wall = _sync_time(torch, lambda: sess.solve(b))
+            gap = _rel(res.x, x_qr)
+            _p(f"phase 11: {name}: next solve itn {int(res.itn)} istop {int(res.istop)}, ‖x − x_qr‖/‖x_qr‖ "
+               f"on the new A {gap:.3e}, wall {wall:.4f} s (card: {self.smi})")
+            if not gap < 1e-8:
+                raise AssertionError(f"{name}: solve after update_rows off qr_solve by {gap}")
+
+        check_solve("session_update", s)
+        del s
+        torch.cuda.empty_cache()
+
+        # The SRHT: no column restriction, so the same S sketches the new A.
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        s = self._session(A, gen, sketch="srht")
+        with _Count2D(SRHTSketch) as counted:
+            self._update("session_update_srht", s, A, idx, rows, start, lambda A_new: None)
+        on_A = [sh for sh in counted.shapes if sh == (m, n)]
+        if not (s.stats["sketches"] == 3 and len(on_A) == 3
+                and self.paths["session_update_srht"]["srht_apply"] == 1):
+            # 2-D applies on (m, n): the counted update's, the repeat's and
+            # the fresh check's
+            raise AssertionError(f"SRHT update: stats {s.stats}, applies {counted.shapes}")
+        check_solve("session_update_srht", s)
+        del s
+        torch.cuda.empty_cache()
+
+        # From n + 2 rows, auto_recertify escalates after the update.
+        s = self._session(A, gen, sketch_size=n + 2, auto_recertify=True)
+        _, wall = _sync_time(torch, lambda: self.run_path("session_recertify", lambda: s.update_rows(idx, rows)))
+        cert = s.certificate
+        _p(f"phase 11: session_recertify (n + 2 rows, auto_recertify): update wall {wall:.4f} s, escalations "
+           f"{s.escalations}, recertifications {s.recertifications}, sketch rows {s.sketch_size}, certificate "
+           f"passed {bool(cert.passed)} distortion {float(cert.distortion):.3f}; stats {dict(s.stats)}; launches "
+           f"{self.paths['session_recertify']} (card: {self.smi})")
+        if not (bool(cert.passed) and s.escalations >= 1 and s.sketch_size > n + 2):
+            raise AssertionError(f"auto_recertify did not escalate to a passing certificate: {cert}")
+        check_solve("session_recertify", s)
+        del s, x_qr
+        torch.cuda.empty_cache()
+
+    def dense(self):
+        """At m = 2^16: a Gaussian session (B4 on A and b, B6 on the
+        delta) and a uniform-dense one (B6 on A, b and the delta), each
+        with one row update held against a fresh sketch of the new A."""
+        from repro_torch.core import generate_problem, qr_solve
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        p = generate_problem(gen, M_DENSE, N_MAIN, cond=COND, beta=BETA, device=dev)
+        A, b = p.A, p.b
+        m, n = A.shape
+        e_qr = _rel(qr_solve(A, b), p.x_true)
+        n_rows = min(4096, m // 16)
+        idx = torch.randperm(m, generator=gen, device=dev)[:n_rows]
+        scale = float(A.norm() / math.sqrt(A.numel()))
+        rows = torch.randn(n_rows, n, generator=gen, dtype=A.dtype, device=dev) * scale
+        delta_abs = (rows - A[idx]).abs()
+        for kind, kernel, ulps in [("gaussian", "fused_gaussian_sketch", ULP_BOUND),
+                                   ("uniform_dense", "sketch_matmul", 0)]:
+            name = f"session_{kind}"
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+
+            def build_and_solve():
+                sess = self._session(A, gen, sketch=kind)
+                return sess, sess.solve(b)
+
+            s, res = self.run_path(name, build_and_solve)
+            e = _rel(res.x, p.x_true)
+            _p(f"phase 11: {name} m=2^16: solve itn {int(res.itn)} rel.err {e:.3e}; qr_solve rel.err "
+               f"{e_qr:.3e}; launches {self.paths[name]} (card: {self.smi})")
+            if not (e < 1e-5 and e <= 100 * max(e_qr, 1e-12) and self.paths[name][kernel] >= 2):
+                raise AssertionError(f"{name}: rel.err {e}, launches {self.paths[name]}")
+            S_abs = s._sketch_op.as_dense().abs()
+
+            def tol(A_new, S_abs=S_abs, ulps=ulps):
+                # 2·γ_{m+2}·|S|(|A_new| + |ΔA|), plus the kernel's Gaussians
+                # against the generator's (≤ ulps f32 ulps) on the delta
+                g = 2 * _gamma(torch, m + 2, A.dtype)
+                on_delta = S_abs[:, idx] @ delta_abs
+                return g * (S_abs @ A_new.abs() + on_delta) + ulps * 2.0**-23 * on_delta
+
+            A_new = self._update(f"{name}_update", s, A, idx, rows, start, tol)
+            if self.paths[f"{name}_update"]["sketch_matmul"] != 1:
+                raise AssertionError(f"{name}: the delta-sketch did not launch B6 once")
+            x_qr = qr_solve(A_new, b)
+            gap = _rel(s.solve(b).x, x_qr)
+            _p(f"phase 11: {name}: next solve ‖x − x_qr‖/‖x_qr‖ on the new A {gap:.3e}")
+            if not gap < 1e-8:
+                raise AssertionError(f"{name}: solve after update_rows off qr_solve by {gap}")
+            del s, S_abs, A_new, x_qr
+        del p, A, b, delta_abs
+        torch.cuda.empty_cache()
+
+    def metrics(self):
+        """The registry's session counters equal the sums of the sessions'
+        stats (every session this phase built)."""
+        from repro_torch.obs import prometheus_text
+
+        lines = [ln for ln in prometheus_text().splitlines() if ln.startswith("repro_session_")]
+        _p("phase 11: prometheus_text() session lines:\n" + "\n".join(lines))
+        for key in ("sketches", "qr_factorizations", "solves"):
+            total = sum(s[key] for s in self.stats_seen)
+            if f"repro_session_{key} {total}" not in lines:
+                raise AssertionError(f"registry's session.{key} is not the sessions' sum {total}: {lines}")
 
 
 # The device kernels each wrapper launches on the traced solves' routes

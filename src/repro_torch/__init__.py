@@ -4,12 +4,14 @@ A package of its own beside the JAX reference ``repro``: it imports
 ``torch``, numpy and the standard library only.  ``repro_torch.core``
 mirrors ``repro.core``; ``repro_torch.kernels`` holds the hand-written
 Hopper kernels (CUDA C++ in ``csrc/``) that replace the reference's Pallas
-kernels, each beside its plain PyTorch version.  Entry points run on the
+kernels, each beside its plain PyTorch version; ``repro_torch.obs`` the
+span tracer, the metrics registry and their exporters.  Entry points run on the
 card unless the caller passes ``device="cpu"``.
 """
-from . import convert, core, kernels
+from . import convert, core, kernels, obs
 from .core import (
     Certificate,
+    SketchedSolver,
     certify_solution,
     fossils,
     generate_problem,
@@ -23,7 +25,7 @@ from .core import (
 )
 
 __all__ = [
-    "convert", "core", "kernels", "Certificate", "certify_solution", "fossils",
-    "generate_problem", "iterative_sketching", "lsqr_dense", "lstsq", "qr_solve",
-    "saa_sas", "saa_sas_batch", "sap_sas",
+    "convert", "core", "kernels", "obs", "Certificate", "SketchedSolver",
+    "certify_solution", "fossils", "generate_problem", "iterative_sketching",
+    "lsqr_dense", "lstsq", "qr_solve", "saa_sas", "saa_sas_batch", "sap_sas",
 ]

@@ -21,6 +21,8 @@ tier:
 - ``certify``  — posterior certificates of a sketched solution
 - ``lstsq``    — the one-call driver over every method and the certified
   escalation ladder
+- ``session``  — ``SketchedSolver``: one sketch + QR served to many
+  right-hand sides and row updates
 
 The remaining modules of ``repro.core`` are listed in ROADMAP queue A.
 """
@@ -36,6 +38,7 @@ from . import (
     result,
     saa,
     sap,
+    session,
     sketch,
 )
 from .backend import BACKENDS, PRECISIONS
@@ -56,6 +59,7 @@ from .problems import Problem, generate as generate_problem
 from .result import SolveResult
 from .saa import saa_sas, saa_sas_batch
 from .sap import sap_sas
+from .session import SketchedSolver
 from .sketch import (
     SKETCH_KINDS,
     CountSketch,
@@ -70,7 +74,7 @@ from .sketch import (
 
 __all__ = [
     "backend", "certify", "direct", "iterative", "linop", "lsqr", "precond",
-    "problems", "result", "saa", "sap", "sketch",
+    "problems", "result", "saa", "sap", "session", "sketch",
     "BACKENDS", "PRECISIONS",
     "Certificate", "certify_solution", "error_bound", "probe_distortion",
     "normal_equations", "qr_solve", "svd_solve",
@@ -86,6 +90,7 @@ __all__ = [
     "SolveResult",
     "saa_sas", "saa_sas_batch",
     "sap_sas",
+    "SketchedSolver",
     "SKETCH_KINDS", "CountSketch", "GaussianSketch", "UniformDenseSketch",
     "SRHTSketch", "SparseSignSketch", "UniformSparseSketch", "StackedSketch",
     "sample_sketch",

@@ -28,8 +28,9 @@ it on the card bidiagonalizes with level-2 sweeps over all of Y.
 
 The probe matrix W is drawn from the ``torch.Generator`` passed as
 ``key``.  :func:`_probe_distortion_w` and :func:`_certify_w` take W
-itself, so a test can feed the reference's draw.  This module opens no
-tracing spans (they arrive with ROADMAP A4).
+itself, so a test can feed the reference's draw.  Spans
+(``repro_torch.obs.trace``): ``certify.probe`` around the distortion probe
+and the SVD of R, ``certify.floor`` around the σ_min(Y) floor.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs import trace as obs_trace
 from . import backend as backend_lib
 from . import linop
 from .precond import SketchedFactor
@@ -226,9 +228,11 @@ def _certify_w(
     """:func:`certify` with the probe matrix W given."""
     A = linop.as_operator(A, device=W.device)
     dtype = factor.R.dtype
-    eps_hat = _probe_distortion_w(A, factor, W)
-    U, svals, _ = torch.linalg.svd(factor.R)
-    smax, smin, cond_R = _spectrum(svals)
+    with obs_trace.span("certify.probe", n_probes=W.shape[1]):
+        eps_hat = _probe_distortion_w(A, factor, W)
+        U, svals, _ = torch.linalg.svd(factor.R)
+        smax, smin, cond_R = _spectrum(svals)
+        obs_trace.maybe_block(eps_hat)
     nan = torch.full((), float("nan"), dtype=dtype, device=W.device)
     emb_ok = (eps_hat <= max_distortion) & torch.isfinite(cond_R)
     meta = dict(
@@ -241,15 +245,17 @@ def _certify_w(
             error_bound=nan, rel_error_bound=nan, target=nan, passed=emb_ok, **meta,
         )
 
-    if precision == "mixed":
-        # Sampling probes cannot price a low-precision sketch: its rounding
-        # noise floors R's trailing subspace and hides A's weak directions
-        # where no O(1) probe set looks.  A mixed factor pays one exact
-        # whitened-spectrum pass, O(mn²), the order of the full-precision
-        # apply the bf16 sketch skipped.
-        floor = _exact_whitened_floor(A, factor)
-    else:
-        floor = _floor_from_u(A, factor, U, 4)
+    with obs_trace.span("certify.floor", precision=precision):
+        if precision == "mixed":
+            # Sampling probes cannot price a low-precision sketch: its
+            # rounding noise floors R's trailing subspace and hides A's weak
+            # directions where no O(1) probe set looks.  A mixed factor pays
+            # one exact whitened-spectrum pass, O(mn²), the order of the
+            # full-precision apply the bf16 sketch skipped.
+            floor = _exact_whitened_floor(A, factor)
+        else:
+            floor = _floor_from_u(A, factor, U, 4)
+        obs_trace.maybe_block(floor)
     rnorm, wg_norm, bound = _error_bound_parts(A, b, x, factor, eps_hat, smin, floor)
     xnorm = torch.linalg.vector_norm(x)
     rel = bound / torch.clamp(xnorm, min=_tiny(dtype))

@@ -21,8 +21,16 @@ method         solver
 with ``repro_torch.core.certify``, and on a failed certificate escalate
 along :data:`CERTIFIED_LADDER`, growing the sketch by appended rows (the
 stored B = SA is extended, never recomputed).  ``reg=`` (A8), row sources
-(A9), ``cluster=`` (A11) and ``trace=True`` (A4) raise
-``NotImplementedError`` naming their ROADMAP slice.
+(A9) and ``cluster=`` (A11) raise ``NotImplementedError`` naming their
+ROADMAP slice.
+
+``trace=True`` records the call's span tree (``repro_torch.obs.trace``):
+the root ``lstsq`` (``accuracy``, then ``method``), ``lstsq.select`` and
+``lstsq.solve`` (``method``, then ``itn``), the factor's ``factor.build``,
+``sketch.apply`` and ``factor.qr``, and on the certified tier one
+``certified.rung`` per attempt with its ``certify.probe`` and
+``certify.floor``, ``certified.precision_escalate`` and
+``certified.escalate``.  It is attached as ``SolveResult.timeline``.
 
 The tolerance forwarding audit (``TOL_SUPPORT``) and ``precision=``/
 ``fused=`` for the sketched methods are as in the reference.
@@ -33,6 +41,7 @@ import math
 
 import torch
 
+from ..obs import trace as obs_trace
 from . import backend as backend_lib
 from . import certify as certify_lib
 from . import linop
@@ -178,39 +187,49 @@ def _certified_lstsq(
     escalations = 0
     best = None  # (bound, result, method) of the best failed attempt
     rung = 0
+    attempt = 0
     while rung < len(CERTIFIED_LADDER):
         meth = CERTIFIED_LADDER[rung]
-        if meth == "direct":
-            res = _direct_result(linop.ensure_dense(A_op, who="the certified QR rung"), b)
-        elif meth == "saa":
-            c = op.apply(b, backend=backend)
-            x, inner = _solve_with_factor(
-                A_op, b, factor, c, materialize_y=dense, atol=atol, btol=btol,
-                iter_lim=iter_lim, steptol=steptol, history=history,
-            )
-            res = inner._replace(x=x)
-        else:
-            alpha, beta = damping_momentum(s, n)
-            x0 = factor.sketch_and_solve(op.apply(b, backend=backend))
-            if meth == "iterative":
-                res = heavy_ball_refine(
-                    A_op, b, factor, x0, alpha, beta, atol=atol, btol=btol,
-                    steptol=steptol, iter_lim=iter_lim, history=history,
-                )
-            else:  # fossils
-                res = fossils_refine(
-                    A_op, b, factor, op, x0, alpha, beta,
-                    inner_iter_lim=default_inner_iter_lim(beta, dtype),
-                    steptol=steptol, backend=backend, history=history,
-                )
-        cert = certify_lib.certify(
-            A_op, b, res.x, factor, gen, n_probes=n_probes, target=rtol,
-            sketch_rows=s, escalations=escalations, precision=prec_now,
+        rung_span = obs_trace.span(
+            "certified.rung", method=meth, attempt=attempt, sketch_rows=s,
+            precision=prec_now,
         )
-        res = res._replace(certificate=cert)
-        passed, bound = torch.stack(
-            [cert.passed.to(dtype), cert.rel_error_bound]
-        ).tolist()  # the host read of this rung
+        attempt += 1
+        with rung_span:
+            if meth == "direct":
+                res = _direct_result(linop.ensure_dense(A_op, who="the certified QR rung"), b)
+            elif meth == "saa":
+                c = op.apply(b, backend=backend)
+                x, inner = _solve_with_factor(
+                    A_op, b, factor, c, materialize_y=dense, atol=atol, btol=btol,
+                    iter_lim=iter_lim, steptol=steptol, history=history,
+                )
+                res = inner._replace(x=x)
+            else:
+                alpha, beta = damping_momentum(s, n)
+                x0 = factor.sketch_and_solve(op.apply(b, backend=backend))
+                if meth == "iterative":
+                    res = heavy_ball_refine(
+                        A_op, b, factor, x0, alpha, beta, atol=atol, btol=btol,
+                        steptol=steptol, iter_lim=iter_lim, history=history,
+                    )
+                else:  # fossils
+                    res = fossils_refine(
+                        A_op, b, factor, op, x0, alpha, beta,
+                        inner_iter_lim=default_inner_iter_lim(beta, dtype),
+                        steptol=steptol, backend=backend, history=history,
+                    )
+            obs_trace.maybe_block(res.x)
+            cert = certify_lib.certify(
+                A_op, b, res.x, factor, gen, n_probes=n_probes, target=rtol,
+                sketch_rows=s, escalations=escalations, precision=prec_now,
+            )
+            res = res._replace(certificate=cert)
+            passed, bound = torch.stack(
+                [cert.passed.to(dtype), cert.rel_error_bound]
+            ).tolist()  # the host read of this rung
+            if rung_span:
+                rung_span.set(passed=bool(passed), bound=bound)
         if passed:
             return res, meth
         if not math.isfinite(bound):
@@ -220,8 +239,10 @@ def _certified_lstsq(
         if prec_now == "mixed" and meth != "direct":
             # Precision escalation: the SAME operator at full precision (one
             # sketch apply, no extra rows), and this rung again
-            B = op.apply_op(A_op, backend=backend)
-            factor = SketchedFactor.from_sketch(B)
+            with obs_trace.span("certified.precision_escalate", rows=s):
+                B = op.apply_op(A_op, backend=backend)
+                factor = SketchedFactor.from_sketch(B)
+                obs_trace.maybe_block(factor.R)
             prec_now = "full"
             escalations += 1
             continue
@@ -230,7 +251,9 @@ def _certified_lstsq(
         if rung + 1 < len(CERTIFIED_LADDER):
             extra = min(s, max(m - s, 0))
             if extra > 0 and CERTIFIED_LADDER[rung + 1] != "direct":
-                factor, op, B = factor.extend(A_op, op, gen, extra, B=B, backend=backend)
+                with obs_trace.span("certified.escalate", extra=extra):
+                    factor, op, B = factor.extend(A_op, op, gen, extra, B=B, backend=backend)
+                    obs_trace.maybe_block(factor.R)
                 s += extra
                 escalations += 1
         rung += 1
@@ -279,15 +302,45 @@ def lstsq(
     copy of A for the sketched methods; the certified tier then verifies
     the factor and escalates back to full precision when rounding broke
     the embedding.  The arguments of unported features (``reg``,
-    ``cluster``, ``trace``) keep the reference's names and accept only
-    their defaults.
+    ``cluster``) keep the reference's names and accept only their
+    defaults.
+
+    ``trace=True`` records a nested wall-clock span timeline of this call
+    (method selection, sketch and QR, the solve, certificate rungs) and
+    attaches it as ``SolveResult.timeline`` (a
+    ``repro_torch.obs.trace.Timeline``: ``str(...)`` renders the tree,
+    ``.save(path)`` writes Chrome-trace JSON); each span waits for the
+    card, so its duration is device wall time.  With ``REPRO_TRACE=1`` (or
+    inside ``repro_torch.obs.tracing()``) the timeline is attached without
+    the flag; ``trace=None`` otherwise records nothing and synchronizes
+    nothing.
     """
+    scope = obs_trace.solve_scope(trace)
+    with scope:
+        root = obs_trace.span("lstsq", accuracy=accuracy)
+        with root:
+            res = _lstsq_impl(
+                A, b, key, method=method, accuracy=accuracy, sketch=sketch,
+                sketch_size=sketch_size, reg=reg, atol=atol, btol=btol,
+                steptol=steptol, iter_lim=iter_lim, backend=backend,
+                precision=precision, fused=fused, history=history,
+                certified_rtol=certified_rtol,
+                certified_probes=certified_probes, cluster=cluster, device=device,
+            )
+            if root and res.method:
+                root.set(method=res.method)
+    return scope.attach(res)
+
+
+def _lstsq_impl(
+    A, b, key, *, method, accuracy, sketch, sketch_size, reg, atol, btol,
+    steptol, iter_lim, backend, precision, fused, history, certified_rtol,
+    certified_probes, cluster, device,
+) -> SolveResult:
     if accuracy not in ACCURACIES:
         raise ValueError(f"unknown accuracy {accuracy!r}; have {ACCURACIES}")
     backend_lib.check_precision(precision)
     backend_lib.check_backend(backend)
-    if trace:
-        raise _not_ported("trace=True (solve timelines)", "A4")
     if cluster is not None:
         raise _not_ported("cluster= (multi-worker solves)", "A11")
     if callable(getattr(A, "tiles", None)):
@@ -324,11 +377,14 @@ def lstsq(
         return res._replace(method=used)
 
     if method == "auto":
-        method = select_method(
-            m, n, has_key=key is not None, accuracy=accuracy,
-            sketch_size=sketch_size,
-            matrix_free=not isinstance(A_op, linop.DenseOperator),
-        )
+        with obs_trace.span("lstsq.select", m=m, n=n, accuracy=accuracy) as sel:
+            method = select_method(
+                m, n, has_key=key is not None, accuracy=accuracy,
+                sketch_size=sketch_size,
+                matrix_free=not isinstance(A_op, linop.DenseOperator),
+            )
+            if sel:
+                sel.set(method=method)
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; have {('auto',) + METHODS}")
     if method in ("saa", "sap", "iterative", "fossils") and key is None:
@@ -355,16 +411,20 @@ def lstsq(
             f"{precision!r}; supported: {sorted(PRECISION_SUPPORT)}"
         )
 
-    if method == "direct":
-        res = _direct_result(linop.ensure_dense(A_op, who="method='direct'"), b)
-    elif method == "lsqr":
-        res = lsqr_operator(A_op, b, history=history, **tol)
-    elif method == "saa":
-        res = saa_sas(A_op, b, key, history=history, **sk, **tol)
-    elif method == "sap":
-        res = sap_sas(A_op, b, key, history=history, **sk, **tol)
-    elif method == "iterative":
-        res = iterative_sketching(A_op, b, key, history=history, **sk, **tol)
-    else:  # fossils (tol holds at most steptol after the audit above)
-        res = fossils(A_op, b, key, history=history, **sk, **tol)
+    with obs_trace.span("lstsq.solve", method=method) as sp:
+        if method == "direct":
+            res = _direct_result(linop.ensure_dense(A_op, who="method='direct'"), b)
+        elif method == "lsqr":
+            res = lsqr_operator(A_op, b, history=history, **tol)
+        elif method == "saa":
+            res = saa_sas(A_op, b, key, history=history, **sk, **tol)
+        elif method == "sap":
+            res = sap_sas(A_op, b, key, history=history, **sk, **tol)
+        elif method == "iterative":
+            res = iterative_sketching(A_op, b, key, history=history, **sk, **tol)
+        else:  # fossils (tol holds at most steptol after the audit above)
+            res = fossils(A_op, b, key, history=history, **sk, **tol)
+        obs_trace.maybe_block(res.x)
+        if sp:
+            sp.set(itn=int(res.itn))
     return res._replace(method=method)

@@ -12,8 +12,11 @@ package, converts it with ``repro_torch.convert`` (one converter per
 kind) and runs both packages on the same S.
 
 ``extend`` grows the sketch by appended rows for the certified tier's
-escalation.  ``build_streaming`` arrives with ROADMAP A9, the tracing spans
-with A4.
+escalation.  ``build_streaming`` arrives with ROADMAP A9.
+
+Spans (``repro_torch.obs.trace``): ``factor.build`` (``sketch``, ``rows``,
+``fused``) around each build, with ``sketch.apply`` and ``factor.qr``
+inside on the unfused route; ``factor.extend`` with its ``factor.qr``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs import trace as obs_trace
 from . import backend as backend_lib
 from . import linop
 from . import sketch as sketch_lib
@@ -72,6 +76,11 @@ def _solve_upper(R, Z):
     if Z.ndim == 1:
         return torch.linalg.solve_triangular(R, Z[:, None], upper=True)[:, 0]
     return torch.linalg.solve_triangular(R, Z, upper=True)
+
+
+def _kind_name(sketch) -> str:
+    """A span's name for ``sketch=``: the kind, or the operator's class."""
+    return sketch if isinstance(sketch, str) else type(sketch).__name__
 
 
 def _operator_for(op, A, sketch_size, key):
@@ -159,13 +168,22 @@ class SketchedFactor(NamedTuple):
         backend_lib.check_backend(backend)
         A = linop.as_operator(A, device=device)
         op = _operator_for(sketch, A, sketch_size, key)
+        kind = _kind_name(sketch)
         if backend_lib.resolve_fused(fused):
             from ..kernels.tsqr import sketch_qr  # kernels import core
 
-            Q, R, B = sketch_qr(op, A, backend=backend, precision=precision)
+            with obs_trace.span("factor.build", sketch=kind, rows=op.d, fused=True):
+                Q, R, B = sketch_qr(op, A, backend=backend, precision=precision)
+                obs_trace.maybe_block(R)
             return cls(Q=Q, R=R), op, B
-        B = _sketch_apply(op, A, backend=backend, precision=precision)
-        return cls.from_sketch(B), op, B
+        with obs_trace.span("factor.build", sketch=kind, rows=op.d, fused=False):
+            with obs_trace.span("sketch.apply", kind=kind, precision=precision):
+                B = _sketch_apply(op, A, backend=backend, precision=precision)
+                obs_trace.maybe_block(B)
+            with obs_trace.span("factor.qr", shape=tuple(B.shape)):
+                factor = cls.from_sketch(B)
+                obs_trace.maybe_block(factor.R)
+        return factor, op, B
 
     def extend(self, A, op, key, extra: int, *, B=None, backend: str = "auto"):
         """Grow the sketch by ``extra`` appended rows and re-QR: returns
@@ -179,11 +197,15 @@ class SketchedFactor(NamedTuple):
         rebuilt as Q·R, exact to rounding.
         """
         A = linop.as_operator(A, device=self.R.device)
-        op_new = op.extend_rows(key, extra)
-        if B is None:
-            B = self.Q @ self.R
-        B_new = op_new.extend_sketch(B, A, backend=backend)
-        return SketchedFactor.from_sketch(B_new), op_new, B_new
+        with obs_trace.span("factor.extend", extra=extra):
+            op_new = op.extend_rows(key, extra)
+            if B is None:
+                B = self.Q @ self.R
+            B_new = op_new.extend_sketch(B, A, backend=backend)
+            with obs_trace.span("factor.qr", shape=tuple(B_new.shape)):
+                factor = SketchedFactor.from_sketch(B_new)
+                obs_trace.maybe_block(factor.R)
+        return factor, op_new, B_new
 
     @property
     def n(self) -> int:

@@ -5,8 +5,9 @@ one :class:`SolveResult`, with tensors in place of JAX arrays.  ``method``
 is filled in by :func:`repro_torch.core.lstsq.lstsq` and is ``None`` when a
 solver is called directly.  ``certificate`` holds the
 :class:`repro_torch.core.certify.Certificate` of a certified solve
-(``accuracy="certified"``) and is ``None`` otherwise; ``timeline`` stays
-``None`` until the tracer (ROADMAP A4) is ported.
+(``accuracy="certified"``) and is ``None`` otherwise; ``timeline`` holds
+the call's ``repro_torch.obs.trace.Timeline`` when tracing was active
+(``lstsq(..., trace=True)``) and is ``None`` otherwise.
 """
 from __future__ import annotations
 

@@ -168,12 +168,25 @@ class _RowSource:
     [
         (dict(reg=0.1), "A8"),
         (dict(cluster=object()), "A11"),
-        (dict(trace=True), "A4"),
     ],
 )
 def test_unported_options_raise(big, kw, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         lstsq(big.A, big.b, 0, device=CPU, **kw)
+
+
+def test_trace_returns_timeline_rooted_at_lstsq(big):
+    """trace=True (which raised before the tracer was ported) returns the
+    call's Timeline, its root the lstsq span; untraced calls attach none."""
+    from repro_torch.obs import trace as obs_trace
+
+    res = lstsq(big.A, big.b, 0, trace=True, device=CPU)
+    assert isinstance(res.timeline, obs_trace.Timeline)
+    root = [s for s in res.timeline.spans() if s["depth"] == 0]
+    assert [s["name"] for s in root] == ["lstsq"] and res.timeline.names()[-1] == "lstsq"
+    assert root[0]["args"] == {"accuracy": "balanced", "method": res.method}
+    assert lstsq(big.A, big.b, 0, device=CPU).timeline is None
+    assert not obs_trace.enabled()
 
 
 @pytest.mark.parametrize(
