@@ -68,14 +68,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    solve against ``qr_solve`` on the new A, the update's wall and peak
    memory printed; at m = 2^16 a Gaussian and a uniform-dense session
    with one update each (B4/B6 on A and b, B6 on the delta); and the
-   registry's ``repro_session_*`` counters against the sessions' stats.
+   registry's ``repro_session_*`` counters against the sessions' stats;
+12. sparse, Tikhonov and matrix-free inputs (class ``_Phase12``): on the
+   main problem, ``reg=1e-8`` through the default call, ``saa`` (B1 on A
+   inside ``AugmentedSketch``) and the certified tier, each within 1e-5 of
+   the QR of the materialized (m + n, n) system with ``arnorm`` ≤
+   1e-8·‖b‖, and a ``SketchedSolver(reg=1e-8)``; a ``CustomOperator`` over
+   the main problem through the default call and ``saa`` (Sᵀ in panels,
+   ``rmatmat`` under ``torch.vmap``); then a sparse problem (m = 2^20,
+   n = 1000, 10 entries a row, κ ≈ 1e6): the coordinate scatter
+   (``countsketch_coo_apply``) at its entries for each bucket kind in f64
+   and f32, bitwise its plain version on the CPU, two calls bitwise equal,
+   within 2·γ·|S||A| of its plain version on the card, timed beside its
+   set-up (the stable sort), its bound, its plain version and one atomic
+   ``index_add_``; ``SparseOperator``'s products bitwise across two calls;
+   the default call, ``saa`` with four kinds (the SRHT on A densified),
+   ``sap`` and the certified tier (never its ``direct`` rung), each within
+   1e-5 and 100x ``qr_solve``'s error on the densified A; and a session
+   on that A.  Each run prints its median warm wall of 3 and its peak.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
 half inputs (f32 out), at one, two and three passes and at n not a multiple
 of the panel width, checks that other panel widths, an unaligned A and a
 second call give the same bits and that rows out of range give NaN rows,
-and B1 bitwise against the CPU on the sparse-sign
+the coordinate scatter at its edges (an empty column and bucket, repeated
+coordinates, unsorted entries, nnz = 0, a sparse vector b), and B1 bitwise
+against the CPU on the sparse-sign
 CSR (k·m entries) and on uniform weights.  It drives the f64 tensor-core
 engine of B6 and B2 (``csrc/dense_mma.cuh``) at each edge of its design
 (ragged d, n, m and s; m and s shorter than one ring stage; both sides of a
@@ -740,6 +759,7 @@ def main() -> int:
     _p("phase 2: B8 srht_apply with two rows out of [0, m_pad), at m = 1024 and 2^20: NaN rows there, "
        "the rest bitwise unchanged")
     del bad, good, keep
+    errs["countsketch_coo_apply"] = _coo_edges(torch, dev, gen)
     _p(f"phase 2: kernels {json.dumps({f.__name__: {'launches': f.launches, 'match': True} for f in KERNELS})}")
     del A, S, B, G, B_ref, S_k, G_k, out, B5_eye, eye64, e5, b0, b1, card0, card1
     del h, s, B_cpu, cpu, card, hk, sk, vu, signs, rows
@@ -1022,7 +1042,15 @@ def main() -> int:
     phase11 = _Phase11(torch, dev, gen, smi, run_path, paths, t_saa)
     phase11.tracing(A, b, x_true, e_qr)
     phase11.main_problem(A, b, x_true, e_qr)
+
+    # ---- phase 12: ridge and matrix-free inputs on the main problem, then
+    # the sparse problem once the main one is freed
+    phase12 = _Phase12(torch, dev, gen, smi, run_path, paths, phase11.stats_seen)
+    phase12.ridge(A, b)
+    phase12.matrix_free(A, b, x_true, e_qr)
     del op_t, St, prob, A, b, x_true
+    torch.cuda.empty_cache()
+    phase12.sparse()
     torch.cuda.empty_cache()
     phase10.after_main()
     phase11.dense()
@@ -1231,12 +1259,17 @@ def main() -> int:
                         t_dense["matmul_gram"], 0.0),
         "hadamard_transform": ("hadamard.cuh", "srht/kernel.py:25", "srht_as_dense_t", tH, 0.0),
         "srht_apply": ("hadamard.cuh", "srht/kernel.py:25", "srht", t8, 0.0),
+        # no TPU kernel: the counterpart of the reference's jnp scatter
+        "countsketch_coo_apply": ("countsketch.cuh", "src/repro/core/sketch.py:514", "sparse_default",
+                                  phase12.t_coo, phase12.err_coo),
     }
     rows = []
     for f in KERNELS:
         name = f.__name__
         src, replaces, path, t, err = table[name]
-        src, replaces = f"src/repro_torch/csrc/{src}", f"src/repro/kernels/{replaces}"
+        src = f"src/repro_torch/csrc/{src}"
+        if not replaces.startswith("src/"):
+            replaces = f"src/repro/kernels/{replaces}"
         launches = paths[path][name]
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
@@ -1912,6 +1945,382 @@ class _Phase11:
                 raise AssertionError(f"registry's session.{key} is not the sessions' sum {total}: {lines}")
 
 
+def _coo_check(torch, rows, cols, vals, shape, h, w, d, what):
+    """The coordinate scatter on these entries: bitwise its plain version on
+    the CPU, two calls bitwise equal, and within 2·γ_K·|S||A| of its plain
+    version on the card (index_add_'s atomics; K = the most products in a
+    cell).  Returns (out, max|Δ| from the card's plain version)."""
+    from repro_torch.kernels import countsketch_coo_apply, countsketch_coo_plan, countsketch_coo_ref
+
+    out = countsketch_coo_apply(rows, cols, vals, shape, h, w, d)
+    again = countsketch_coo_apply(rows, cols, vals, shape, h, w, d)
+    cpu = countsketch_coo_ref(rows.cpu(), cols.cpu(), vals.cpu(), shape, h.cpu(), w.cpu(), d)
+    card = countsketch_coo_ref(rows, cols, vals, shape, h, w, d)
+    torch.cuda.synchronize()
+    if out.dtype != vals.dtype or out.shape != cpu.shape:
+        raise AssertionError(f"coordinate scatter {what}: got {out.dtype} {tuple(out.shape)}")
+    if not torch.equal(out.cpu(), cpu):
+        raise AssertionError(f"coordinate scatter {what}: not bitwise equal to the CPU plain version")
+    if not torch.equal(out, again):
+        raise AssertionError(f"coordinate scatter {what}: two calls differ")
+    n = shape[1] if len(shape) == 2 else 1
+    K = int(countsketch_coo_plan(rows, cols, n, h, d).offsets.diff().max()) if vals.numel() else 0
+    mag = countsketch_coo_ref(rows, cols, vals.abs(), shape, h, w.abs(), d)
+    err = (out - card).abs()
+    if not bool((err <= 2 * _gamma(torch, K, vals.dtype) * mag).all()):
+        raise AssertionError(f"coordinate scatter {what}: off the card's plain version by {float(err.max())}")
+    return out, float(err.max()) if err.numel() else 0.0
+
+
+def _coo_sketch(torch, gen, dev, kind, m, d):
+    """(buckets, weights) of a bucket sketch over m rows: the CountSketch's
+    ±1, the uniform-sparse sketch's U(−√3, √3) or the sparse-sign sketch's
+    k = 8 ±1 per row."""
+    k = 8 if kind == "sparse_sign" else 1
+    shape = (k, m) if k > 1 else (m,)
+    h = torch.randint(0, d, shape, generator=gen, dtype=torch.int32, device=dev)
+    if kind == "uniform_sparse":
+        w = torch.empty(shape, dtype=torch.float64, device=dev).uniform_(-3 ** 0.5, 3 ** 0.5, generator=gen)
+    else:
+        w = (torch.randint(0, 2, shape, generator=gen, device=dev) * 2 - 1).to(torch.float64)
+    return h, w
+
+
+def _coo_edges(torch, dev, gen):
+    """Phase 2's checks of the coordinate scatter at its edges, for each
+    bucket kind in f64 and f32: an empty column and an empty bucket,
+    repeated coordinates, unsorted entries, nnz = 0 and a sparse vector b.
+    Returns the largest max|Δ| from the card's plain version."""
+    m, n, d = 1000, 37, 64
+    worst = 0.0
+    for kind in ("clarkson_woodruff", "uniform_sparse", "sparse_sign"):
+        for dtype in (torch.float64, torch.float32):
+            h, w = _coo_sketch(torch, gen, dev, kind, m, d)
+            h = torch.where(h == 3, 4, h)  # bucket 3 stays empty
+            nnz = 3 * m
+            rows = torch.randint(0, m, (nnz,), generator=gen, device=dev)
+            cols = torch.randint(0, n, (nnz,), generator=gen, device=dev)
+            cols = torch.where(cols == 5, 6, cols)  # column 5 stays empty
+            vals = torch.randn(nnz, generator=gen, dtype=torch.float64, device=dev).to(dtype)
+            dup = torch.randint(0, nnz, (nnz // 4,), generator=gen, device=dev)  # repeated (r, c)
+            rows, cols = torch.cat([rows, rows[dup]]), torch.cat([cols, cols[dup]])
+            vals = torch.cat([vals, torch.randn(dup.numel(), generator=gen, dtype=torch.float64,
+                                                device=dev).to(dtype)])
+            out, err = _coo_check(torch, rows, cols, vals, (m, n), h, w, d, f"{kind} {dtype} edges")
+            k = h.numel() // m
+            if bool(out.reshape(d, n)[3].any()) or bool(out.reshape(d, n)[:, 5].any()):
+                raise AssertionError(f"coordinate scatter {kind} {dtype}: an empty bucket or column is not 0")
+            worst = max(worst, err)
+            empty = rows[:0]
+            out0, _ = _coo_check(torch, empty, empty, vals[:0], (m, n), h, w, d, f"{kind} {dtype} nnz=0")
+            if bool(out0.any()):
+                raise AssertionError(f"coordinate scatter {kind} {dtype}: nnz = 0 is not all 0")
+            vec_rows = torch.randperm(m, generator=gen, device=dev)[: m // 3]  # unsorted, sparse b
+            vec_vals = torch.randn(vec_rows.numel(), generator=gen, dtype=torch.float64, device=dev).to(dtype)
+            _, err = _coo_check(torch, vec_rows, torch.zeros_like(vec_rows), vec_vals, (m,), h, w, d,
+                                f"{kind} {dtype} vector")
+            worst = max(worst, err)
+            _p(f"phase 2: coordinate scatter {kind} (k = {k}) {str(dtype)[6:]} A({m}, {n}) d={d}: "
+               f"{rows.numel()} unsorted entries with {dup.numel()} repeated coordinates, an empty column "
+               f"and an empty bucket, nnz = 0, a sparse vector b: bitwise = CPU plain, two calls bitwise; "
+               f"max|Δ| vs card plain {worst:.3e}")
+    return worst
+
+
+class _Phase12:
+    """Phase 12: sparse, Tikhonov (``reg=``) and matrix-free inputs.
+
+    (a) the coordinate scatter (``countsketch_coo_apply``) at the sparse
+    problem's shape against its plain version, with its times; (b) the
+    sparse problem (m = 2^20, n = 1000, 10 entries a row, κ ≈ 1e6) through
+    the default call, ``saa`` with four sketch kinds, ``sap`` and the
+    certified tier; (c) the ridge problem on the main problem with
+    λ = 1e-8; (d) a ``CustomOperator`` over the main problem; (e) sessions
+    on (b)'s A and on (c)'s ridge system.  ``run_path`` counts launches as
+    for phase 10."""
+
+    LAM = 1e-8
+    K_SOLVES = 8
+
+    def __init__(self, torch, dev, gen, smi, run_path, paths, stats_seen):
+        self.torch, self.dev, self.gen, self.smi = torch, dev, gen, smi
+        self.run_path, self.paths = run_path, paths
+        self.stats_seen = stats_seen  # phase 11 sums every session's stats
+        self.walls, self.peaks = {}, {}
+        self.t_coo, self.err_coo = None, 0.0
+
+    def run(self, name, fn):
+        """One counted run with its peak memory, then the median warm wall
+        of 3."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = self.run_path(name, fn)
+        self.peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        self.walls[name] = sorted(_sync_time(torch, fn)[1] for _ in range(3))[1]
+        return res
+
+    def _report(self, name, res, e, e_ref, what="qr_solve rel.err"):
+        _p(f"phase 12: {name}: method {res.method} itn {res.itn.tolist()} istop {res.istop.tolist()} "
+           f"rel.err {e:.3e}; {what} {e_ref:.3e}; median warm wall of 3 {self.walls[name]:.4f} s; "
+           f"peak above the inputs {self.peaks[name]:.3f} GiB; launches {self.paths[name]} (card: {self.smi})")
+
+    # ---- (a) ---------------------------------------------------------------
+    def kernel(self, rows, cols, vals, shape):
+        """The coordinate scatter at the sparse problem's entries (shuffled:
+        unsorted), d = 4000, for each bucket kind in f64 and f32; its times
+        in f64 beside its set-up, bound, plain version and index_add_."""
+        from repro_torch.kernels import countsketch_coo_apply, countsketch_coo_plan, countsketch_coo_ref
+        from repro_torch.kernels.countsketch.ref import coo_keys
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = shape
+        d = 4 * n
+        ordered = rows, cols, vals  # in row order, as the sparse problem holds them
+        shuffle = torch.randperm(rows.numel(), generator=gen, device=dev)
+        rows, cols, vals = rows[shuffle], cols[shuffle], vals[shuffle]
+        times = {}
+        for kind in ("clarkson_woodruff", "uniform_sparse", "sparse_sign"):
+            h, w = _coo_sketch(torch, gen, dev, kind, m, d)
+            k = h.numel() // m
+            for dtype in (torch.float64, torch.float32):
+                v = vals.to(dtype)
+                _, err = _coo_check(torch, rows, cols, v, shape, h, w, d, f"{kind} {dtype} A{shape}")
+                self.err_coo = max(self.err_coo, err)
+                _p(f"phase 12: coordinate scatter {kind} (k = {k}) {str(dtype)[6:]} A{shape} nnz={rows.numel()} "
+                   f"d={d}: bitwise = CPU plain, two calls bitwise; max|Δ| vs card plain {err:.3e}")
+            plan = countsketch_coo_plan(rows, cols, n, h, d)
+            keys = coo_keys(rows, cols, n, h)
+            prods = (w.reshape(k, m)[:, rows] * vals).reshape(-1)
+            out_lib = torch.zeros(d * n, dtype=vals.dtype, device=dev)
+            nprod = k * rows.numel()
+            t = dict(
+                ms=_event_ms(torch, lambda: countsketch_coo_apply(rows, cols, vals, shape, h, w, d, plan=plan)),
+                setup_ms=_event_ms(torch, lambda: countsketch_coo_plan(rows, cols, n, h, d)),
+                plain_ms=_event_ms(torch, lambda: countsketch_coo_ref(rows, cols, vals, shape, h, w, d)),
+                library_ms=_event_ms(torch, lambda: out_lib.zero_().index_add_(0, keys, prods)),
+            )
+            # read once: each sorted product's id, value and weight; write the d·n cells
+            t["bound_ms"], t["bound_by"] = _bound(2 * nprod, nprod * 24 + d * n * 8)
+            plan_o = countsketch_coo_plan(ordered[0], ordered[1], n, h, d)
+            t["row_order_ms"] = _event_ms(
+                torch, lambda: countsketch_coo_apply(*ordered, shape, h, w, d, plan=plan_o))
+            times[kind] = t
+            del plan, plan_o, keys, prods, out_lib
+        _p(f"phase 12: coordinate scatter times at A{shape} nnz={rows.numel()} d={d} f64, entries shuffled "
+           f"(ms; set-up = the stable sort and offsets; library = one index_add_ of the precomputed products, "
+           f"atomic; row_order = the kernel on the entries in row order; card: {self.smi}): {json.dumps(times)}")
+        self.t_coo = times["clarkson_woodruff"]
+
+    # ---- (b) and (e) sparse ------------------------------------------------
+    def sparse(self):
+        """The sparse problem: m = 2^20, n = 1000, 10 entries a row at
+        random columns, N(0, 1) values, columns scaled from 1 to 1e-6
+        (κ ≈ 1e6), b = A x_true + noise of 1e-10 ‖A x_true‖."""
+        from repro_torch.core import SparseOperator, lstsq
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n, per = M_MAIN, N_MAIN, 10
+        rows = torch.arange(m, device=dev).repeat_interleave(per)
+        cols = torch.randint(0, n, (m * per,), generator=gen, device=dev)
+        scale = torch.logspace(0, -6, n, dtype=torch.float64, device=dev)
+        vals = torch.randn(m * per, generator=gen, dtype=torch.float64, device=dev) * scale[cols]
+        (A, t_op) = _sync_time(torch, lambda: SparseOperator.from_entries(rows, cols, vals, (m, n), device=dev))
+        self.kernel(rows, cols, vals, (m, n))
+        del rows, cols, vals
+        x_true = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
+        Ax = A.matvec(x_true)
+        noise = torch.randn(m, generator=gen, dtype=torch.float64, device=dev)
+        b = Ax + (1e-10 * Ax.norm() / noise.norm()) * noise
+        del Ax, noise
+        dense = A.materialize()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Q, R = torch.linalg.qr(dense)  # qr_solve's steps, keeping R for κ
+        del dense
+        x_qr = torch.linalg.solve_triangular(R, (Q.T @ b)[:, None], upper=True)[:, 0]
+        torch.cuda.synchronize()
+        t_qr = time.perf_counter() - t0
+        sv = torch.linalg.svdvals(R)
+        del Q, R
+        torch.cuda.empty_cache()
+        e_qr = _rel(x_qr, x_true)
+        _p(f"phase 12: sparse A({m}, {n}) nnz {A.nse} (10 a row), κ {float(sv[0] / sv[-1]):.3e}; "
+           f"SparseOperator (CSR of A and of Aᵀ) built in {t_op:.3f} s; qr_solve on the densified A "
+           f"{t_qr:.2f} s, rel.err {e_qr:.3e}")
+        x0 = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
+        u0 = torch.randn(m, generator=gen, dtype=torch.float64, device=dev)
+        X0 = torch.randn(n, 8, generator=gen, dtype=torch.float64, device=dev)
+        same = dict(matvec=torch.equal(A.matvec(x0), A.matvec(x0)),
+                    rmatvec=torch.equal(A.rmatvec(u0), A.rmatvec(u0)),
+                    matmat=torch.equal(A.matmat(X0), A.matmat(X0)),
+                    rmatmat=torch.equal(A.rmatmat(A.matmat(X0)), A.rmatmat(A.matmat(X0))))
+        t_mv = _event_ms(torch, lambda: A.matvec(x0))
+        t_rmv = _event_ms(torch, lambda: A.rmatvec(u0))
+        _p(f"phase 12: SparseOperator products two calls bitwise {json.dumps(same)}; matvec {t_mv:.4f} ms, "
+           f"rmatvec {t_rmv:.4f} ms (card: {self.smi})")
+        if not all(same.values()):
+            raise AssertionError(f"SparseOperator products are not bitwise across two calls: {same}")
+        # The segment sum's two forms (SparseOperator picks one by row
+        # length) and cuSPARSE's SpMV (timed only; the port never calls
+        # it), each with whether 30 more calls gave the first call's bits.
+        routes = {}
+        for name, csr, v in (("A", A.csr, x0), ("At", A.csr_t, u0)):
+            lib = csr.to_torch()
+            forms = {
+                "flat": lambda: torch.segment_reduce(csr.val * v[csr.col], "sum", offsets=csr.crow),
+                "column": lambda: torch.segment_reduce(
+                    (csr.val * v[csr.col])[:, None], "sum", offsets=csr.crow, axis=0),
+                "cusparse": lambda: lib @ v,
+            }
+            for form, fn in forms.items():
+                first = fn()
+                routes[f"{name}_{form}"] = dict(ms=_event_ms(torch, fn, reps=20),
+                                                bitwise_30=all(torch.equal(fn(), first) for _ in range(30)))
+        _p(f"phase 12: CSR product routes (ms, 30 calls bitwise; card: {self.smi}): {json.dumps(routes)}")
+        del x0, u0, X0, lib
+
+        good = lambda e: e < 1e-5 and e <= 100 * max(e_qr, 1e-12)  # noqa: E731
+        runs = [("sparse_default", {})] + [
+            (f"sparse_saa_{kind}", dict(method="saa", sketch=kind))
+            for kind in ("clarkson_woodruff", "sparse_sign", "uniform_sparse", "srht")
+        ] + [("sparse_sap", dict(method="sap")), ("sparse_certified", dict(accuracy="certified"))]
+        for name, kw in runs:
+            res = self.run(name, lambda: lstsq(A, b, gen, **kw))
+            e = _rel(res.x, x_true)
+            self._report(name, res, e, e_qr)
+            if not good(e):
+                raise AssertionError(f"{name}: rel.err {e} (qr_solve {e_qr})")
+            if name == "sparse_default" and res.method != "iterative":
+                raise AssertionError(f"the default call on a sparse A selected {res.method}")
+            if name == "sparse_certified" and res.method == "direct":
+                raise AssertionError("the certified ladder densified the sparse A (direct rung)")
+        want = dict(sparse_default="countsketch_coo_apply", sparse_saa_clarkson_woodruff="countsketch_coo_apply",
+                    sparse_saa_sparse_sign="countsketch_coo_apply",
+                    sparse_saa_uniform_sparse="countsketch_coo_apply", sparse_saa_srht="srht_apply")
+        for name, kernel in want.items():
+            if self.paths[name][kernel] < 1:
+                raise AssertionError(f"{name} did not launch {kernel}: {self.paths[name]}")
+        _p(f"phase 12: sparse walls (s) {json.dumps({k: v for k, v in self.walls.items() if k.startswith('sparse')})}")
+        self.session("session_sparse", A, b, x_true, x_qr, None)
+
+    # ---- (c) and (e) ridge ---------------------------------------------------
+    def ridge(self, A, b):
+        """Ridge on the main problem with λ = 1e-8: the default call, saa
+        and certified against the QR of the materialized (m + n, n) system
+        [A; √λI] (also the session's truth)."""
+        from repro_torch.core import TikhonovAugmented, lstsq
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = A.shape
+        D = torch.randn(n, self.K_SOLVES, generator=gen, dtype=A.dtype, device=dev)
+        B = b[:, None] + A @ D
+        rhs = torch.cat([b[:, None], B], dim=1)
+        rhs = torch.cat([rhs, rhs.new_zeros((n, rhs.shape[1]))])
+        A_aug = TikhonovAugmented.wrap(A, self.LAM).materialize()
+        Q, R = torch.linalg.qr(A_aug)
+        del A_aug
+        X = torch.linalg.solve_triangular(R, Q.T @ rhs, upper=True)
+        del Q, R, rhs
+        torch.cuda.empty_cache()
+        x_ridge = X[:, 0]
+        bnorm = float(b.norm())
+        for name, kw in [("ridge_default", {}), ("ridge_saa", dict(method="saa")),
+                         ("ridge_certified", dict(accuracy="certified"))]:
+            res = self.run(name, lambda: lstsq(A, b, gen, reg=self.LAM, **kw))
+            e = _rel(res.x, x_ridge)
+            self._report(name, res, e, float(res.arnorm) / bnorm, "arnorm/‖b‖")
+            if not (e < 1e-5 and float(res.arnorm) <= 1e-8 * bnorm):
+                raise AssertionError(f"{name}: rel.err {e} against the augmented QR, arnorm {float(res.arnorm)}")
+        if self.paths["ridge_saa"]["countsketch_apply"] < 2:
+            raise AssertionError(f"ridge saa did not launch B1 on A and b: {self.paths['ridge_saa']}")
+        self.session("session_ridge", A, B, None, X[:, 1:], self.LAM)
+
+    # ---- (d) ---------------------------------------------------------------
+    def matrix_free(self, A, b, x_true, e_qr):
+        """A ``CustomOperator`` over the main problem's A (closures A @ v and
+        A.T @ u): the default call and saa, each sketching through panels of
+        Sᵀ and ``rmatmat`` under ``torch.vmap``."""
+        from repro_torch.core import CustomOperator, lstsq
+        from repro_torch.core.sketch import t_panel_cols
+
+        torch, gen = self.torch, self.gen
+        m, n = A.shape
+        op = CustomOperator(lambda v: A @ v, lambda u: A.T @ u, (m, n), A.dtype, A.device)
+        w = t_panel_cols(m, 4 * n, A.dtype)
+        for name, kw in [("matrix_free_default", {}), ("matrix_free_saa", dict(method="saa"))]:
+            res = self.run(name, lambda: lstsq(op, b, gen, **kw))
+            e = _rel(res.x, x_true)
+            self._report(name, res, e, e_qr)
+            if not (e < 1e-5 and e <= 100 * max(e_qr, 1e-12)):
+                raise AssertionError(f"{name}: rel.err {e} (qr_solve {e_qr})")
+        _p(f"phase 12: matrix-free sketch: Sᵀ in panels of {w} columns ({-(-4 * n // w)} rmatmat calls of "
+           f"{m * w * 8 / 2**30:.2f} GiB panels at d = {4 * n})")
+
+    # ---- (e) ---------------------------------------------------------------
+    def session(self, name, A, b, x_true, x_ref, reg):
+        """``SketchedSolver`` on A (with ``reg``): one build, 8 solves, one
+        solve_many of 8, certify.  Without reg the right-hand sides are
+        b + A·δ_j (solution x_true + δ_j, qr_solve's error kept); with reg, b
+        is the (m, 8) block and ``x_ref`` its ridge solutions."""
+        from repro_torch.core import SketchedSolver
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = A.shape
+        k = self.K_SOLVES
+        if reg is None:
+            D = torch.randn(n, k, generator=gen, dtype=torch.float64, device=dev)
+            B = b[:, None] + A.matmat(D)
+            X_true = x_true[:, None] + D
+            e_qr = [float((x_ref - x_true).norm() / X_true[:, j].norm()) for j in range(k)]
+        else:
+            B, X_true = b, x_ref
+        t = {}
+
+        def serve():
+            s, t["build"] = _sync_time(torch, lambda: SketchedSolver(A, gen, reg=reg))
+            self.stats_seen.append(s.stats)
+            out, walls = [], []
+            for j in range(k):
+                res, wall = _sync_time(torch, lambda: s.solve(B[:, j]))
+                out.append(res)
+                walls.append(wall)
+            t["solve"] = sorted(walls)[k // 2]
+            many, t["solve_many"] = _sync_time(torch, lambda: s.solve_many(B))
+            return s, out, many
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s, singles, many = self.run_path(name, serve)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        cols = []
+        for j in range(k):
+            e1, e8 = _rel(singles[j].x, X_true[:, j]), _rel(many.x[:, j], X_true[:, j])
+            if reg is None:
+                ok = e1 < 1e-5 and e8 < 1e-5 and max(e1, e8) <= 100 * max(e_qr[j], 1e-12)
+            else:
+                bn = float(B[:, j].norm())
+                ok = (e1 < 1e-5 and e8 < 1e-5 and float(singles[j].arnorm) <= 1e-8 * bn
+                      and float(many.arnorm[j]) <= 1e-8 * bn)
+            cols.append(dict(solve_itn=int(singles[j].itn), solve_err=e1, many_itn=int(many.itn[j]), many_err=e8))
+            if not ok:
+                raise AssertionError(f"{name} column {j}: {cols[-1]}")
+        cert, t["certify"] = _sync_time(torch, s.certify)
+        cert_x = s.certify(B[:, 0], singles[0])
+        stats = dict(s.stats)
+        _p(f"phase 12: {name}: columns {json.dumps(cols)}; stats {stats}; certify() passed {bool(cert.passed)} "
+           f"distortion {float(cert.distortion):.3f}; certify(b, x) passed {bool(cert_x.passed)} rel_error_bound "
+           f"{float(cert_x.rel_error_bound):.3e}; walls: build {t['build']:.4f} s, median solve {t['solve']:.4f} s, "
+           f"solve_many (k = {k}) {t['solve_many']:.4f} s, certify {t['certify']:.4f} s; peak above the inputs "
+           f"{peak:.3f} GiB; launches {self.paths[name]} (card: {self.smi})")
+        if stats != {"sketches": 1, "qr_factorizations": 1, "solves": 2 * k}:
+            raise AssertionError(f"{name} sketched or factored more than once: {stats}")
+        if not bool(cert.passed):
+            raise AssertionError(f"{name}: the embedding's certificate failed: {cert}")
+
+
 # The device kernels each wrapper launches on the traced solves' routes
 # (f64 A with n = 1000, and the vector b), by name.
 _SYMBOLS = {
@@ -1924,6 +2333,7 @@ _SYMBOLS = {
     "matmul_gram": ("dmma_sketch_kernel", "dense_sketch_tile_kernel"),
     "hadamard_transform": ("hadamard_pass_kernel",),
     "srht_apply": ("hadamard_pass_kernel",),
+    "countsketch_coo_apply": ("coo_scatter_kernel",),
 }
 
 

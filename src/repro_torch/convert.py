@@ -5,7 +5,8 @@ operator and the problem arrays.  These helpers take them as numpy arrays
 (``np.asarray`` of the JAX arrays) and return the port's objects on
 ``device`` (``None`` → ``cuda``), so a test can run both packages on the
 same S and the same problem.  Pass the converted operator as ``sketch=`` to
-``SketchedFactor.build``, ``saa_sas`` or ``lstsq``.
+``SketchedFactor.build``, ``saa_sas`` or ``lstsq``.  ``sparse_from_reference`` takes a BCOO's
+entries to the port's ``SparseOperator``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .core.backend import as_tensor, resolve_device
+from .core.linop import SparseOperator
 from .core.problems import Problem
 from .core.sketch import (
     CountSketch,
@@ -33,6 +35,7 @@ __all__ = [
     "sparse_sign_from_reference",
     "uniform_sparse_from_reference",
     "problem_from_reference",
+    "sparse_from_reference",
 ]
 
 
@@ -117,4 +120,19 @@ def problem_from_reference(A, b, x_true, r_true, cond, beta, *, device=None) -> 
         r_true=as_tensor(r_true, dev),
         cond=float(cond),
         beta=float(beta),
+    )
+
+
+def sparse_from_reference(indices, data, shape, *, device=None) -> SparseOperator:
+    """The port's ``SparseOperator`` for a 2-D BCOO's ``indices`` ((nse, 2)
+    row and column ids) and ``data`` ((nse,)), in their order and with
+    their repeated coordinates: the bucket sketches then scatter the
+    entries in the order the reference's ``.at[].add`` does."""
+    indices, data = np.asarray(indices), np.asarray(data)
+    if indices.ndim != 2 or indices.shape[1] != 2 or data.shape != (indices.shape[0],):
+        raise ValueError(
+            f"need (nse, 2) indices and (nse,) data, got {indices.shape} and {data.shape}"
+        )
+    return SparseOperator.from_entries(
+        indices[:, 0], indices[:, 1], data, shape, device=device
     )

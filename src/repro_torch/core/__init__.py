@@ -1,17 +1,20 @@
 """The port of ``repro.core``: sketch-and-solve least squares in PyTorch.
 
-This port holds, on dense inputs with all seven sketch kinds of the
-reference, paper Algorithm 1, the forward-stable solvers and the certified
-tier:
+This port holds, on dense, sparse, Tikhonov-augmented (``reg=``) and
+matrix-free inputs with all seven sketch kinds of the reference, paper
+Algorithm 1, the forward-stable solvers and the certified tier:
 
 - ``backend``  — kernel/reference backend, precision and device policy
 - ``result``   — the unified ``SolveResult``
-- ``linop``    — ``LinearOperator`` protocol, ``DenseOperator``
+- ``linop``    — ``LinearOperator`` protocol, ``DenseOperator``,
+  ``SparseOperator``, ``TikhonovAugmented``, ``CustomOperator``
 - ``direct``   — QR/SVD/normal-equations ground truth
 - ``problems`` — §5.1 ill-conditioned problem generator
 - ``sketch``   — ``CountSketch`` (kernel B1), ``GaussianSketch`` (B4),
   ``UniformDenseSketch`` (B6), ``SRHTSketch`` (B8), ``SparseSignSketch``
-  and ``UniformSparseSketch`` (B1), and the escalated ``StackedSketch``
+  and ``UniformSparseSketch`` (B1; a sparse A through the coordinate
+  scatter), the escalated ``StackedSketch`` and the ridge
+  ``AugmentedSketch``
 - ``lsqr``     — LSQR, one vector or a block of right-hand sides
 - ``precond``  — the shared sketched-QR factor and its row escalation
 - ``saa``      — SAA-SAS, Algorithm 1, with its perturbation fallback, and
@@ -51,7 +54,16 @@ from .iterative import (
     heavy_ball_refine,
     iterative_sketching,
 )
-from .linop import DenseOperator, LinearOperator, as_operator, ensure_dense, estimate_2norm
+from .linop import (
+    CustomOperator,
+    DenseOperator,
+    LinearOperator,
+    SparseOperator,
+    TikhonovAugmented,
+    as_operator,
+    ensure_dense,
+    estimate_2norm,
+)
 from .lsqr import lsqr as lsqr_solve, lsqr_dense, lsqr_operator
 from .lstsq import ACCURACIES, CERTIFIED_LADDER, METHODS, TOL_SUPPORT, lstsq, select_method
 from .precond import SketchedFactor, default_sketch_size, distortion
@@ -62,6 +74,7 @@ from .sap import sap_sas
 from .session import SketchedSolver
 from .sketch import (
     SKETCH_KINDS,
+    AugmentedSketch,
     CountSketch,
     GaussianSketch,
     SparseSignSketch,
@@ -80,8 +93,8 @@ __all__ = [
     "normal_equations", "qr_solve", "svd_solve",
     "damping_momentum", "fossils", "fossils_refine", "heavy_ball_refine",
     "iterative_sketching",
-    "LinearOperator", "DenseOperator", "as_operator", "ensure_dense",
-    "estimate_2norm",
+    "LinearOperator", "DenseOperator", "SparseOperator", "TikhonovAugmented",
+    "CustomOperator", "as_operator", "ensure_dense", "estimate_2norm",
     "lsqr_solve", "lsqr_dense", "lsqr_operator",
     "ACCURACIES", "CERTIFIED_LADDER", "METHODS", "TOL_SUPPORT", "lstsq",
     "select_method",
@@ -93,5 +106,5 @@ __all__ = [
     "SketchedSolver",
     "SKETCH_KINDS", "CountSketch", "GaussianSketch", "UniformDenseSketch",
     "SRHTSketch", "SparseSignSketch", "UniformSparseSketch", "StackedSketch",
-    "sample_sketch",
+    "AugmentedSketch", "sample_sketch",
 ]

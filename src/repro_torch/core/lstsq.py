@@ -20,9 +20,18 @@ method         solver
 ``accuracy="certified"`` is the adaptive tier: solve, certify the answer
 with ``repro_torch.core.certify``, and on a failed certificate escalate
 along :data:`CERTIFIED_LADDER`, growing the sketch by appended rows (the
-stored B = SA is extended, never recomputed).  ``reg=`` (A8), row sources
-(A9) and ``cluster=`` (A11) raise ``NotImplementedError`` naming their
-ROADMAP slice.
+stored B = SA is extended, never recomputed).  Row sources (A9) and
+``cluster=`` (A11) raise ``NotImplementedError`` naming their ROADMAP
+slice.
+
+``A`` is a dense matrix, a torch sparse tensor (COO, CSR or CSC), a
+duck-typed operator or any ``repro_torch.core.linop`` operator.  Selection
+runs on the data's shape, and a sparse or matrix-free A never selects
+``direct``; the certified ladder stops at its ``fossils`` rung for them
+(A is never densified as a fallback).  ``reg=λ`` solves the ridge problem
+min‖Ax − b‖² + λ‖x‖² as least squares on ``TikhonovAugmented`` [A; √λI]
+with right-hand side [b; 0], sketched through ``AugmentedSketch``, and
+reports ``rnorm``/``arnorm`` of the original ridge problem.
 
 ``trace=True`` records the call's span tree (``repro_torch.obs.trace``):
 the root ``lstsq`` (``accuracy``, then ``method``), ``lstsq.select`` and
@@ -57,6 +66,7 @@ from .iterative import (
 from .lsqr import lsqr_operator
 from .precond import SketchedFactor, default_sketch_size
 from .result import SolveResult
+from . import sketch as sketch_lib
 from .saa import _solve_with_factor, saa_sas
 from .sap import sap_sas
 
@@ -143,12 +153,21 @@ def _direct_result(A, b):
     )
 
 
+def _ridge_diagnostics(A, b, x, reg):
+    """(rnorm, arnorm) of the original ridge problem at x: ‖b − Ax‖ and
+    ‖Aᵀ(b − Ax) − λx‖ (x a vector, or a block of columns)."""
+    lam = torch.as_tensor(reg, dtype=A.dtype, device=A.device)
+    r = b - (A @ x)
+    g = (A.rmatvec(r) if r.ndim == 1 else A.rmatmat(r)) - lam * x
+    return torch.linalg.vector_norm(r, dim=0), torch.linalg.vector_norm(g, dim=0)
+
+
 def _not_ported(what: str, slice_: str):
     return NotImplementedError(f"{what} arrives with ROADMAP {slice_}")
 
 
 def _certified_lstsq(
-    A_op, b, gen, *, sketch, sketch_size, backend, tol, history, rtol,
+    A_in, A_op, b, gen, *, sketch, sketch_size, backend, tol, history, rtol,
     n_probes, precision="full", fused=None,
 ):
     """The adaptive certified driver: solve → certify → escalate.
@@ -165,12 +184,14 @@ def _certified_lstsq(
     Draws from ``gen``, in order: S; then, for each attempt, its probe
     matrix W (n × ``n_probes``) and, when it escalates by rows, the
     extension block.  The ``direct`` rung is a Householder QR of A on A's
-    device.  Each rung reads ``passed`` and the relative bound to the host
-    once.
+    device; a sparse or matrix-free ``A_in`` (the data operator; ``A_op``
+    is what the solvers see, [A; √λI] under ``reg=``) stops before it.
+    Sketch rows count the data block's S only.  Each rung reads ``passed``
+    and the relative bound to the host once.
     """
-    m, n = A_op.shape
+    m, n = A_in.shape
     dtype = A_op.dtype
-    dense = isinstance(A_op, linop.DenseOperator)
+    dense = isinstance(A_in, linop.DenseOperator)
     steptol = tol.get("steptol")
     if steptol is None:
         steptol = 32 * float(torch.finfo(dtype).eps)
@@ -182,7 +203,7 @@ def _certified_lstsq(
         A_op, gen, sketch=sketch, sketch_size=sketch_size, backend=backend,
         precision=precision, fused=fused,
     )
-    s = op.d
+    s = op.inner.d if isinstance(op, sketch_lib.AugmentedSketch) else op.d
     prec_now = precision
     escalations = 0
     best = None  # (bound, result, method) of the best failed attempt
@@ -197,6 +218,10 @@ def _certified_lstsq(
         attempt += 1
         with rung_span:
             if meth == "direct":
+                if not dense:
+                    # a sparse or matrix-free A stops at the fossils rung:
+                    # those inputs are never densified as a fallback
+                    break
                 res = _direct_result(linop.ensure_dense(A_op, who="the certified QR rung"), b)
             elif meth == "saa":
                 c = op.apply(b, backend=backend)
@@ -288,11 +313,13 @@ def lstsq(
 ) -> SolveResult:
     """Solve min‖Ax − b‖₂ with an auto-selected (or forced) solver.
 
-    ``A`` is a dense matrix (tensor or numpy array) or a
-    ``repro_torch.core.linop.DenseOperator``; ``key`` a ``torch.Generator``
-    on the data's device (or an int seed), needed by the sketched methods
-    and the certified tier.  ``sketch`` is a kind name or an already-drawn
-    operator.  ``device=None`` means ``"cuda"``.
+    ``A`` is a dense matrix (tensor or numpy array), a torch sparse
+    tensor, a duck-typed operator or a ``repro_torch.core.linop``
+    operator; ``key`` a ``torch.Generator`` on the data's device (or an int
+    seed), needed by the sketched methods and the certified tier.
+    ``sketch`` is a kind name or an already-drawn operator (under ``reg=``,
+    over the data rows).  ``reg=λ`` adds λ‖x‖² (module docstring).
+    ``device=None`` means ``"cuda"``.
 
     ``accuracy="certified"`` (``method="auto"`` only) runs the certified
     driver: ``certified_rtol`` is the relative forward-error target
@@ -301,9 +328,8 @@ def lstsq(
     final posterior bound.  ``precision="mixed"`` sketches a bf16-rounded
     copy of A for the sketched methods; the certified tier then verifies
     the factor and escalates back to full precision when rounding broke
-    the embedding.  The arguments of unported features (``reg``,
-    ``cluster``) keep the reference's names and accept only their
-    defaults.
+    the embedding.  ``cluster`` (unported) keeps the reference's name and
+    accepts only its default.
 
     ``trace=True`` records a nested wall-clock span timeline of this call
     (method selection, sketch and QR, the solve, certificate rungs) and
@@ -345,12 +371,17 @@ def _lstsq_impl(
         raise _not_ported("cluster= (multi-worker solves)", "A11")
     if callable(getattr(A, "tiles", None)):
         raise _not_ported("row-streamed inputs", "A9")
-    if reg is not None:
-        raise _not_ported("reg= (Tikhonov)", "A8")
 
-    A_op = linop.as_operator(A, device=device)
-    b = backend_lib.as_tensor(b, A_op.device, A_op.dtype)
-    m, n = A_op.shape
+    A_in = linop.as_operator(A, device=device)
+    b = backend_lib.as_tensor(b, A_in.device, A_in.dtype)
+    if reg is not None:
+        A_op = linop.TikhonovAugmented.wrap(A_in, reg)
+        b_solve = A_op.augment_rhs(b)
+    else:
+        A_op, b_solve = A_in, b
+    # select on the data's shape: the √λ·I rows are exact, never sketched,
+    # and must not inflate m in the regime tests
+    m, n = A_in.shape
     method = _ALIASES.get(method, method)
     forced = method != "auto"
     tol = {
@@ -369,11 +400,14 @@ def _lstsq_impl(
         if key is None:
             raise ValueError("accuracy='certified' needs a key (torch.Generator)")
         res, used = _certified_lstsq(
-            A_op, b, backend_lib.as_generator(key, A_op.device), sketch=sketch,
-            sketch_size=sketch_size, backend=backend, tol=tol, history=history,
-            rtol=certified_rtol, n_probes=certified_probes, precision=precision,
-            fused=fused,
+            A_in, A_op, b_solve, backend_lib.as_generator(key, A_op.device),
+            sketch=sketch, sketch_size=sketch_size, backend=backend, tol=tol,
+            history=history, rtol=certified_rtol, n_probes=certified_probes,
+            precision=precision, fused=fused,
         )
+        if reg is not None:
+            rnorm, arnorm = _ridge_diagnostics(A_in, b, res.x, reg)
+            res = res._replace(rnorm=rnorm, arnorm=arnorm)
         return res._replace(method=used)
 
     if method == "auto":
@@ -381,7 +415,7 @@ def _lstsq_impl(
             method = select_method(
                 m, n, has_key=key is not None, accuracy=accuracy,
                 sketch_size=sketch_size,
-                matrix_free=not isinstance(A_op, linop.DenseOperator),
+                matrix_free=not isinstance(A_in, linop.DenseOperator),
             )
             if sel:
                 sel.set(method=method)
@@ -413,18 +447,22 @@ def _lstsq_impl(
 
     with obs_trace.span("lstsq.solve", method=method) as sp:
         if method == "direct":
-            res = _direct_result(linop.ensure_dense(A_op, who="method='direct'"), b)
+            res = _direct_result(linop.ensure_dense(A_op, who="method='direct'"), b_solve)
         elif method == "lsqr":
-            res = lsqr_operator(A_op, b, history=history, **tol)
+            res = lsqr_operator(A_op, b_solve, history=history, **tol)
         elif method == "saa":
-            res = saa_sas(A_op, b, key, history=history, **sk, **tol)
+            res = saa_sas(A_op, b_solve, key, history=history, **sk, **tol)
         elif method == "sap":
-            res = sap_sas(A_op, b, key, history=history, **sk, **tol)
+            res = sap_sas(A_op, b_solve, key, history=history, **sk, **tol)
         elif method == "iterative":
-            res = iterative_sketching(A_op, b, key, history=history, **sk, **tol)
+            res = iterative_sketching(A_op, b_solve, key, history=history, **sk, **tol)
         else:  # fossils (tol holds at most steptol after the audit above)
-            res = fossils(A_op, b, key, history=history, **sk, **tol)
+            res = fossils(A_op, b_solve, key, history=history, **sk, **tol)
         obs_trace.maybe_block(res.x)
         if sp:
             sp.set(itn=int(res.itn))
+    if reg is not None:
+        # report the original ridge problem's residuals, not the augmented one's
+        rnorm, arnorm = _ridge_diagnostics(A_in, b, res.x, reg)
+        res = res._replace(rnorm=rnorm, arnorm=arnorm)
     return res._replace(method=method)

@@ -12,7 +12,13 @@ package, converts it with ``repro_torch.convert`` (one converter per
 kind) and runs both packages on the same S.
 
 ``extend`` grows the sketch by appended rows for the certified tier's
-escalation.  ``build_streaming`` arrives with ROADMAP A9.
+escalation.  A ``TikhonovAugmented`` A ([A; √λI], ``reg=``) is sketched
+through ``AugmentedSketch`` (blockdiag(S, I): S over the data rows, the
+identity rows exact); ``sketch=`` then names the kind of S or gives S
+itself (over the data rows) or the whole ``AugmentedSketch``.  Sparse and
+matrix-free A are sketched through ``apply_op`` in operator form, and
+``whiten_mv``/``whiten_rmv`` take a block through ``matmat``/``rmatmat``.
+``build_streaming`` arrives with ROADMAP A9.
 
 Spans (``repro_torch.obs.trace``): ``factor.build`` (``sketch``, ``rows``,
 ``fused``) around each build, with ``sketch.apply`` and ``factor.qr``
@@ -33,17 +39,27 @@ __all__ = ["SketchedFactor", "default_sketch_size", "distortion"]
 
 
 def _lowp_operator(A, use_kernels: bool):
-    """bf16-rounded copy of a dense operator for the mixed sketch.
+    """bf16-rounded copy of a dense (or Tikhonov-augmented dense) operator
+    for the mixed sketch.
 
     Through the kernel wrappers the bf16 tensor is fed as it is (they
     accumulate in f32 and return f32 for half inputs); on the reference
-    backend the data is rounded to bf16 then upcast to f32.
+    backend the data is rounded to bf16 then upcast to f32.  λ is rounded
+    with the data, as the reference rounds it.  Sparse and matrix-free
+    operators raise.
     """
+
+    def cast(arr):
+        low = arr.to(torch.bfloat16)
+        return low if use_kernels else low.to(torch.float32)
+
     if isinstance(A, linop.DenseOperator):
-        low = A.A.to(torch.bfloat16)
-        return linop.DenseOperator(A=low if use_kernels else low.to(torch.float32))
+        return linop.DenseOperator(A=cast(A.A))
+    if isinstance(A, linop.TikhonovAugmented) and isinstance(A.op, linop.DenseOperator):
+        return linop.TikhonovAugmented.wrap(cast(A.op.A), A.reg, device=A.device)
     raise ValueError(
-        f"precision='mixed' needs a dense data matrix; got {type(A).__name__}"
+        "precision='mixed' needs a dense data matrix (or Tikhonov-augmented "
+        f"dense); got {type(A).__name__}"
     )
 
 
@@ -167,16 +183,27 @@ class SketchedFactor(NamedTuple):
         backend_lib.check_precision(precision)
         backend_lib.check_backend(backend)
         A = linop.as_operator(A, device=device)
-        op = _operator_for(sketch, A, sketch_size, key)
+        if isinstance(A, linop.TikhonovAugmented):
+            # blockdiag(S, I): sketch the data rows, keep the (maximally
+            # coherent) regularization rows exact — see AugmentedSketch
+            if isinstance(sketch, sketch_lib.AugmentedSketch):
+                op = _operator_for(sketch, A, None, key)
+            else:
+                inner = _operator_for(sketch, A.op, sketch_size, key)
+                op = sketch_lib.AugmentedSketch(inner=inner, tail=A.shape[1])
+            rows = op.inner.d
+        else:
+            op = _operator_for(sketch, A, sketch_size, key)
+            rows = op.d
         kind = _kind_name(sketch)
         if backend_lib.resolve_fused(fused):
             from ..kernels.tsqr import sketch_qr  # kernels import core
 
-            with obs_trace.span("factor.build", sketch=kind, rows=op.d, fused=True):
+            with obs_trace.span("factor.build", sketch=kind, rows=rows, fused=True):
                 Q, R, B = sketch_qr(op, A, backend=backend, precision=precision)
                 obs_trace.maybe_block(R)
             return cls(Q=Q, R=R), op, B
-        with obs_trace.span("factor.build", sketch=kind, rows=op.d, fused=False):
+        with obs_trace.span("factor.build", sketch=kind, rows=rows, fused=False):
             with obs_trace.span("sketch.apply", kind=kind, precision=precision):
                 B = _sketch_apply(op, A, backend=backend, precision=precision)
                 obs_trace.maybe_block(B)
@@ -227,12 +254,15 @@ class SketchedFactor(NamedTuple):
         return torch.linalg.solve_triangular(Rt, v, upper=False)
 
     def whiten_mv(self, A, z: torch.Tensor) -> torch.Tensor:
-        """Y z = A (R⁻¹ z) — operator-form matvec of the whitened system."""
-        return linop.as_operator(A, device=z.device).matvec(self.precondition(z))
+        """Y z = A (R⁻¹ z) — operator-form matvec of the whitened system
+        (a block z through ``matmat``)."""
+        return linop.as_operator(A, device=z.device) @ self.precondition(z)
 
     def whiten_rmv(self, A, u: torch.Tensor) -> torch.Tensor:
-        """Yᵀ u = R⁻ᵀ (Aᵀ u) — operator-form rmatvec of the whitened system."""
-        return self.rt_solve(linop.as_operator(A, device=u.device).rmatvec(u))
+        """Yᵀ u = R⁻ᵀ (Aᵀ u) — operator-form rmatvec of the whitened system
+        (a block u through ``rmatmat``)."""
+        A = linop.as_operator(A, device=u.device)
+        return self.rt_solve(A.rmatvec(u) if u.ndim == 1 else A.rmatmat(u))
 
     def materialize_whitened(self, A) -> torch.Tensor:
         """Y = A R⁻¹ explicitly (one triangular solve from the right)."""

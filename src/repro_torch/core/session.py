@@ -37,8 +37,14 @@ Random draws, all from the one ``torch.Generator`` passed in, in call
 order: S at construction; then each ``certify`` call's probe matrix W and
 each escalation's extension block, as they happen.
 
-Dense A only: ``reg=`` and sparse or matrix-free inputs raise
-``NotImplementedError`` naming ROADMAP A8.
+A may be dense, sparse (a torch sparse tensor) or matrix-free (a
+duck-typed or ``linop`` operator); Y is kept only for dense A, and the
+others solve in operator form.  ``reg=λ`` builds the factor for the
+Tikhonov-augmented [A; √λI] through ``AugmentedSketch`` (S over the data
+rows, the identity rows exact), pads each right-hand side with n zeros
+and reports ``rnorm``/``arnorm`` of the original ridge problem.
+``update_rows`` needs a dense A (it rewrites rows) and raises
+``TypeError`` otherwise.
 """
 from __future__ import annotations
 
@@ -50,6 +56,8 @@ from . import backend as backend_lib
 from . import certify as certify_lib
 from . import linop
 from .lsqr import lsqr
+from . import sketch as sketch_lib
+from .lstsq import _ridge_diagnostics
 from .precond import SketchedFactor, _kind_name, _operator_for
 from .result import SolveResult
 
@@ -63,8 +71,10 @@ class SketchedSolver:
     operator, sketch size, tolerances, backend); ``key`` is a
     ``torch.Generator`` on the data's device (or an int seed) and
     ``device=None`` means ``"cuda"``.  ``materialize_y=None`` keeps
-    Y = A R⁻¹ (LSQR by two gemvs over Y per iteration); ``False`` runs LSQR
-    in operator form on A and R.
+    Y = A R⁻¹ for a dense A (LSQR by two gemvs over Y per iteration) and
+    runs LSQR in operator form on A and R otherwise (``False`` forces it).
+    ``reg=λ`` solves the ridge problem (module docstring); ``sketch=`` then
+    gives S over the data rows.
     """
 
     def __init__(
@@ -86,24 +96,28 @@ class SketchedSolver:
         certify_probes: int = 8,
         device=None,
     ):
-        if reg is not None:
-            raise NotImplementedError(
-                "SketchedSolver(reg=...) (Tikhonov) arrives with ROADMAP A8"
-            )
         self.A = linop.as_operator(A, device=device)
-        if not isinstance(self.A, linop.DenseOperator):
-            raise NotImplementedError(
-                f"SketchedSolver on a {type(self.A).__name__} (matrix-free "
-                "input) arrives with ROADMAP A8"
-            )
+        self.reg = reg
+        self._solve_op = (
+            linop.TikhonovAugmented.wrap(self.A, reg) if reg is not None else self.A
+        )
         self.backend = backend_lib.check_backend(backend)
         self._gen = backend_lib.as_generator(key, self.A.device)
         if steptol is None:
             steptol = 32 * float(torch.finfo(self.A.dtype).eps)
         self._kw = dict(atol=atol, btol=btol, steptol=steptol, iter_lim=iter_lim)
-        self._materialize_y = True if materialize_y is None else bool(materialize_y)
-        self._sketch_op = _operator_for(sketch, self.A, sketch_size, self._gen)
-        self.sketch_size = self._sketch_op.d
+        if materialize_y is None:
+            materialize_y = isinstance(self.A, linop.DenseOperator)
+        self._materialize_y = bool(materialize_y)
+        # the sketch size is set by the data rows; a ridge session keeps the
+        # √λ·I rows exact (blockdiag(S, I), see AugmentedSketch)
+        inner = _operator_for(sketch, self.A, sketch_size, self._gen)
+        self._sketch_op = (
+            sketch_lib.AugmentedSketch(inner=inner, tail=self.A.shape[1])
+            if reg is not None
+            else inner
+        )
+        self.sketch_size = inner.d
         self.auto_recertify = auto_recertify
         self.max_distortion = float(max_distortion)
         self.certify_probes = int(certify_probes)
@@ -117,7 +131,7 @@ class SketchedSolver:
         )
         with obs_trace.span("session.build", rows=self.sketch_size):
             with obs_trace.span("sketch.apply", kind=_kind_name(sketch)):
-                self._B = self._sketch_op.apply_op(self.A, backend=self.backend)
+                self._B = self._sketch_op.apply_op(self._solve_op, backend=self.backend)
                 obs_trace.maybe_block(self._B)
             self.stats["sketches"] += 1
             self._refactor()
@@ -136,11 +150,38 @@ class SketchedSolver:
         self.stats["qr_factorizations"] += 1
         self._Y = None
         if self._materialize_y:
-            self._Y = self.factor.materialize_whitened(self.A)
+            self._Y = self.factor.materialize_whitened(self._solve_op)
 
     @property
     def shape(self) -> tuple[int, int]:
         return self.A.shape
+
+    def _rhs(self, b):
+        """b, or [b; 0] for a ridge session."""
+        return b if self.reg is None else self._solve_op.augment_rhs(b)
+
+    def _set_matrix(self, A_new: torch.Tensor):
+        """Point the session at updated dense data (rewrapping the ridge
+        operator)."""
+        self.A = linop.DenseOperator(A_new)
+        if self.reg is not None:
+            self._solve_op = linop.TikhonovAugmented.wrap(self.A, self.reg)
+        else:
+            self._solve_op = self.A
+
+    def _ridge(self, b, res: SolveResult) -> SolveResult:
+        """``res`` with rnorm/arnorm of the original ridge problem, as
+        ``lstsq(reg=...)`` reports them."""
+        if self.reg is None:
+            return res
+        rnorm, arnorm = _ridge_diagnostics(self.A, b, res.x, self.reg)
+        return res._replace(rnorm=rnorm, arnorm=arnorm)
+
+    def _random_rows(self) -> int:
+        """Rows of the random part of S (a ridge session's exact √λ·I rows
+        are not part of the embedding)."""
+        op = self._sketch_op
+        return op.inner.d if isinstance(op, sketch_lib.AugmentedSketch) else op.d
 
     # ------------------------------------------------------- certification
     def certify(self, b=None, result=None, *, n_probes=None, target=None):
@@ -165,15 +206,15 @@ class SketchedSolver:
                     "certify takes one right-hand side at a time; "
                     "certify solve_many columns individually"
                 )
-            b_solve = backend_lib.as_tensor(b, self.A.device, self.A.dtype)
+            b_solve = self._rhs(backend_lib.as_tensor(b, self.A.device, self.A.dtype))
         with obs_trace.span("session.certify", with_solution=x is not None):
             cert = certify_lib.certify(
-                self.A, b_solve, x, self.factor, self._gen,
+                self._solve_op, b_solve, x, self.factor, self._gen,
                 n_probes=(
                     self.certify_probes if n_probes is None else int(n_probes)
                 ),
                 target=target, max_distortion=self.max_distortion,
-                sketch_rows=self._sketch_op.d, escalations=self.escalations,
+                sketch_rows=self._random_rows(), escalations=self.escalations,
             )
         if x is None:
             self.certificate = cert
@@ -184,13 +225,13 @@ class SketchedSolver:
         is extended (never recomputed), the certified ladder's move."""
         with obs_trace.span("session.escalate", extra=extra):
             self.factor, self._sketch_op, self._B = self.factor.extend(
-                self.A, self._sketch_op, self._gen, extra, B=self._B,
+                self._solve_op, self._sketch_op, self._gen, extra, B=self._B,
                 backend=self.backend,
             )
         # extend() sketched the new rows and re-QRed
         self.stats["sketches"] += 1
         self._after_refactor()
-        self.sketch_size = self._sketch_op.d
+        self.sketch_size = self._random_rows()
         self.escalations += 1
 
     def _recertify_after_update(self):
@@ -200,7 +241,7 @@ class SketchedSolver:
         cert = self.certify()
         self.recertifications += 1
         while not bool(cert.passed):
-            s = self._sketch_op.d
+            s = self._random_rows()
             extra = min(s, m - s)
             if extra <= 0:
                 break
@@ -245,9 +286,11 @@ class SketchedSolver:
         return b
 
     def _solve(self, b, history: bool) -> SolveResult:
-        """One sketch of b (or of a block), the warm start z₀ = Qᵀ(Sb), LSQR
-        on the whitened system (Y's gemvs, or operator form) and x = R⁻¹z."""
-        A, f, Y = self.A, self.factor, self._Y
+        """One sketch of b (or of a block; [b; 0] for a ridge session), the
+        warm start z₀ = Qᵀ(Sb), LSQR on the whitened system (Y's gemvs, or
+        operator form) and x = R⁻¹z."""
+        A, f, Y = self._solve_op, self.factor, self._Y
+        b = self._rhs(b)
         if Y is not None:
             mv, rmv = (lambda z: Y @ z), (lambda u: Y.T @ u)
         else:
@@ -265,7 +308,7 @@ class SketchedSolver:
             if sp:
                 sp.set(itn=int(res.itn))
         self.stats["solves"] += 1
-        return res._replace(method="session")
+        return self._ridge(b, res)._replace(method="session")
 
     def solve_many(self, B) -> SolveResult:
         """k stacked right-hand sides (m, k) → x of shape (n, k).
@@ -280,7 +323,7 @@ class SketchedSolver:
             res = self._solve(B, False)
             obs_trace.maybe_block(res.x)
         self.stats["solves"] += k
-        return res._replace(
+        return self._ridge(B, res)._replace(
             used_fallback=torch.zeros(k, dtype=torch.bool, device=B.device),
             method="session",
         )
@@ -292,8 +335,15 @@ class SketchedSolver:
         sketches the new A again with the same S).
 
         ``idx`` must hold unique row indices in [−m, m).  The caller's A is
-        not written: the session keeps a copy with the rows replaced.
+        not written: the session keeps a copy with the rows replaced.  A
+        dense A only: sparse and matrix-free sessions raise ``TypeError``
+        (rebuild the session instead).
         """
+        if not isinstance(self.A, linop.DenseOperator):
+            raise TypeError(
+                "update_rows needs a dense A (rows are rewritten); got "
+                f"{type(self.A).__name__} — rebuild the session instead"
+            )
         A = self.A.A
         m, n = A.shape
         idx = backend_lib.as_tensor(idx, A.device).reshape(-1).to(torch.int64)
@@ -313,17 +363,25 @@ class SketchedSolver:
         with obs_trace.span("session.update_rows", rows=int(idx.numel())):
             A_new = A.clone()
             A_new[idx] = rows
+            # A ridge session sketches through blockdiag(S, I); the rows all
+            # lie in the data block, so restrict the inner S and pad the
+            # delta-sketch with zero rows for the identity block.
+            sk_op, tail = self._sketch_op, 0
+            if isinstance(sk_op, sketch_lib.AugmentedSketch):
+                sk_op, tail = sk_op.inner, sk_op.tail
             # The sub-sketch S[:, idx]; None for the SRHT.
-            sub = self._sketch_op.restrict_cols(idx)
+            sub = sk_op.restrict_cols(idx)
             if sub is None:
                 # SRHT: no column restriction — sketch again with the SAME S.
-                self.A = linop.DenseOperator(A_new)
-                self._B = self._sketch_op.apply_op(self.A, backend=self.backend)
+                self._set_matrix(A_new)
+                self._B = self._sketch_op.apply_op(self._solve_op, backend=self.backend)
                 self.stats["sketches"] += 1
             else:
                 d_sk = sub.apply(rows - A[idx], backend=self.backend)
+                if tail:
+                    d_sk = torch.cat([d_sk, d_sk.new_zeros((tail, d_sk.shape[1]))])
                 self._B = self._B + d_sk
-                self.A = linop.DenseOperator(A_new)
+                self._set_matrix(A_new)
             del A, A_new  # a caller that dropped the old A frees it before Y
             self._refactor()
         # The delta-sketch is exact, but S was drawn obliviously to the

@@ -20,14 +20,20 @@ Both realize the same S: the Gaussian S is drawn from the kernels'
 counter-based threefry + Box–Muller stream, so kernel B4 regenerates it
 from the key alone.
 
+Operator inputs (``apply_op``, :class:`_OperatorApply`): a sparse A is
+sketched from its entries — the bucket kinds through the coordinate
+scatter ``countsketch_coo_apply``, the dense-S kinds through one sparse ×
+dense product, the SRHT and an unstored Gaussian S on A densified — a
+Tikhonov-augmented dense A is materialized, and any other operator is
+sketched through panels of Sᵀ and its ``rmatmat``.
+:class:`AugmentedSketch` is blockdiag(S, I), the ridge embedding.
+
 Row streaming: ``apply_rows(tile, row_offset)`` is the restriction of S to
 a contiguous row tile of A (for the SRHT, which streams by placement, the
 D-signed tile), and ``restrict_cols(idx)`` the sub-operator S[:, idx]
 (``None`` for the SRHT) — the primitives the streaming and session slices
 build on.  Escalation: ``extend_rows(key, extra)`` grows any kind into a
 :class:`StackedSketch`, whose ``extend_sketch`` reuses a stored B = SA.
-The sparse-input scatters and ``AugmentedSketch`` arrive with their inputs
-(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -37,7 +43,13 @@ import math
 import torch
 
 from ..kernels.common import key_to_u32, sqrt_tensor
-from ..kernels.countsketch import countsketch_apply, countsketch_csr, countsketch_ref
+from ..kernels.countsketch import (
+    countsketch_apply,
+    countsketch_coo_apply,
+    countsketch_coo_ref,
+    countsketch_csr,
+    countsketch_ref,
+)
 from ..kernels.countsketch.ref import acc_dtype
 from ..kernels.sketch_matmul import (
     default_scale,
@@ -59,8 +71,22 @@ __all__ = [
     "SparseSignSketch",
     "UniformSparseSketch",
     "StackedSketch",
+    "AugmentedSketch",
     "SKETCH_KINDS",
+    "T_PANEL_BYTES",
+    "t_panel_cols",
 ]
+
+# The matrix-free sketch forms Sᵀ in column panels of at most this many
+# bytes, one ``rmatmat`` each, instead of the whole (m, d) Sᵀ (33.6 GB in
+# f64 at m = 2^20, d = 4000).
+T_PANEL_BYTES = 1 << 30
+
+
+def t_panel_cols(m: int, d: int, dtype: torch.dtype) -> int:
+    """Columns of Sᵀ in one panel of the matrix-free sketch (128 at
+    m = 2^20 in f64)."""
+    return max(1, min(d, T_PANEL_BYTES // max(m * dtype.itemsize, 1)))
 
 
 def _next_pow2(m: int) -> int:
@@ -83,18 +109,59 @@ class _OperatorApply:
     """What every kind shares: operator-aware sketching, the row-streaming
     contract and escalation.
 
-    ``apply_op`` takes the backend-dispatched ``apply`` for dense operators;
-    the sparse, Tikhonov and matrix-free dispatch of the reference arrives
-    with ROADMAP A8.
+    ``apply_op`` dispatches, in the reference's order:
+
+    - ``DenseOperator`` → the kind's backend-dispatched ``apply``;
+    - ``SparseOperator`` → ``_apply_bcoo``: the bucket kinds scatter
+      straight from A's entries (``countsketch_coo_apply``), the dense-S
+      kinds run one sparse × dense product (Aᵀ's CSR times Sᵀ), and the
+      SRHT (and a Gaussian whose S is not stored) densifies A and takes its
+      kernel;
+    - ``TikhonovAugmented`` over a dense core → materialized, then
+      ``apply``;
+    - anything else → B = (Aᵀ·Sᵀ)ᵀ through ``rmatmat``, Sᵀ formed in column
+      panels of :func:`t_panel_cols` columns (``_dense_t_panel``), never
+      whole.
     """
 
     def apply_op(self, A, *, backend: str = "auto"):
         A = linop.as_operator(A, device=self.device)
         if isinstance(A, linop.DenseOperator):
             return self.apply(A.A, backend=backend)
-        raise NotImplementedError(
-            f"sketching a {type(A).__name__} arrives with ROADMAP A8"
-        )
+        if isinstance(A, linop.SparseOperator):
+            return self._apply_bcoo(A, backend=backend)
+        if isinstance(A, linop.TikhonovAugmented) and isinstance(
+            A.op, linop.DenseOperator
+        ):
+            return self.apply(A.materialize(), backend=backend)
+        return self._apply_matrix_free(A)
+
+    def _apply_bcoo(self, A, *, backend: str = "auto"):
+        S = getattr(self, "S", None)
+        if S is not None:  # dense-S kinds: one sparse × dense library product
+            return (A.csr_t.to_torch() @ S.T.to(A.dtype)).T.contiguous()
+        # The SRHT's transform is dense whatever A is: densify.
+        return self.apply(A.materialize(), backend=backend)
+
+    def _apply_matrix_free(self, A):
+        m, n = A.shape
+        d = self.d
+        w = t_panel_cols(m, d, A.dtype)
+        B = torch.empty((d, n), dtype=A.dtype, device=A.device)
+        for p0 in range(0, d, w):
+            p1 = min(d, p0 + w)
+            B[p0:p1] = A.rmatmat(self._dense_t_panel(p0, p1).to(A.dtype)).T
+        return B
+
+    def _dense_t_panel(self, p0: int, p1: int):
+        """Columns p0..p1 of Sᵀ (rows p0..p1 of S) as an (m, p1 − p0)
+        matrix."""
+        return self.as_dense()[p0:p1].T
+
+    def as_dense_t(self):
+        """Sᵀ as a dense (m, d) matrix (the matrix-free sketch takes it in
+        panels)."""
+        return self._dense_t_panel(0, self.d)
 
     # Row streaming: "add" kinds return the (d, n) contribution of a tile;
     # the SRHT ("place") returns the D-signed tile, transformed once at the
@@ -154,6 +221,27 @@ class _BucketSketch(_OperatorApply):
     def _apply_b1(self, A):
         csr = self.csr(A.dtype) if A.device.type == "cuda" else None
         return countsketch_apply(A, self.buckets, self._weights(), self.d, csr=csr)
+
+    def _apply_bcoo(self, A, *, backend: str = "auto"):
+        """SA from A's entries: the coordinate scatter (its kernel on the
+        card), or its plain version on the reference backend."""
+        scatter = countsketch_coo_apply if backend_lib.uses_kernels(backend) else countsketch_coo_ref
+        return scatter(A.rows, A.cols, A.vals, A.shape, self.buckets, self._weights(), self.d)
+
+    def _dense_t_panel(self, p0: int, p1: int):
+        """Rows p0..p1 of S, transposed: each of the k blocks of entries set
+        in turn (within a block, a column of S has one entry), scaled as
+        ``as_dense`` scales them."""
+        buckets = self.buckets.reshape(-1, self.m).to(torch.int64)
+        weights = self._weights().reshape(-1, self.m) * self._entry_scale()
+        St = torch.zeros((self.m, p1 - p0), dtype=weights.dtype, device=self.device)
+        for h, w in zip(buckets, weights):
+            (i,) = torch.nonzero((h >= p0) & (h < p1), as_tuple=True)
+            St.index_put_((i, h[i] - p0), w[i], accumulate=True)
+        return St
+
+    def _entry_scale(self):
+        return 1.0
 
     def apply_rows(self, tile, row_offset: int, *, backend: str = "auto"):
         t = tile.shape[0]
@@ -253,10 +341,12 @@ class GaussianSketch(_OperatorApply):
         return cls(S=S, key=words, d=int(d), m=int(m), dev=dev)
 
     @staticmethod
-    def _gen_cols(key, d, cols, dtype):
-        """Columns S[:, cols] from the kernel's counter stream (exact): the
-        f32 Gaussians times the f32 scale, then cast to ``dtype``."""
-        G = gaussian_cols_ref(key[0], key[1], d, cols, torch.float32)
+    def _gen_cols(key, d, cols, dtype, rows=None):
+        """S[p0:p1, cols] (``rows = (p0, p1)``, all d rows by default) from
+        the kernel's counter stream (exact): the f32 Gaussians times the f32
+        scale, then cast to ``dtype``."""
+        p0, p1 = (0, d) if rows is None else rows
+        G = gaussian_cols_ref(key[0], key[1], p1 - p0, cols, torch.float32, row0=p0)
         return G.mul_(default_scale(d)).to(dtype)
 
     @property
@@ -301,6 +391,12 @@ class GaussianSketch(_OperatorApply):
             return self.S
         cols = torch.arange(self.m, device=self.device)
         return self._gen_cols(self.key, self.d, cols, torch.float64)
+
+    def _dense_t_panel(self, p0: int, p1: int):
+        if self.S is not None:
+            return self.S[p0:p1].T
+        cols = torch.arange(self.m, device=self.device)
+        return self._gen_cols(self.key, self.d, cols, torch.float64, rows=(p0, p1)).T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -428,13 +524,15 @@ class SRHTSketch(_OperatorApply):
         eye = torch.eye(self.m, dtype=self.signs.dtype, device=self.device)
         return self.apply(eye, backend="reference")
 
-    def as_dense_t(self):
-        """Sᵀ = (1/√d)·D·H·Pᵀ as an (m, d) matrix: one transform of the
-        (m_pad, d) row selector (H is symmetric), through B8 on the card —
-        O(d·m log m) instead of as_dense()'s O(m² log m)."""
+    def _dense_t_panel(self, p0: int, p1: int):
+        """Columns p0..p1 of Sᵀ = (1/√d)·D·H·Pᵀ: one transform of the
+        (m_pad, p1 − p0) row selector (H is symmetric), through B8 on the
+        card — O(d·m log m) for all of Sᵀ instead of as_dense()'s
+        O(m² log m)."""
         dtype, dev = self.signs.dtype, self.device
-        sel = torch.zeros((self.m_pad, self.d), dtype=dtype, device=dev)
-        sel[self.rows, torch.arange(self.d, device=dev)] = 1.0
+        w = p1 - p0
+        sel = torch.zeros((self.m_pad, w), dtype=dtype, device=dev)
+        sel[self.rows[p0:p1], torch.arange(w, device=dev)] = 1.0
         St = self.signs[:, None] * hadamard_transform(sel) / sqrt_tensor(self.d, dtype, dev)
         return St[: self.m]
 
@@ -487,6 +585,13 @@ class SparseSignSketch(_BucketSketch):
                 B = B + torch.zeros_like(B).index_add_(0, h, s.to(A2.dtype)[:, None] * A2)
             B = _maybe_squeeze(B, vec)
         return B / sqrt_tensor(self.k, B.dtype, B.device)
+
+    def _apply_bcoo(self, A, *, backend: str = "auto"):
+        B = super()._apply_bcoo(A, backend=backend)
+        return B / sqrt_tensor(self.k, B.dtype, B.device)
+
+    def _entry_scale(self):
+        return 1.0 / sqrt_tensor(self.k, self.signs.dtype, self.device)
 
     def restrict_cols(self, idx):
         buckets, signs = self.buckets[:, idx], self.signs[:, idx]
@@ -657,6 +762,98 @@ class StackedSketch(_OperatorApply):
     def as_dense(self):
         top = self.top.as_dense()
         return self._stack(top, self.bottom.as_dense().to(top.dtype))
+
+    def _dense_t_panel(self, p0: int, p1: int):
+        dt = self.top.d
+        parts = []
+        if p0 < dt:
+            parts.append(self.w_top * self.top._dense_t_panel(p0, min(p1, dt)))
+        if p1 > dt:
+            bot = self.bottom._dense_t_panel(max(p0, dt) - dt, p1 - dt)
+            parts.append(self.w_bottom * bot.to(parts[0].dtype if parts else bot.dtype))
+        return torch.cat(parts, dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentedSketch(_OperatorApply):
+    """blockdiag(S, I_tail): the structured embedding of a Tikhonov system.
+
+    The rows of the √λ·I block of [A; √λI] are maximally coherent (one
+    spike each), the inputs oblivious sparse sketches are worst at.  So
+    only the data block is sketched with ``inner`` and the identity block
+    is kept exact: B = [S·A; √λI] and BᵀB = (SA)ᵀSA + λI.
+    ``SketchedFactor.build`` makes one for ``TikhonovAugmented`` inputs;
+    d = inner.d + tail rows.
+    """
+
+    inner: object  # sketch operator over the data rows
+    tail: int  # identity block size (n of the augmented operator)
+
+    @property
+    def d(self) -> int:
+        return self.inner.d + self.tail
+
+    @property
+    def m(self) -> int:
+        return self.inner.m + self.tail
+
+    @property
+    def device(self) -> torch.device:
+        return self.inner.device
+
+    def apply(self, A, *, backend: str = "auto"):
+        A = backend_lib.as_tensor(A, self.device)
+        mi = self.inner.m
+        top = self.inner.apply(A[:mi], backend=backend)
+        return torch.cat([top, A[mi:].to(top.dtype)], dim=0)
+
+    def apply_op(self, A, *, backend: str = "auto"):
+        A = linop.as_operator(A, device=self.device)
+        if isinstance(A, linop.TikhonovAugmented):
+            top = self.inner.apply_op(A.op, backend=backend)
+            eye = torch.eye(self.tail, A.op.shape[1], dtype=top.dtype, device=top.device)
+            return torch.cat([top, A.sqrt_reg.to(top.dtype) * eye], dim=0)
+        return super().apply_op(A, backend=backend)
+
+    def as_dense(self):
+        Sd = self.inner.as_dense()
+        dev = Sd.device
+        top = torch.cat(
+            [Sd, torch.zeros((self.inner.d, self.tail), dtype=Sd.dtype, device=dev)], dim=1
+        )
+        bot = torch.cat(
+            [
+                torch.zeros((self.tail, self.inner.m), dtype=Sd.dtype, device=dev),
+                torch.eye(self.tail, dtype=Sd.dtype, device=dev),
+            ],
+            dim=1,
+        )
+        return torch.cat([top, bot], dim=0)
+
+    def extend_rows(self, key, extra: int) -> "AugmentedSketch":
+        """Escalate the data block only: the exact identity tail is not a
+        random embedding and needs no growing."""
+        return AugmentedSketch(inner=self.inner.extend_rows(key, extra), tail=self.tail)
+
+    def extend_sketch(self, B_top, A, *, backend: str = "auto"):
+        """Extend a stored augmented sketch [S·A; √λI]: the data rows
+        through the stacked inner operator, the exact tail rows moved down
+        unchanged — bit-equal to ``apply_op(A)`` of this operator."""
+        if not isinstance(self.inner, StackedSketch):
+            raise TypeError(
+                "extend_sketch needs an operator produced by extend_rows; "
+                f"inner is {type(self.inner).__name__}"
+            )
+        A = linop.as_operator(A, device=self.device)
+        if not isinstance(A, linop.TikhonovAugmented):
+            raise TypeError(
+                "AugmentedSketch.extend_sketch sketches the data block of a "
+                f"TikhonovAugmented operator, got {type(A).__name__}"
+            )
+        B_top = backend_lib.as_tensor(B_top, self.device)
+        d_prev = self.inner.top.d
+        top = self.inner.extend_sketch(B_top[:d_prev], A.op, backend=backend)
+        return torch.cat([top, B_top[d_prev:]], dim=0)
 
 
 SKETCH_KINDS: dict[str, type] = {

@@ -87,4 +87,74 @@ inline cudaError_t dispatch_countsketch(int dtype, const void* A,
   }
 }
 
+// The coordinate scatter of the bucket sketches: SA for a sparse A given by
+// its entries (r, c, v), each adding w_j(r) * v to the cell (h_j(r), c) for
+// j = 0..k-1.  It replaces no TPU kernel: the reference scatters with a jnp
+// .at[].add (repro/core/sketch.py:506-518, :577-590, :641-650), and CUDA's
+// index_add_ would sum it with atomics, in an order that changes from run
+// to run.  The caller sorts the k*nnz products by cell (a stable sort of the
+// int64 keys h*n + c in the reference's j-major, entry-order ravel, and d*n+1
+// offsets; repro_torch/kernels/countsketch/ops.py:countsketch_coo_plan), and
+// one thread owns one cell: it walks its segment of the permutation in that
+// order, gathers the entry's row, value and weight through it (product id
+// e = j*nnz + i; no permuted copy is written), rounds each product on its
+// own (mul_rn) and writes the cell once, empty cells as 0.  The sum is thus
+// bitwise the sequential index_add_ of the plain version on the CPU.  It is
+// bound by reading the sorted products once (their id, value and weight)
+// and writing the d*n cells once; the gathers of v and w are not coalesced.
+template <typename T>
+__global__ void coo_scatter_kernel(const int64_t* __restrict__ perm,
+                                   const int64_t* __restrict__ rows,
+                                   const T* __restrict__ vals,
+                                   const T* __restrict__ w,
+                                   const int64_t* __restrict__ offsets,
+                                   T* __restrict__ out, int64_t cells,
+                                   int64_t nnz, int64_t m) {
+  const int64_t cell = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= cells) return;
+  const int64_t lo = offsets[cell];
+  const int64_t hi = offsets[cell + 1];
+  T acc = T(0);
+  for (int64_t p = lo; p < hi; ++p) {
+    const int64_t e = perm[p];
+    const int64_t j = e / nnz;
+    const int64_t i = e - j * nnz;
+    acc += mul_rn(w[j * m + rows[i]], vals[i]);
+  }
+  out[cell] = acc;
+}
+
+template <typename T>
+cudaError_t launch_coo_scatter(const void* perm, const void* rows,
+                               const void* vals, const void* w,
+                               const void* offsets, void* out, int64_t cells,
+                               int64_t nnz, int64_t m, cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  const int64_t blocks = cdiv(cells, kThreads);
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  if (cells > 0) {
+    coo_scatter_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        static_cast<const int64_t*>(perm), static_cast<const int64_t*>(rows),
+        static_cast<const T*>(vals), static_cast<const T*>(w),
+        static_cast<const int64_t*>(offsets), static_cast<T*>(out), cells, nnz,
+        m);
+  }
+  return cudaGetLastError();
+}
+
+inline cudaError_t dispatch_coo_scatter(int dtype, const void* perm,
+                                        const void* rows, const void* vals,
+                                        const void* w, const void* offsets,
+                                        void* out, int64_t cells, int64_t nnz,
+                                        int64_t m, cudaStream_t stream) {
+  switch (dtype) {
+    case kF64:
+      return launch_coo_scatter<double>(perm, rows, vals, w, offsets, out, cells, nnz, m, stream);
+    case kF32:
+      return launch_coo_scatter<float>(perm, rows, vals, w, offsets, out, cells, nnz, m, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace

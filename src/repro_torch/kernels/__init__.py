@@ -16,16 +16,27 @@ B6       ``sketch_matmul``           ``sketch_matmul/kernel.py:27``
 B7       ``matmul_gram``             ``tsqr/kernel.py:101``
 B8       ``hadamard_transform``      ``srht/kernel.py:25`` and ``:32``
 B8       ``srht_apply``              ``srht/kernel.py:25`` and ``:32``
+—        ``countsketch_coo_apply``   no TPU kernel: the jnp scatter of
+                                     ``core/sketch.py:506–518``
 =======  ==========================  =========================================
 
 A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
 tensor it runs the plain version.  ``wrapper.launches`` counts kernel
 launches only.  :data:`KERNELS` lists every wrapper, in the table's order.
 B1 also applies the sparse-sign and uniform-sparse sketches, which have no
-TPU kernel of their own.
+TPU kernel of their own.  ``countsketch_coo_apply`` is the bucket sketches'
+coordinate scatter for a sparse A (ROADMAP A8), deterministic where
+``index_add_`` on CUDA is not.
 """
 from .common import bits_to_gaussian, key_to_u32, sqrt_tensor, threefry2x32
-from .countsketch import countsketch_apply, countsketch_csr, countsketch_ref
+from .countsketch import (
+    countsketch_apply,
+    countsketch_coo_apply,
+    countsketch_coo_plan,
+    countsketch_coo_ref,
+    countsketch_csr,
+    countsketch_ref,
+)
 from .sketch_matmul import (
     fused_gaussian_ref,
     fused_gaussian_sketch,
@@ -62,6 +73,7 @@ KERNELS = (
     matmul_gram,
     hadamard_transform,
     srht_apply,
+    countsketch_coo_apply,
 )
 
 __all__ = [
@@ -70,6 +82,9 @@ __all__ = [
     "bits_to_gaussian",
     "cholqr_finish",
     "countsketch_apply",
+    "countsketch_coo_apply",
+    "countsketch_coo_plan",
+    "countsketch_coo_ref",
     "countsketch_csr",
     "countsketch_gram",
     "countsketch_gram_ref",

@@ -52,6 +52,7 @@ _F32 = ctypes.c_float
 _F64 = ctypes.c_double
 _SIGNATURES = {
     "repro_countsketch_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_coo_scatter": [_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     "repro_panel_gram": [_I, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "repro_countsketch_gram": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "repro_sketch_matmul": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],

@@ -22,6 +22,22 @@ Contract (as the reference's): A is (m, n) or (m,); the result is (d, n)
 or (d,); f64 and f32 inputs keep their dtype, bf16 and f16 inputs give f32;
 the weights are rounded to A's dtype.  A CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version of ``ref.py``.
+
+:func:`countsketch_coo_apply` is the coordinate scatter of the bucket
+sketches, their apply to a sparse A given by its entries (r, c, v)
+(``csrc/countsketch.cuh``, ``coo_scatter_kernel``).  It replaces no TPU
+kernel: the reference scatters with a jnp ``.at[].add``
+(``repro/core/sketch.py:506–518``, ``:577–590``, ``:641–650``), whose
+counterpart on CUDA, ``index_add_``, sums with atomics in an order that
+changes from run to run.  Here each entry's k products go to the cells
+(h_j(r), c); :func:`countsketch_coo_plan` sorts them by cell (a stable
+sort of the int64 keys h·n + c in the reference's j-major, entry-order
+ravel, plus d·n + 1 segment offsets: index set-up, a library call as the
+CSR's build is), and the kernel gives one thread to each cell, which sums
+its segment in that order, gathering v and w through the sort's
+permutation.  Every cell is written once, empty ones as 0; the result is
+bitwise the plain version run on the CPU.  f64 and f32 only: half inputs
+never reach it (``precision="mixed"`` raises for a sparse A).
 """
 from __future__ import annotations
 
@@ -30,9 +46,16 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .ref import acc_dtype, countsketch_ref
+from .ref import acc_dtype, coo_keys, countsketch_coo_ref, countsketch_ref
 
-__all__ = ["countsketch_apply", "countsketch_csr", "CountSketchCSR"]
+__all__ = [
+    "countsketch_apply",
+    "countsketch_csr",
+    "CountSketchCSR",
+    "countsketch_coo_apply",
+    "countsketch_coo_plan",
+    "CooPlan",
+]
 
 
 class CountSketchCSR(NamedTuple):
@@ -153,3 +176,101 @@ def countsketch_apply(
 
 
 countsketch_apply.launches = 0
+
+
+class CooPlan(NamedTuple):
+    """The coordinate scatter's products grouped by output cell."""
+
+    perm: torch.Tensor  # (k·nnz,) int64 — product ids (j·nnz + e), sorted by cell (stable)
+    offsets: torch.Tensor  # (d·n + 1,) int64 — cell q owns perm[off[q]:off[q+1]]
+
+
+def countsketch_coo_plan(rows, cols, n: int, buckets, d: int) -> CooPlan:
+    """Sort the k·nnz products of the entries (rows, cols) by their cell
+    h_j(r)·n + c, keeping the j-major, entry-order ravel within a cell."""
+    keys = coo_keys(rows, cols, n, buckets)
+    perm = torch.sort(keys, stable=True).indices
+    offsets = torch.zeros(d * n + 1, dtype=torch.int64, device=keys.device)
+    torch.cumsum(torch.bincount(keys, minlength=d * n), 0, out=offsets[1:])
+    return CooPlan(perm=perm, offsets=offsets)
+
+
+def countsketch_coo_apply(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    shape,
+    buckets: torch.Tensor,
+    weights: torch.Tensor,
+    d: int,
+    *,
+    plan: CooPlan | None = None,
+) -> torch.Tensor:
+    """SA for the bucket sketch (buckets, weights), each (m,) or (k, m), and
+    the sparse A of ``shape`` (m, n) — or (m,), with ``cols`` all 0 —
+    given by its entries (rows, cols, vals), through the coordinate scatter
+    kernel on CUDA.  The result is (d, n) (or (d,)) in the values' dtype.
+    ``plan`` is :func:`countsketch_coo_plan` of these entries; it is built
+    here when not given."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) not in (1, 2):
+        raise ValueError(f"countsketch_coo_apply: shape must be (m,) or (m, n), got {shape}")
+    m = shape[0]
+    nnz = vals.shape[0] if vals.ndim == 1 else -1
+    if vals.ndim != 1 or rows.shape != (nnz,) or cols.shape != (nnz,):
+        raise ValueError(
+            f"rows, cols and vals must be 1-D of one length, got {tuple(rows.shape)}, "
+            f"{tuple(cols.shape)} and {tuple(vals.shape)}"
+        )
+    if rows.dtype != torch.int64 or cols.dtype != torch.int64:
+        raise TypeError(f"rows and cols must be int64, got {rows.dtype} and {cols.dtype}")
+    if buckets.ndim not in (1, 2) or buckets.shape[-1] != m or weights.shape != buckets.shape:
+        raise ValueError(
+            f"buckets/weights must both be ({m},) or (k, {m}), "
+            f"got {tuple(buckets.shape)} and {tuple(weights.shape)}"
+        )
+    for name, t in (("rows", rows), ("cols", cols), ("buckets", buckets), ("weights", weights)):
+        if t.device != vals.device:
+            raise ValueError(f"{name} ({t.device}) must be on the values' device {vals.device}")
+    if vals.device.type == "cpu":
+        return countsketch_coo_ref(rows, cols, vals, shape, buckets, weights, d)
+    if vals.device.type != "cuda":
+        raise ValueError(f"countsketch_coo_apply runs on CUDA or CPU, got {vals.device}")
+    return _coo_launch(rows, cols, vals, shape, buckets, weights, d, plan)
+
+
+def _coo_launch(rows, cols, vals, shape, buckets, weights, d, plan):
+    """The CUDA branch of :func:`countsketch_coo_apply` (arguments checked)."""
+    if vals.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"the coordinate scatter takes f64 or f32 values, got {vals.dtype}")
+    m, nnz = shape[0], vals.shape[0]
+    n = shape[1] if len(shape) == 2 else 1
+    k = buckets.numel() // m if m else 1
+    # the kernel gathers w[j, rows[i]] and the plan's keys index d·n cells:
+    # out-of-range ids would read and write outside the buffers
+    for name, t, hi in (("rows", rows, m), ("cols", cols, n), ("buckets", buckets, d)):
+        if t.numel() and not bool((t.min() >= 0) & (t.max() < hi)):
+            raise ValueError(f"countsketch_coo_apply: {name} must lie in [0, {hi})")
+    if plan is None:
+        plan = countsketch_coo_plan(rows, cols, n, buckets, d)
+    if plan.perm.shape != (k * nnz,) or plan.offsets.shape != (d * n + 1,):
+        raise ValueError("plan does not match these entries and this sketch")
+    for name, t in plan._asdict().items():
+        if t.dtype != torch.int64 or t.device != vals.device or not t.is_contiguous():
+            raise ValueError(f"plan {name} must be contiguous int64 on {vals.device}")
+    w = weights.reshape(-1, m).to(vals.dtype).contiguous()
+    rows, vals = rows.contiguous(), vals.contiguous()
+    out = torch.empty(d * n, dtype=vals.dtype, device=vals.device)
+    lib = _build.load()
+    with torch.cuda.device(vals.device):
+        err = lib.repro_coo_scatter(
+            _build.dtype_code(vals.dtype), plan.perm.data_ptr(), rows.data_ptr(),
+            vals.data_ptr(), w.data_ptr(), plan.offsets.data_ptr(), out.data_ptr(),
+            d * n, nnz, m, _build.stream_ptr(vals.device),
+        )
+    _build.check(err, "countsketch_coo_apply")
+    countsketch_coo_apply.launches += 1
+    return out.view(d, n) if len(shape) == 2 else out
+
+
+countsketch_coo_apply.launches = 0

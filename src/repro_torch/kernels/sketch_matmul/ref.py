@@ -51,8 +51,11 @@ def sketch_matmul_ref(S: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     return out[:, 0] if vec else out
 
 
-def gaussian_cols_ref(k0: int, k1: int, d: int, cols: torch.Tensor, dtype=torch.float32):
-    """Columns S[:, cols] of the unscaled Gaussian stream, in ``dtype``.
+def gaussian_cols_ref(
+    k0: int, k1: int, d: int, cols: torch.Tensor, dtype=torch.float32, *, row0: int = 0
+):
+    """Columns S[row0 : row0 + d, cols] of the unscaled Gaussian stream, in
+    ``dtype``.
 
     ``cols`` is a 1-D integer tensor of column counters in [0, 2^32); the
     result lies on its device.
@@ -61,7 +64,7 @@ def gaussian_cols_ref(k0: int, k1: int, d: int, cols: torch.Tensor, dtype=torch.
     (t,) = cols.shape
     out = torch.empty((d, t), dtype=dtype, device=cols.device)
     chunk = max(1, _CHUNK_ELEMS // max(d, 1))
-    rows = torch.arange(d, dtype=torch.int64, device=cols.device)[:, None]
+    rows = torch.arange(row0, row0 + d, dtype=torch.int64, device=cols.device)[:, None]
     for c0 in range(0, t, chunk):
         c = cols[c0 : c0 + chunk]
         x0 = rows.expand(d, c.shape[0])

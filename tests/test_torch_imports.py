@@ -79,13 +79,30 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+class _Duck:
+    """A duck-typed operator with no device of its own."""
+
+    shape = (200, 5)
+    dtype = np.float64
+
+    def matvec(self, v):
+        return v
+
+    def rmatvec(self, u):
+        return u
+
+
 def _entry_points():
     from repro_torch import convert
     from repro_torch.core import (
         CountSketch,
         GaussianSketch,
+        CustomOperator,
         SketchedFactor,
+        SketchedSolver,
+        SparseOperator,
         SparseSignSketch,
+        TikhonovAugmented,
         SRHTSketch,
         UniformDenseSketch,
         UniformSparseSketch,
@@ -145,6 +162,17 @@ def _entry_points():
         "problem_from_reference": lambda: convert.problem_from_reference(
             A, b, b[:5], b, 1.0, 0.0
         ),
+        "sparse_from_reference": lambda: convert.sparse_from_reference(
+            np.array([[0, 1]]), np.ones(1), (2, 2)
+        ),
+        "SparseOperator.from_entries": lambda: SparseOperator.from_entries([0], [1], [1.0], (2, 2)),
+        "as_operator_sparse": lambda: as_operator(A_cpu.to_sparse()),
+        "as_operator_duck": lambda: as_operator(_Duck()),
+        "CustomOperator.device": lambda: CustomOperator(abs, abs, (2, 2), torch.float64).device,
+        "TikhonovAugmented.wrap": lambda: TikhonovAugmented.wrap(A, 0.1),
+        "lstsq_reg": lambda: lstsq(A, b, 0, reg=0.1),
+        "lstsq_sparse": lambda: lstsq(A_cpu.to_sparse(), b, 0),
+        "SketchedSolver_reg": lambda: SketchedSolver(A, 0, reg=0.1),
     }
 
 
@@ -171,6 +199,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_wrappers_refuse_other_devices():
     from repro_torch.kernels import (
         countsketch_apply,
+        countsketch_coo_apply,
         countsketch_gram,
         fused_gaussian_sketch,
         gaussian_gram,
@@ -188,6 +217,9 @@ def test_wrappers_refuse_other_devices():
     S = torch.zeros(4, 8, device="meta")
     with pytest.raises(ValueError):
         countsketch_apply(A, h, s, 4)
+    r = torch.zeros(8, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        countsketch_coo_apply(r, r, s, (8, 3), h, s, 4)
     with pytest.raises(ValueError):
         countsketch_gram(A, h, s, 4)
     with pytest.raises(ValueError):

@@ -513,24 +513,37 @@ def test_session_spans(prob):
     assert not obs_trace.enabled()
 
 
-def test_unported_inputs_raise_naming_a8(prob):
+def test_reg_sparse_and_matrix_free_inputs_build(prob):
+    """reg=, a sparse A and a duck-typed operator (which raised naming A8
+    before it was ported) build sessions that solve; a duck-typed operator
+    without .dtype raises TypeError, as the reference's does."""
     A, b = prob
-    with pytest.raises(NotImplementedError, match="A8"):
-        SketchedSolver(A, 0, reg=0.8, device=CPU)
-    with pytest.raises(NotImplementedError, match="A8"):
-        SketchedSolver(torch.as_tensor(A).to_sparse(), 0, device=CPU)
+    At = torch.as_tensor(A)
+    x_qr = qr_solve(A, b, device=CPU).numpy()
+    lam = 0.8
+    x_ridge = np.linalg.solve(A.T @ A + lam * np.eye(N_COLS), A.T @ b)
+    ridge = SketchedSolver(A, 0, reg=lam, device=CPU)
+    assert _rel(ridge.solve(b).x, x_ridge) < 1e-8
+    sparse = SketchedSolver(At.to_sparse(), 0, device=CPU)
+    assert _rel(sparse.solve(b).x, x_qr) < 1e-8
 
     class _MatrixFree:
         shape = (M_ROWS, N_COLS)
 
         def matvec(self, v):
-            return A @ v
+            return At @ v
 
         def rmatvec(self, u):
-            return A.T @ u
+            return At.T @ u
 
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="dtype"):
         SketchedSolver(_MatrixFree(), 0, device=CPU)
+    _MatrixFree.dtype = torch.float64
+    _MatrixFree.device = CPU
+    free = SketchedSolver(_MatrixFree(), 0, device=CPU)
+    assert _rel(free.solve(b).x, x_qr) < 1e-8
+    with pytest.raises(TypeError, match="dense"):
+        free.update_rows([0], A[:1])
 
 
 def test_shape_and_every_kind_builds(prob):

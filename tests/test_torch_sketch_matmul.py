@@ -36,6 +36,7 @@ from repro.kernels.sketch_matmul import sketch_matmul as j_matmul  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     KERNELS,
     bits_to_gaussian,
+    countsketch_coo_apply,
     fused_gaussian_ref,
     fused_gaussian_sketch,
     gaussian_cols_ref,
@@ -251,7 +252,10 @@ def test_plain_versions_do_not_count_launches():
     matmul_gram(torch.randn(8, 64, dtype=torch.float64), A)
     hadamard_transform(A)
     srht_apply(A, torch.ones(64, dtype=torch.float64), torch.arange(8), 8)
-    assert [f.launches for f in KERNELS] == [0] * len(KERNELS) == [0] * 9
+    rows = torch.arange(64)
+    countsketch_coo_apply(rows, rows % 3, A[:, 0], (64, 3), torch.zeros(64, dtype=torch.int32),
+                          torch.ones(64, dtype=torch.float64), 8)
+    assert [f.launches for f in KERNELS] == [0] * len(KERNELS) == [0] * 10
 
 
 def test_wrappers_check_their_inputs():
