@@ -85,7 +85,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    the default call, ``saa`` with four kinds (the SRHT on A densified),
    ``sap`` and the certified tier (never its ``direct`` rung), each within
    1e-5 and 100x ``qr_solve``'s error on the densified A; and a session
-   on that A.  Each run prints its median warm wall of 3 and its peak.
+   on that A.  Each run prints its median warm wall of 3 and its peak;
+13. streaming (class ``_Phase13``, on the main problem before it is freed):
+   pass 1 from a device-resident ``ArraySource`` (tiles of 8192 rows) for
+   the CountSketch, uniform-sparse and SRHT sketches bitwise the monolithic
+   B1/B8 apply over the default and an uneven ``boundaries=`` tiling, two
+   passes bitwise, B1's fold mode bitwise the CPU plain fold; the
+   sparse-sign B bitwise the CPU plain streamed fold and within
+   2·γ_K·|S||A| of the monolithic k·m-entry route; B4 with ``col0``
+   tile by tile at m = 2^16 against ``gaussian_matrix_ref(col_offset=…)``,
+   its ``col0 = 0`` launch bitwise the whole-A entry, the streamed
+   Gaussian and uniform-dense B against B4/B6; pass-1, fold and col0 times
+   beside their bounds; ``stream_lstsq`` (``saa``, ``iterative``,
+   ``sketch_and_solve``, ``reg=1e-8``, ``certify=True``) on the device
+   source beside the in-memory ``lstsq`` from the same seed, gated as
+   phases 10 and 12 gate them (``sketch_and_solve``, not forward stable,
+   held to the monolithic sketch-and-solve on the same S); a numpy source
+   through the pinned stager and a ``MemmapSource`` at m = 2^18, each
+   bitwise the device-resident run, with their GB/s; a
+   ``StreamingSolver`` serving 8 solves and a ``solve_many`` of 8 (stats
+   {1, 1, 16}).  The streamed runs pass through ``_NoPlain``: a plain
+   version, ``index_add_`` or ``torch.cuda.synchronize`` reached there on
+   the card fails the run.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -1048,6 +1069,12 @@ def main() -> int:
     phase12 = _Phase12(torch, dev, gen, smi, run_path, paths, phase11.stats_seen)
     phase12.ridge(A, b)
     phase12.matrix_free(A, b, x_true, e_qr)
+
+    # ---- phase 13: streaming, on the main problem before it is freed ------
+    phase13 = _Phase13(torch, dev, gen, smi, run_path, paths, root)
+    _, t13 = _sync_time(torch, lambda: phase13.main_problem(A, b, x_true, e_qr, phase12.x_ridge))
+    errs["fused_gaussian_sketch"] = max(errs["fused_gaussian_sketch"], phase13.err_col0)
+    _p(f"phase 13: {t13:.1f} s")
     del op_t, St, prob, A, b, x_true
     torch.cuda.empty_cache()
     phase12.sparse()
@@ -2224,7 +2251,7 @@ class _Phase12:
         X = torch.linalg.solve_triangular(R, Q.T @ rhs, upper=True)
         del Q, R, rhs
         torch.cuda.empty_cache()
-        x_ridge = X[:, 0]
+        x_ridge = self.x_ridge = X[:, 0].clone()
         bnorm = float(b.norm())
         for name, kw in [("ridge_default", {}), ("ridge_saa", dict(method="saa")),
                          ("ridge_certified", dict(accuracy="certified"))]:
@@ -2320,6 +2347,516 @@ class _Phase12:
         if not bool(cert.passed):
             raise AssertionError(f"{name}: the embedding's certificate failed: {cert}")
 
+
+class _NoPlain:
+    """Within ``with``: the plain versions the streaming path could reach,
+    torch's (atomic, on CUDA) ``index_add_`` and a device-wide
+    ``torch.cuda.synchronize`` raise when they are reached with a CUDA
+    tensor — so a streamed run that passes through here went through the
+    kernels only, and its host staging waited on copy events alone."""
+
+    PLAIN = (
+        ("repro_torch.core.sketch", "gaussian_cols_ref"),
+        ("repro_torch.core.sketch", "countsketch_ref"),
+        ("repro_torch.core.sketch", "srht_ref"),
+        ("repro_torch.kernels.sketch_matmul.ops", "fused_gaussian_ref"),
+        ("repro_torch.kernels.countsketch.ops", "countsketch_ref"),
+        ("repro_torch.kernels.countsketch.ops", "countsketch_fold_ref"),
+        ("repro_torch.kernels.srht.ops", "srht_ref"),
+        ("repro_torch.streaming.accumulate", "countsketch_fold_ref"),
+        ("repro_torch.streaming.accumulate", "srht_ref"),
+    )
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import importlib
+
+        torch = self.torch
+        self.saved = []
+
+        def guard(name, real):
+            def guarded(*args, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    raise AssertionError(f"the streaming path reached {name} on the card")
+                return real(*args, **kw)
+            return guarded
+
+        for mod_name, attr in self.PLAIN:
+            mod = importlib.import_module(mod_name)
+            real = getattr(mod, attr)
+            self.saved.append((mod, attr, real))
+            setattr(mod, attr, guard(f"{mod_name}.{attr}", real))
+        real_add = torch.Tensor.index_add_
+        self.saved.append((torch.Tensor, "index_add_", real_add))
+        torch.Tensor.index_add_ = guard("index_add_", real_add)
+
+        def no_sync(*a, **kw):
+            raise AssertionError("the streaming path synchronized the device")
+
+        self.saved.append((torch.cuda, "synchronize", torch.cuda.synchronize))
+        torch.cuda.synchronize = no_sync
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, real in reversed(self.saved):
+            setattr(obj, attr, real)
+        return False
+
+
+class _Phase13:
+    """Phase 13: streaming (``repro_torch.streaming``) on the card.
+
+    (a) pass 1 on a device-resident ``ArraySource`` of the main problem:
+    the CountSketch, uniform-sparse and SRHT streamed B over the default
+    tiling and an uneven ``boundaries=`` tiling bitwise the monolithic
+    B1/B8 apply on the same S, two passes bitwise equal; the sparse-sign B
+    bitwise the CPU plain streamed fold of the same tiles and within
+    2·γ_K·|S||A| of the monolithic k·m-entry B1 route; B1's fold mode
+    bitwise the CPU plain fold; pass-1, fold and monolithic times against
+    their bounds.  (b) B4 with ``col0`` at m = 2^16, tile by tile, against
+    ``gaussian_matrix_ref(col_offset=…)`` times the tile, its ``col0 = 0``
+    launch bitwise B4's whole-A entry, and the streamed Gaussian and
+    uniform-dense B against the monolithic B4/B6.  (c) ``stream_lstsq``
+    (``saa``, ``iterative``, ``sketch_and_solve``, ``reg=1e-8``,
+    ``certify=True``) on the device source, each beside the in-memory
+    ``lstsq`` from the same generator seed.  (d) a numpy ``ArraySource``
+    (the pinned stager) and (e) a ``MemmapSource`` at m = 2^18, each bitwise
+    the device-resident run.  (f) a ``StreamingSolver`` serving 8 solves
+    and a ``solve_many`` of 8.  The streamed runs go through ``_NoPlain``;
+    ``run_path`` counts launches as for phase 10."""
+
+    SEED = 1301
+    LAM = 1e-8
+    K_SOLVES = 8
+    TILE = 8192  # the sources' tile rows (DEFAULT_TILE_ROWS)
+    MEMMAP_ROWS = 2**18
+
+    def __init__(self, torch, dev, gen, smi, run_path, paths, root):
+        self.torch, self.dev, self.gen, self.smi = torch, dev, gen, smi
+        self.run_path, self.paths, self.root = run_path, paths, root
+        self.walls, self.peaks, self.times = {}, {}, {}
+        self.err_fold = self.err_col0 = 0.0
+
+    def seeded(self):
+        return self.torch.Generator(device=self.dev).manual_seed(self.SEED)
+
+    def run(self, name, fn, reps=3):
+        """One counted run (through ``_NoPlain``) with its peak memory above
+        the inputs, then the median warm wall of ``reps`` (none for 0)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def guarded():
+            with _NoPlain(torch):
+                return fn()
+
+        res = self.run_path(name, guarded)
+        self.peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        if reps:
+            self.walls[name] = sorted(_sync_time(torch, fn)[1] for _ in range(reps))[reps // 2]
+        return res
+
+    def main_problem(self, A, b, x_true, e_qr, x_ridge):
+        self.pass1(A)
+        self.gaussian(A)
+        self.solves(A, b, x_true, e_qr, x_ridge)
+        self.host(A, b)
+        self.session(A, b, x_true)
+        self.memmap()
+        _p(f"phase 13: peaks above the inputs (GiB): {json.dumps(self.peaks)}")
+        _p(f"phase 13: median warm walls of 3, device-resident source (s): {json.dumps(self.walls)}")
+
+    # ---- (a) -----------------------------------------------------------------
+    def pass1(self, A):
+        from repro_torch.core import SparseSignSketch
+        from repro_torch.core import sketch as sketch_lib
+        from repro_torch.kernels import countsketch_apply, countsketch_csr, countsketch_fold_ref
+        from repro_torch.streaming import ArraySource, accumulate_source
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = A.shape
+        d = 4 * n
+        T = self.TILE
+        src = ArraySource(A, tile_rows=T)
+        cuts = torch.randint(1, m, (200,), generator=gen, device=dev).tolist()
+        uneven = ArraySource(A, boundaries=cuts + [1, 2, 3, T + 1])  # single-row tiles too
+        tiles = src.num_tiles
+        cols = A[:, :16].contiguous()  # the fold is column by column: the CPU checks 16
+        cols_cpu = cols.cpu()
+        report = {}
+        for kind in ("countsketch", "uniform_sparse", "srht", "sparse_sign"):
+            op = sketch_lib.sample(kind, gen, d, m, device=dev)
+
+            def stream(s=src, op=op):
+                return accumulate_source(op, s).finalize()
+
+            B, t_first = _sync_time(torch, lambda: self.run(f"stream_pass1_{kind}", stream, reps=0))
+            again, B_u = stream(), stream(uneven)
+            launches = self.paths[f"stream_pass1_{kind}"]
+            if not (torch.equal(B, again) and torch.equal(B_u.cpu(), B.cpu())):
+                raise AssertionError(f"stream pass 1 {kind}: two passes, or two tilings, differ")
+            mono = op.apply(A)
+            # ms: a pass with the tiles' CSRs cached (a re-stream); first_ms the
+            # counted first pass, which builds them (host clock)
+            t = dict(ms=_event_ms(torch, stream), first_ms=t_first * 1e3,
+                     mono_ms=_event_ms(torch, lambda: op.apply(A)))
+            if kind == "srht":
+                # A read and placed once (the state written), B8 over the state
+                nbytes = 2 * op.m_pad * n * 8 + op.m_pad * n * 8 + d * n * 8
+                if not (torch.equal(B, mono) and launches["srht_apply"] >= 1
+                        and launches["countsketch_apply"] == 0):
+                    raise AssertionError(f"stream pass 1 srht: not bitwise B8's apply; {launches}")
+                err = 0.0
+            else:
+                k = op.k if isinstance(op, SparseSignSketch) else 1
+                rows = k * d
+                nbytes = m * n * 8
+                for o in range(0, m, src.tile_rows):
+                    h = op._csr[("stream", o, min(src.tile_rows, m - o), A.dtype, "auto")][0]
+                    live = int(torch.unique(h).numel())  # buckets the tile has an entry in
+                    nbytes += 2 * live * n * 8 + h.numel() * 12 + (rows + 1) * 8
+                # the CPU plain fold of the same tiles, 16 columns
+                op_cpu = type(op)(**{f.name: (getattr(op, f.name).cpu() if torch.is_tensor(getattr(op, f.name))
+                                              else getattr(op, f.name))
+                                     for f in op.__dataclass_fields__.values() if f.init and f.name != "_csr"})
+                B_cpu = accumulate_source(op_cpu, ArraySource(cols_cpu, tile_rows=T)).finalize()
+                B_cols = accumulate_source(op, ArraySource(cols, tile_rows=T)).finalize()
+                if not (torch.equal(B_cols.cpu(), B_cpu) and torch.equal(B[:, :16].cpu(), B_cpu)):
+                    raise AssertionError(f"stream pass 1 {kind}: B1's fold is not bitwise the CPU plain fold")
+                if launches["countsketch_apply"] != tiles:
+                    raise AssertionError(f"stream pass 1 {kind}: {launches} (one B1 fold a tile: {tiles})")
+                if k == 1:
+                    if not torch.equal(B, mono):
+                        raise AssertionError(f"stream pass 1 {kind}: not bitwise B1's apply")
+                    err = 0.0
+                else:
+                    # another order of the same sums (ROADMAP §B item 1): within
+                    # 2·γ_K·|S||A|, K the most entries of a bucket
+                    K = int(op.csr(A.dtype).offsets.diff().max())
+                    op_abs = SparseSignSketch(buckets=op.buckets, signs=op.signs.abs(), d=d, m=m, k=k)
+                    err = 0.0
+                    for c0 in range(0, n, 125):
+                        mag = op_abs.apply(A[:, c0:c0 + 125].abs())
+                        gap = (B[:, c0:c0 + 125] - mono[:, c0:c0 + 125]).abs()
+                        if not bool((gap <= 2 * _gamma(torch, K, A.dtype) * mag).all()):
+                            raise AssertionError(f"stream pass 1 sparse_sign: {float(gap.max())} off B1's apply")
+                        err = max(err, float(gap.max()))
+                        del mag, gap
+                self.err_fold = max(self.err_fold, err)
+                if kind == "countsketch":
+                    # one fold launch on one tile, its CSR cached
+                    h, w, dd, csr = op._csr[("stream", T, T, A.dtype, "auto")]
+                    tile, state = A[T:2 * T], B.clone()
+                    live = int(torch.unique(h).numel())
+                    prods = w[:, None] * tile
+                    f = dict(ms=_event_ms(torch, lambda: countsketch_apply(tile, h, w, dd, csr=csr, out=state)),
+                             plain_ms=_event_ms(torch, lambda: countsketch_fold_ref(state, tile, h, w)),
+                             library_ms=_event_ms(torch, lambda: state.index_add_(0, h, prods)),
+                             csr_ms=_event_ms(torch, lambda: countsketch_csr(h, w, dd, A.dtype)))
+                    del prods
+                    f["bound_ms"], f["bound_by"] = _bound(2 * T * n, T * n * 8 + 2 * live * n * 8
+                                                          + T * 12 + (d + 1) * 8)
+                    self.times["fold_tile"] = f
+            t["bound_ms"], t["bound_by"] = _bound(0, nbytes)
+            t["max_abs_err_vs_mono"] = err
+            report[kind] = t
+            del B, again, B_u, mono, op
+            torch.cuda.empty_cache()
+        self.times["pass1"] = report
+        _p(f"phase 13: pass 1 from a device-resident ArraySource A({m}, {n}) d={d}, {tiles} tiles of "
+           f"{src.tile_rows} rows and {uneven.num_tiles} uneven ones: countsketch, uniform_sparse, srht bitwise "
+           f"the monolithic B1/B8 apply over both tilings; two passes bitwise; B1's fold bitwise the CPU plain "
+           f"fold (16 columns); sparse_sign bitwise the CPU plain streamed fold, max|Δ| from the k·m-entry B1 "
+           f"route {report['sparse_sign']['max_abs_err_vs_mono']:.3e}")
+        _p(f"phase 13: pass-1 times (ms; mono = the one-call apply; bound = A once, each tile's live state "
+           f"read and written, its CSR; card: {self.smi}): {json.dumps(report)}")
+        _p(f"phase 13: B1 fold of one tile ({T}, {n}) into the (d, n) state, CSR cached (ms; plain = "
+           f"countsketch_fold_ref on the card; library = one index_add_ of the precomputed products, atomic; "
+           f"csr = the tile's set-up): {json.dumps(self.times['fold_tile'])}")
+
+    # ---- (b) -----------------------------------------------------------------
+    def gaussian(self, A):
+        from repro_torch.core import GaussianSketch, UniformDenseSketch
+        from repro_torch.kernels import (
+            fused_gaussian_sketch,
+            gaussian_matrix_ref,
+            key_to_u32,
+            sketch_matmul,
+        )
+        from repro_torch.kernels.sketch_matmul import default_scale
+        from repro_torch.streaming import ArraySource, accumulate_source
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = M_DENSE, A.shape[1]
+        d, T = 4 * n, self.TILE
+        A16 = A[:m]
+        key = key_to_u32(gen)
+        # the generated columns: col0 far out in the counter space
+        for c0 in (2**20 - 700, 3 * 10**9):
+            G = fused_gaussian_sketch(torch.eye(700, dtype=torch.float32, device=dev), key, 300, scale=1.0, col0=c0)
+            u_card = _ulps(torch, G, gaussian_matrix_ref(*key, 300, 700, col_offset=c0, device=dev))
+            u_cpu = _ulps(torch, G, gaussian_matrix_ref(*key, 300, 700, col_offset=c0))
+            G64 = fused_gaussian_sketch(torch.eye(700, dtype=torch.float64, device=dev), key, 300, scale=1.0, col0=c0)
+            e7 = torch.zeros(700, dtype=torch.float32, device=dev)
+            e7[7] = 1
+            Gv = fused_gaussian_sketch(e7, key, 300, scale=1.0, col0=c0)
+            if max(u_card, u_cpu) > ULP_BOUND or not (torch.equal(G64, G.double()) and torch.equal(Gv, G[:, 7])):
+                raise AssertionError(f"B4 col0={c0}: {u_card}/{u_cpu} ulps, or the f64/vector routes differ")
+        scale = default_scale(d)
+        worst = 0.0
+        for o in range(0, m, T):
+            tile = A16[o:o + T]
+            out = fused_gaussian_sketch(tile, key, d, col0=o)
+            S = (gaussian_matrix_ref(*key, d, T, col_offset=o, device=dev) * scale).to(torch.float64)
+            gap = (out - S @ tile).abs()
+            # the sums' rounding, and the kernel's Gaussians within ULP_BOUND f32 ulps of the plain ones
+            tol = (2 * _gamma(torch, T, A.dtype) + ULP_BOUND * 2.0**-23) * (S.abs() @ tile.abs())
+            if not bool((gap <= tol).all()):
+                raise AssertionError(f"B4 col0={o}: {float(gap.max())} off the plain version")
+            worst = max(worst, float(gap.max()))
+            del out, S, gap, tol
+        self.err_col0 = worst
+        tile0, b16 = A16[:T], A16[:, 0].contiguous()
+        zero = (torch.equal(fused_gaussian_sketch(tile0, key, d, col0=0), fused_gaussian_sketch(tile0, key, d))
+                and torch.equal(fused_gaussian_sketch(b16, key, d, col0=0), fused_gaussian_sketch(b16, key, d)))
+        if not zero:
+            raise AssertionError("B4's col0 = 0 launch is not bitwise its whole-A entry")
+        tile1 = A16[T:2 * T]
+        S1 = (gaussian_matrix_ref(*key, d, T, col_offset=T, device=dev) * scale).to(torch.float64)
+        c = dict(ms=_event_ms(torch, lambda: fused_gaussian_sketch(tile1, key, d, col0=T)),
+                 plain_ms=_event_ms(torch, lambda: (gaussian_matrix_ref(*key, d, T, col_offset=T, device=dev)
+                                                   * scale).to(torch.float64) @ tile1),
+                 library_ms=_event_ms(torch, lambda: S1 @ tile1))  # the product half alone
+        c["bound_ms"], c["bound_by"] = _bound(2 * d * T * n, T * n * 8 + d * n * 8)
+        self.times["col0_tile"] = c
+        del S1
+        # the streamed dense kinds against their monolithic kernels
+        dense = {}
+        for kind, op in (("gaussian", GaussianSketch(S=None, key=key, d=d, m=m, dev=dev)),
+                         ("uniform_dense", UniformDenseSketch.sample(gen, d, m, device=dev))):
+            src = ArraySource(A16, tile_rows=T)
+            B = self.run(f"stream_{kind}", lambda op=op: accumulate_source(op, src).finalize(), reps=0)
+            mono = op.apply(A16)
+            S_abs = (op.as_dense() if kind == "gaussian" else op.S).abs()
+            gap = (B - mono).abs()
+            if not bool((gap <= 2 * _gamma(torch, m, A.dtype) * (S_abs @ A16.abs())).all()):
+                raise AssertionError(f"streamed {kind}: {float(gap.max())} off the monolithic apply")
+            kern = "fused_gaussian_sketch" if kind == "gaussian" else "sketch_matmul"
+            launched = self.paths[f"stream_{kind}"][kern]
+            if launched != (m // T if kind == "gaussian" else 0):
+                raise AssertionError(f"streamed {kind}: {self.paths[f'stream_{kind}']}")
+            dense[kind] = dict(max_abs_err=float(gap.max()), ms=_event_ms(torch, lambda op=op: accumulate_source(
+                op, src).finalize()), mono_ms=_event_ms(torch, lambda op=op: op.apply(A16)),
+                launches=self.paths[f"stream_{kind}"])
+            del B, mono, S_abs, gap
+        self.times["dense"] = dense
+        torch.cuda.empty_cache()
+        _p(f"phase 13: B4 with col0 at A({m}, {n}) d={d}, {m // T} tiles of {T}: within (2·γ_t + "
+           f"{ULP_BOUND} f32 ulps)·|S||A| of gaussian_matrix_ref(col_offset=…)·tile, max|Δ| {worst:.3e}; col0 = 0 "
+           f"bitwise the whole-A entry (matrix and vector); generated columns at col0 = 2^20 − 700 and 3e9 "
+           f"within {ULP_BOUND} ulps of the plain ones, f64 and vector routes bitwise the same G")
+        _p(f"phase 13: B4 col0 on one tile ({T}, {n}) d={d} (ms; library = S @ tile on a pre-generated S; "
+           f"card: {self.smi}): {json.dumps(c)}")
+        _p(f"phase 13: streamed dense kinds at A({m}, {n}) against the monolithic B4/B6 (within "
+           f"2·γ_m·|S||A|; ms): {json.dumps(dense)}")
+
+    # ---- (c) -----------------------------------------------------------------
+    def solves(self, A, b, x_true, e_qr, x_ridge):
+        from repro_torch.core import SketchedFactor, lstsq, qr_solve
+        from repro_torch.streaming import ArraySource, stream_lstsq
+
+        torch = self.torch
+        m, n = A.shape
+        src = ArraySource(A, tile_rows=self.TILE)
+        x_qr = qr_solve(A, b)
+        bnorm = float(b.norm())
+        g = self.seeded
+        runs = [
+            ("stream_saa", dict(method="saa"), lambda: lstsq(A, b, g(), method="saa")),
+            ("stream_iterative", dict(method="iterative"), lambda: lstsq(A, b, g(), method="iterative")),
+            ("stream_sketch_and_solve", dict(method="sketch_and_solve"), None),
+            ("stream_ridge", dict(reg=self.LAM), lambda: lstsq(A, b, g(), reg=self.LAM)),
+            ("stream_certified", dict(certify=True), lambda: lstsq(A, b, g(), accuracy="certified")),
+        ]
+        self.results = {}
+        rows = {}
+        for name, kw, in_memory in runs:
+            res = self.run(name, lambda kw=kw: stream_lstsq(src, b, g(), **kw))
+            self.results[name] = res
+            if in_memory is None:  # the monolithic sketch-and-solve on the same S
+                factor, op = SketchedFactor.build(A, g())
+                x_mem = factor.sketch_and_solve(op.apply(b))
+                t_mem = sorted(_sync_time(torch, lambda: SketchedFactor.build(A, g()))[1] for _ in range(3))[1]
+            else:
+                x_mem = in_memory().x
+                t_mem = sorted(_sync_time(torch, in_memory)[1] for _ in range(3))[1]
+            gap = _rel(res.x, x_mem)
+            e = _rel(res.x, x_true if name != "stream_ridge" else x_ridge)
+            row = dict(itn=int(res.itn), istop=int(res.istop), err=e, qr_err=e_qr, vs_in_memory=gap,
+                       wall=self.walls[name], in_memory_wall=t_mem, peak_gib=self.peaks[name],
+                       b1_launches=self.paths[name]["countsketch_apply"])
+            if name == "stream_sketch_and_solve":
+                # one pass; not forward stable (its error is O(ε·κ·‖r‖/‖A‖‖x‖)):
+                # held to the monolithic sketch-and-solve on the same S
+                ok = gap <= 1e-12 and math.isnan(float(res.rnorm))
+            elif name == "stream_ridge":
+                ok = e < 1e-5 and float(res.arnorm) <= 1e-8 * bnorm
+                row["arnorm_over_b"] = float(res.arnorm) / bnorm
+            else:
+                bound = 10 if name == "stream_iterative" else 100
+                ok = e < 1e-5 and e <= bound * max(e_qr, 1e-12)
+            if name == "stream_certified":
+                cert = res.certificate
+                row.update(passed=bool(cert.passed), error_bound=float(cert.error_bound),
+                           gap_to_qr=float((res.x - x_qr).norm()))
+                ok = ok and bool(cert.passed) and row["gap_to_qr"] <= 10 * row["error_bound"]
+            ok = ok and row["b1_launches"] == src.num_tiles  # pass 1 only: b rides along
+            rows[name] = row
+            _p(f"phase 13: {name}: {json.dumps(row)} (card: {self.smi})")
+            if not ok:
+                raise AssertionError(f"{name}: {row}")
+        self.times["solves"] = rows
+
+    # ---- (d) -----------------------------------------------------------------
+    def host(self, A, b):
+        from repro_torch.streaming import ArraySource, device_tiles, stream_lstsq
+        from repro_torch.streaming.solve import _CountingSource
+
+        torch = self.torch
+        m, n = A.shape
+        A_np, t_d2h = _sync_time(torch, lambda: A.cpu().numpy())
+        src = ArraySource(A_np, tile_rows=self.TILE)
+        nbytes = m * n * 8
+
+        def stage():
+            for _ in device_tiles(src, self.dev):
+                pass
+
+        _, t_stage = _sync_time(torch, stage)
+        # the two halves of staging apart, on one tile: the host's copy into
+        # pinned memory, and the pinned → device copy
+        T = self.TILE
+        tile = torch.from_numpy(A_np[:T])
+        pinned = torch.empty((T, n), dtype=A.dtype, pin_memory=True)
+        on_dev = torch.empty((T, n), dtype=A.dtype, device=self.dev)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            pinned.copy_(tile)
+        t_memcpy = (time.perf_counter() - t0) / 8
+        t_h2d = _event_ms(torch, lambda: on_dev.copy_(pinned, non_blocking=True)) / 1e3
+        rows = dict(d2h_s=t_d2h, staging_pass_s=t_stage, staging_gbps=nbytes / t_stage / 1e9,
+                    host_memcpy_gbps=T * n * 8 / t_memcpy / 1e9, h2d_gbps=T * n * 8 / t_h2d / 1e9)
+        del tile, pinned, on_dev
+        for method in ("sketch_and_solve", "iterative"):
+            name = f"stream_host_{method}"
+            stats = {"passes": 0, "tiles": 0}
+            counted = _CountingSource(src, stats)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = self.run(name, lambda: stream_lstsq(counted, b, self.seeded(), method=method), reps=0)
+            wall = time.perf_counter() - t0
+            same = torch.equal(res.x, self.results[f"stream_{method}"].x)
+            rows[method] = dict(wall=wall, passes=stats["passes"], gbps=stats["passes"] * nbytes / wall / 1e9,
+                                itn=int(res.itn), peak_gib=self.peaks[name],
+                                bitwise_device_source=same)
+            if not same:
+                raise AssertionError(f"{name}: x is not bitwise the device-resident run's: {rows[method]}")
+        del A_np, src
+        self.times["host"] = rows
+        _p(f"phase 13: host source (numpy A({m}, {n}), pinned staging, side copy stream; each run timed once "
+           f"around its counted run; gbps = passes × {nbytes / 1e9:.2f} GB / wall; staging = one pass that only "
+           f"stages; host_memcpy = the host's copy of one tile into pinned memory, h2d = its pinned → device copy; "
+           f"card: {self.smi}): {json.dumps(rows)}")
+
+    # ---- (e) -----------------------------------------------------------------
+    def memmap(self):
+        import tempfile
+
+        import numpy as np
+
+        from repro_torch.core import generate_problem, qr_solve
+        from repro_torch.streaming import ArraySource, MemmapSource, stream_lstsq
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = self.MEMMAP_ROWS, N_MAIN
+        p = generate_problem(gen, m, n, cond=COND, beta=BETA, device=dev)
+        e_qr = _rel(qr_solve(p.A, p.b), p.x_true)
+        (self.root / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=self.root / "build") as tmp:
+            path = Path(tmp) / "A.npy"
+            _, t_save = _sync_time(torch, lambda: np.save(path, p.A.cpu().numpy()))
+            src = MemmapSource(path, tile_rows=self.TILE)
+            t0 = time.perf_counter()
+            res = self.run("stream_memmap_saa", lambda: stream_lstsq(src, p.b, self.seeded(), method="saa"), reps=0)
+            wall = time.perf_counter() - t0
+        ref = stream_lstsq(ArraySource(p.A, tile_rows=self.TILE), p.b, self.seeded(), method="saa")
+        e = _rel(res.x, p.x_true)
+        row = dict(itn=int(res.itn), err=e, qr_err=e_qr, wall=wall, save_s=t_save,
+                   bitwise_device_source=torch.equal(res.x, ref.x), peak_gib=self.peaks["stream_memmap_saa"])
+        _p(f"phase 13: MemmapSource A({m}, {n}) (.npy in a temporary directory, removed; page-cached after the "
+           f"save), saa once: {json.dumps(row)} (card: {self.smi})")
+        if not (row["bitwise_device_source"] and e < 1e-5 and e <= 100 * max(e_qr, 1e-12)):
+            raise AssertionError(f"memmap saa: {row}")
+        self.times["memmap"] = row
+        del p, res, ref
+        torch.cuda.empty_cache()
+
+    # ---- (f) -----------------------------------------------------------------
+    def session(self, A, b, x_true):
+        from repro_torch.streaming import ArraySource, StreamingSolver
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = A.shape
+        k = self.K_SOLVES
+        D = torch.randn(n, k, generator=gen, dtype=A.dtype, device=dev)
+        B = b[:, None] + A @ D
+        X_true = x_true[:, None] + D
+        Qa, Ra = torch.linalg.qr(A)
+        X_qr = torch.linalg.solve_triangular(Ra, Qa.T @ B, upper=True)
+        del Qa, Ra
+        torch.cuda.empty_cache()
+        e_qrs = [_rel(X_qr[:, j], X_true[:, j]) for j in range(k)]
+        src = ArraySource(A, tile_rows=self.TILE)
+        t = {}
+
+        def serve():
+            s, t["build"] = _sync_time(torch, lambda: StreamingSolver(src, self.seeded()))
+            out, walls = [], []
+            for j in range(k):
+                res, w = _sync_time(torch, lambda: s.solve(B[:, j]))
+                out.append(res)
+                walls.append(w)
+            t["solve"] = sorted(walls)[k // 2]
+            many, t["solve_many"] = _sync_time(torch, lambda: s.solve_many(B))
+            return s, out, many
+
+        s, singles, many = self.run_path("stream_session", serve)
+        stats = dict(s.stats)
+        cols = []
+        for j in range(k):
+            e1, e8 = _rel(singles[j].x, X_true[:, j]), _rel(many.x[:, j], X_true[:, j])
+            cols.append(dict(solve_itn=int(singles[j].itn), solve_err=e1, many_itn=int(many.itn),
+                             many_err=e8, qr_err=e_qrs[j]))
+            ok = lambda e: e < 1e-5 and e <= 100 * max(e_qrs[j], 1e-12)  # noqa: E731
+            if not (ok(e1) and ok(e8)):
+                raise AssertionError(f"stream session column {j}: {cols[-1]}")
+        launches = self.paths["stream_session"]
+        _p(f"phase 13: StreamingSolver at A({m}, {n}): columns {json.dumps(cols)}")
+        _p(f"phase 13: StreamingSolver stats {stats}; walls: build {t['build']:.4f} s, median solve "
+           f"{t['solve']:.4f} s, solve_many (k = {k}) {t['solve_many']:.4f} s; launches {launches} "
+           f"(card: {self.smi})")
+        if {key: stats[key] for key in ("sketches", "qr_factorizations", "solves")} != \
+                {"sketches": 1, "qr_factorizations": 1, "solves": 2 * k}:
+            raise AssertionError(f"the streaming session sketched or factored more than once: {stats}")
+        if launches["countsketch_apply"] != src.num_tiles * (k + 2):
+            raise AssertionError(f"the streaming session's B1 folds: {launches} (a tile each for A, each b, B)")
+        self.times["session"] = dict(stats=stats, **t)
+        del singles, many, D, B, X_true, X_qr, s
+        torch.cuda.empty_cache()
 
 # The device kernels each wrapper launches on the traced solves' routes
 # (f64 A with n = 1000, and the vector b), by name.

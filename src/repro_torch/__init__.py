@@ -5,10 +5,12 @@ A package of its own beside the JAX reference ``repro``: it imports
 mirrors ``repro.core``; ``repro_torch.kernels`` holds the hand-written
 Hopper kernels (CUDA C++ in ``csrc/``) that replace the reference's Pallas
 kernels, each beside its plain PyTorch version; ``repro_torch.obs`` the
-span tracer, the metrics registry and their exporters.  Entry points run on the
+span tracer, the metrics registry and their exporters; ``repro_torch.streaming``
+the row sources, the mergeable sketch accumulators and the out-of-core
+solvers (``stream_lstsq``, ``StreamingSolver``).  Entry points run on the
 card unless the caller passes ``device="cpu"``.
 """
-from . import convert, core, kernels, obs
+from . import convert, core, kernels, obs, streaming
 from .core import (
     Certificate,
     SketchedSolver,
@@ -23,9 +25,11 @@ from .core import (
     saa_sas_batch,
     sap_sas,
 )
+from .streaming import StreamingSolver, stream_lstsq
 
 __all__ = [
-    "convert", "core", "kernels", "obs", "Certificate", "SketchedSolver",
+    "convert", "core", "kernels", "obs", "streaming", "Certificate", "SketchedSolver",
+    "StreamingSolver", "stream_lstsq",
     "certify_solution", "fossils", "generate_problem", "iterative_sketching",
     "lsqr_dense", "lstsq", "qr_solve", "saa_sas", "saa_sas_batch", "sap_sas",
 ]

@@ -6,7 +6,8 @@ operator and the problem arrays.  These helpers take them as numpy arrays
 ``device`` (``None`` → ``cuda``), so a test can run both packages on the
 same S and the same problem.  Pass the converted operator as ``sketch=`` to
 ``SketchedFactor.build``, ``saa_sas`` or ``lstsq``.  ``sparse_from_reference`` takes a BCOO's
-entries to the port's ``SparseOperator``.
+entries to the port's ``SparseOperator``; ``source_from_reference`` a row
+source of ``repro.streaming`` to the port's, with the same tiling.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from .core.sketch import (
     _next_pow2,
 )
 from .kernels.common import key_to_u32
+from .streaming.sources import ArraySource, MemmapSource, ShardedSource
 
 __all__ = [
     "countsketch_from_reference",
@@ -36,6 +38,7 @@ __all__ = [
     "uniform_sparse_from_reference",
     "problem_from_reference",
     "sparse_from_reference",
+    "source_from_reference",
 ]
 
 
@@ -135,4 +138,28 @@ def sparse_from_reference(indices, data, shape, *, device=None) -> SparseOperato
         )
     return SparseOperator.from_entries(
         indices[:, 0], indices[:, 1], data, shape, device=device
+    )
+
+
+def source_from_reference(source, *, device=None):
+    """The port's row source for a reference ``ArraySource`` (its array as a
+    tensor on ``device``, with the same tile boundaries, an uneven
+    ``boundaries=`` tiling included), ``MemmapSource`` (the same file and
+    tiling) or ``ShardedSource`` (each shard converted), so both packages
+    stream the same tiles."""
+    name = type(source).__name__
+    if name == "ArraySource":
+        A = as_tensor(np.asarray(source.A), resolve_device(device))
+        offsets = [int(o) for o in source._offsets]
+        m, rows = A.shape[0], int(source.tile_rows)
+        if offsets == list(range(0, m, rows)) + [m]:
+            return ArraySource(A, tile_rows=rows)
+        return ArraySource(A, boundaries=offsets)
+    if name == "MemmapSource":
+        return MemmapSource(source.path, tile_rows=int(source.tile_rows))
+    if name == "ShardedSource":
+        return ShardedSource([source_from_reference(s, device=device) for s in source.shards])
+    raise TypeError(
+        f"no converter for a reference {name}: convert its array (ArraySource) "
+        "or its file (MemmapSource)"
     )

@@ -27,6 +27,11 @@ Algorithm 1, the forward-stable solvers and the certified tier:
 - ``session``  — ``SketchedSolver``: one sketch + QR served to many
   right-hand sides and row updates
 
+Row-streamed inputs live in the sibling ``repro_torch.streaming`` package;
+``stream_lstsq`` and ``StreamingSolver`` are re-exported here lazily (the
+streaming package imports this one), and ``lstsq`` on a row source
+delegates to ``stream_lstsq``.
+
 The remaining modules of ``repro.core`` are listed in ROADMAP queue A.
 """
 from . import (
@@ -107,4 +112,15 @@ __all__ = [
     "SKETCH_KINDS", "CountSketch", "GaussianSketch", "UniformDenseSketch",
     "SRHTSketch", "SparseSignSketch", "UniformSparseSketch", "StackedSketch",
     "AugmentedSketch", "sample_sketch",
+    "stream_lstsq", "StreamingSolver",
 ]
+
+
+def __getattr__(name):
+    # repro_torch.streaming imports this package at module scope, so these
+    # re-exports resolve lazily (PEP 562)
+    if name in ("stream_lstsq", "StreamingSolver"):
+        from ..streaming import solve as _streaming_solve
+
+        return getattr(_streaming_solve, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

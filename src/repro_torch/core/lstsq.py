@@ -20,9 +20,12 @@ method         solver
 ``accuracy="certified"`` is the adaptive tier: solve, certify the answer
 with ``repro_torch.core.certify``, and on a failed certificate escalate
 along :data:`CERTIFIED_LADDER`, growing the sketch by appended rows (the
-stored B = SA is extended, never recomputed).  Row sources (A9) and
-``cluster=`` (A11) raise ``NotImplementedError`` naming their ROADMAP
-slice.
+stored B = SA is extended, never recomputed).  A row source (anything
+with a ``tiles()`` method, ``repro_torch.streaming``) delegates to
+:func:`repro_torch.streaming.solve.stream_lstsq` (also re-exported here as
+``stream_lstsq``), whose two-pass solvers never hold A; there
+``accuracy="certified"`` becomes ``certify=True``.  ``cluster=`` (A11)
+raises ``NotImplementedError`` naming its ROADMAP slice.
 
 ``A`` is a dense matrix, a torch sparse tensor (COO, CSR or CSC), a
 duck-typed operator or any ``repro_torch.core.linop`` operator.  Selection
@@ -73,10 +76,20 @@ from .sap import sap_sas
 __all__ = [
     "lstsq",
     "select_method",
+    "stream_lstsq",
     "METHODS",
     "ACCURACIES",
     "TOL_SUPPORT",
 ]
+
+
+def __getattr__(name):
+    # lazy: repro_torch.streaming imports this package
+    if name == "stream_lstsq":
+        from ..streaming.solve import stream_lstsq
+
+        return stream_lstsq
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 METHODS = ("direct", "lsqr", "saa", "sap", "iterative", "fossils")
 ACCURACIES = ("fast", "balanced", "high", "certified")
@@ -370,7 +383,23 @@ def _lstsq_impl(
     if cluster is not None:
         raise _not_ported("cluster= (multi-worker solves)", "A11")
     if callable(getattr(A, "tiles", None)):
-        raise _not_ported("row-streamed inputs", "A9")
+        # Row-streamed (out-of-core) input: the two-pass streaming drivers.
+        # Lazy import (repro_torch.streaming imports this package).  A
+        # forced method composes with accuracy="certified" here: a stream
+        # has no escalation ladder, the certificate rides along.
+        from ..streaming.solve import stream_lstsq as _stream_lstsq
+
+        tol = {
+            k: v
+            for k, v in dict(atol=atol, btol=btol, steptol=steptol, iter_lim=iter_lim).items()
+            if v is not None
+        }
+        return _stream_lstsq(
+            A, b, key, method=method, sketch=sketch, sketch_size=sketch_size, reg=reg,
+            backend=backend, history=history, certify=accuracy == "certified",
+            certified_rtol=certified_rtol, certified_probes=certified_probes, device=device,
+            **tol,
+        )
 
     A_in = linop.as_operator(A, device=device)
     b = backend_lib.as_tensor(b, A_in.device, A_in.dtype)

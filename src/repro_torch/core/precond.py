@@ -18,7 +18,8 @@ identity rows exact); ``sketch=`` then names the kind of S or gives S
 itself (over the data rows) or the whole ``AugmentedSketch``.  Sparse and
 matrix-free A are sketched through ``apply_op`` in operator form, and
 ``whiten_mv``/``whiten_rmv`` take a block through ``matmat``/``rmatmat``.
-``build_streaming`` arrives with ROADMAP A9.
+``build_streaming`` builds the factor from a row-streamed A in one pass
+over its tiles (``repro_torch.streaming``), never holding A.
 
 Spans (``repro_torch.obs.trace``): ``factor.build`` (``sketch``, ``rows``,
 ``fused``) around each build, with ``sketch.apply`` and ``factor.qr``
@@ -211,6 +212,33 @@ class SketchedFactor(NamedTuple):
                 factor = cls.from_sketch(B)
                 obs_trace.maybe_block(factor.R)
         return factor, op, B
+
+    @classmethod
+    def build_streaming(
+        cls,
+        source,
+        key,
+        *,
+        sketch="clarkson_woodruff",
+        sketch_size: int | None = None,
+        backend: str = "auto",
+        device=None,
+    ):
+        """Build the factor from a row-streamed A: returns ``(factor, op)``.
+
+        ``source`` is anything ``repro_torch.streaming.as_source`` accepts
+        (a ``RowSource``, a tensor or numpy array, a ``.npy`` path).  One
+        pass over the tiles assembles B = SA through the mergeable
+        accumulators of ``repro_torch.streaming.accumulate``; the same
+        generator draws the same S as :meth:`build` on the materialized A,
+        so the factor is the same.  ``device=None`` means ``"cuda"``.
+        """
+        from ..streaming.solve import stream_sketch  # streaming imports core
+
+        B, op, _ = stream_sketch(
+            source, key, sketch=sketch, sketch_size=sketch_size, backend=backend, device=device,
+        )
+        return cls.from_sketch(B), op
 
     def extend(self, A, op, key, extra: int, *, B=None, backend: str = "auto"):
         """Grow the sketch by ``extra`` appended rows and re-QR: returns

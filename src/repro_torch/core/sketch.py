@@ -321,7 +321,15 @@ class GaussianSketch(_OperatorApply):
     slicing the stored matrix.  ``SketchedFactor.build`` draws that way on
     a CUDA device (``precond._operator_for``): at d = 4000, m = 2^16 the
     stored S would be 2.1 GB that kernel B4 never reads, and the result
-    depends only on the key.
+    depends only on the key.  The streaming drivers always draw that way.
+
+    ``apply_rows(tile, o)`` (a row tile of a streamed A starting at row o)
+    is kernel B4 with its column offset, ``fused_gaussian_sketch(tile, key,
+    d, col0=o)``: the kernel draws S[:, o : o + t] from the counters itself,
+    so a streamed Gaussian never regenerates S in plain tensor code on the
+    card.  ``restrict_cols`` with an arbitrary index list draws its columns
+    with the plain ``gaussian_cols_ref``, as the reference draws them with
+    jnp outside any Pallas kernel (``repro/core/sketch.py:310–312``).
     """
 
     S: torch.Tensor | None
@@ -366,15 +374,21 @@ class GaussianSketch(_OperatorApply):
         return _maybe_squeeze(self.as_dense().to(A2.dtype) @ A2, vec)
 
     def apply_rows(self, tile, row_offset: int, *, backend: str = "auto"):
-        del backend  # one (d, t) × (t, n) block product either way
+        """S[:, o : o + t]·tile: kernel B4 with ``col0 = o`` (its plain
+        version on the CPU); ``backend="reference"`` multiplies the slice
+        of the stored or regenerated S."""
         tile2, _ = _as_2d(backend_lib.as_tensor(tile, self.device))
+        if backend_lib.uses_kernels(backend):
+            return fused_gaussian_sketch(tile2, self.key, self.d, col0=int(row_offset))
         t = tile2.shape[0]
         cols = torch.arange(row_offset, row_offset + t, device=self.device)
         return self._cols(cols, tile2.dtype).to(tile2.dtype) @ tile2
 
     def restrict_cols(self, idx):
         """S[:, idx] as a stored ``UniformDenseSketch``: in the stored S's
-        dtype, or f64 when S is regenerated (as the reference)."""
+        dtype, or f64 when S is regenerated (as the reference), through the
+        plain ``gaussian_cols_ref`` (an arbitrary column list; the
+        reference's is a jnp draw outside any Pallas kernel)."""
         cols = torch.arange(self.m, device=self.device)[idx]
         S = self._cols(cols, torch.float64)
         return UniformDenseSketch(S=S, d=self.d, m=S.shape[1])

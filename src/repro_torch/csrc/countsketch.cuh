@@ -16,13 +16,22 @@
 // with a uniform weight per row.  A warp covers consecutive columns of one
 // bucket, so each row read is one coalesced segment.  Index arithmetic is
 // 64-bit (m*n exceeds 2^31 at the paper's size).
+//
+// Fold mode (kFold) is the streaming accumulator's: each (bucket, column)
+// sum starts from out[bucket, col], the state of the tiles folded so far,
+// instead of from 0, and goes on in row order.  Since 0 + a = a exactly, a
+// tile-by-tile fold is bitwise the one-launch apply over all rows, for any
+// tiling, and bitwise the reference's row-order .at[].add fold
+// (repro/streaming/accumulate.py:109-124).  It reads and writes the state
+// of every bucket the tile has an entry in (d*n at most) beside the tile's
+// t*n elements; a bucket with none is left as it stands, unread.
 #pragma once
 
 #include "common.cuh"
 
 namespace {
 
-template <typename T, typename Acc>
+template <typename T, typename Acc, bool kFold>
 __global__ void countsketch_csr_kernel(const T* __restrict__ A,
                                        const int32_t* __restrict__ rows,
                                        const T* __restrict__ sgn,
@@ -34,7 +43,8 @@ __global__ void countsketch_csr_kernel(const T* __restrict__ A,
   if (bucket >= d || col >= n) return;
   const int64_t lo = offsets[bucket];
   const int64_t hi = offsets[bucket + 1];
-  Acc acc = Acc(0);
+  if (kFold && lo == hi) return;  // no entry of this tile: the state stands
+  Acc acc = kFold ? out[bucket * n + col] : Acc(0);
 #pragma unroll 4
   for (int64_t j = lo; j < hi; ++j) {
     const int64_t r = rows[j];
@@ -50,7 +60,7 @@ template <typename T, typename Acc>
 cudaError_t launch_countsketch(const void* A, const void* rows,
                                const void* sgn, const void* offsets,
                                void* out, int64_t d, int64_t n,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, bool fold) {
   int tx = 1;
   while (tx < 32 && tx < n) tx *= 2;
   const int ty = 256 / tx;
@@ -59,7 +69,8 @@ cudaError_t launch_countsketch(const void* A, const void* rows,
   if (d > 0 && n > 0) {
     dim3 block(tx, ty);
     dim3 grid((unsigned)cdiv(d, ty), (unsigned)gy);
-    countsketch_csr_kernel<T, Acc><<<grid, block, 0, stream>>>(
+    auto kernel = fold ? countsketch_csr_kernel<T, Acc, true> : countsketch_csr_kernel<T, Acc, false>;
+    kernel<<<grid, block, 0, stream>>>(
         static_cast<const T*>(A), static_cast<const int32_t*>(rows),
         static_cast<const T*>(sgn), static_cast<const int64_t*>(offsets),
         static_cast<Acc*>(out), d, n);
@@ -68,20 +79,21 @@ cudaError_t launch_countsketch(const void* A, const void* rows,
 }
 
 // dtype code -> (input type, accumulator type): half inputs sum in f32.
+// fold: start each sum from out (the streaming accumulator's state).
 inline cudaError_t dispatch_countsketch(int dtype, const void* A,
                                         const void* rows, const void* sgn,
                                         const void* offsets, void* out,
                                         int64_t d, int64_t n,
-                                        cudaStream_t stream) {
+                                        cudaStream_t stream, bool fold = false) {
   switch (dtype) {
     case kF64:
-      return launch_countsketch<double, double>(A, rows, sgn, offsets, out, d, n, stream);
+      return launch_countsketch<double, double>(A, rows, sgn, offsets, out, d, n, stream, fold);
     case kF32:
-      return launch_countsketch<float, float>(A, rows, sgn, offsets, out, d, n, stream);
+      return launch_countsketch<float, float>(A, rows, sgn, offsets, out, d, n, stream, fold);
     case kBF16:
-      return launch_countsketch<__nv_bfloat16, float>(A, rows, sgn, offsets, out, d, n, stream);
+      return launch_countsketch<__nv_bfloat16, float>(A, rows, sgn, offsets, out, d, n, stream, fold);
     case kF16:
-      return launch_countsketch<__half, float>(A, rows, sgn, offsets, out, d, n, stream);
+      return launch_countsketch<__half, float>(A, rows, sgn, offsets, out, d, n, stream, fold);
     default:
       return cudaErrorInvalidValue;
   }

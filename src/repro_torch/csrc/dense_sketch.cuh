@@ -42,8 +42,8 @@
 //
 // Where the S tile of that loop comes from is the template argument Src:
 //  - MatrixTile (B6): S row-major in A's dtype, read once per n-block.
-//  - GaussianTile (B4): element (i, j) from threefry2x32(k0, k1, i, j) and
-//    Box-Muller in f32, times the f32 scale, then cast to A's dtype (bf16
+//  - GaussianTile (B4): element (i, j) from threefry2x32(k0, k1, i, col0 + j)
+//    and Box-Muller in f32, times the f32 scale, then cast to A's dtype (bf16
 //    A: S rounded to bf16, products summed in f32).  The counter is the
 //    reference's, so the values do not depend on the tiling.  Rows >= d
 //    and columns >= m are never generated.  S never reaches device
@@ -104,9 +104,14 @@ template <typename T>
 struct GaussianTile {
   uint32_t k0, k1;
   float scale;
+  // The counter column of A's row 0: a row tile of A starting at row col0
+  // meets the columns S[:, col0 : col0 + m] (the streaming accumulator's
+  // tiles).  0 for the whole of A (an initializer list that stops at scale
+  // leaves it 0); the wrapper keeps col0 + m <= 2^32.
+  uint32_t col0;
   template <typename Acc>
   __device__ __forceinline__ Acc at(int64_t i, int64_t j) const {
-    uint32_t x0 = (uint32_t)i, x1 = (uint32_t)j;
+    uint32_t x0 = (uint32_t)i, x1 = col0 + (uint32_t)j;
     threefry2x32(k0, k1, x0, x1);
     const float s = __fmul_rn(bits_to_gaussian(x0, x1), scale);
     return to_acc<Acc>(from_f32<T>(s));
@@ -247,28 +252,31 @@ inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S, const void* 
 // B4: an f64 matrix goes to the tensor-core engine with the generating
 // producer, clusters of gen_cluster(n) blocks, its sum over m cut into
 // `parts` slabs of `slab` rows (partials in `scratch` when parts > 1).
+// col0: A's row 0 meets counter column col0 (every route: the tensor-core
+// engine, the FMA tile kernel and the vector kernel read S through
+// GaussianTile::at).
 inline cudaError_t dispatch_fused_gaussian(int dtype, uint32_t k0, uint32_t k1, float scale,
                                            const void* A, void* out, void* scratch, int64_t d,
                                            int64_t m, int64_t n, int64_t slab, int64_t parts,
-                                           cudaStream_t stream) {
+                                           cudaStream_t stream, uint32_t col0 = 0) {
   switch (dtype) {
     case kF64:
       if (d > 0 && n > 1)
         return launch_dmma_gen_sketch<GaussianMma>(
-            GaussianTile<double>{k0, k1, scale}, static_cast<const double*>(A),
+            GaussianTile<double>{k0, k1, scale, col0}, static_cast<const double*>(A),
             static_cast<double*>(out), static_cast<double*>(scratch), d, m, n, slab, parts,
             gen_cluster(n, kSketchMmaTile), stream);
       return launch_dense_sketch<double, double>(
-          GaussianTile<double>{k0, k1, scale}, A, out, d, m, n, stream);
+          GaussianTile<double>{k0, k1, scale, col0}, A, out, d, m, n, stream);
     case kF32:
       return launch_dense_sketch<float, float>(
-          GaussianTile<float>{k0, k1, scale}, A, out, d, m, n, stream);
+          GaussianTile<float>{k0, k1, scale, col0}, A, out, d, m, n, stream);
     case kBF16:
       return launch_dense_sketch<__nv_bfloat16, float>(
-          GaussianTile<__nv_bfloat16>{k0, k1, scale}, A, out, d, m, n, stream);
+          GaussianTile<__nv_bfloat16>{k0, k1, scale, col0}, A, out, d, m, n, stream);
     case kF16:
       return launch_dense_sketch<__half, float>(
-          GaussianTile<__half>{k0, k1, scale}, A, out, d, m, n, stream);
+          GaussianTile<__half>{k0, k1, scale, col0}, A, out, d, m, n, stream);
     default:
       return cudaErrorInvalidValue;
   }

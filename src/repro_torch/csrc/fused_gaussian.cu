@@ -24,6 +24,17 @@ extern "C" int repro_fused_gaussian(int dtype, uint32_t k0, uint32_t k1, float s
                                       parts, static_cast<cudaStream_t>(stream));
 }
 
+// The same with A's rows meeting the counter columns col0 .. col0 + m - 1 of
+// S: a row tile of a streamed A (the streaming accumulator's Gaussian fold).
+// col0 = 0 is the entry above, bitwise.
+extern "C" int repro_fused_gaussian_cols(int dtype, uint32_t k0, uint32_t k1, uint32_t col0,
+                                         float scale, const void* A, void* out, void* scratch,
+                                         int64_t d, int64_t m, int64_t n, int64_t slab,
+                                         int64_t parts, void* stream) {
+  return (int)dispatch_fused_gaussian(dtype, k0, k1, scale, A, out, scratch, d, m, n, slab,
+                                      parts, static_cast<cudaStream_t>(stream), col0);
+}
+
 // Check entries, on no solver path.  repro_gaussian_engine runs B4's f64
 // engine on A (m, n), n >= 2, with clusters of `cluster` blocks and the
 // sum over m in one slab, so a run can time the design at C = 1 (each

@@ -35,6 +35,7 @@ from .countsketch import (
     countsketch_coo_plan,
     countsketch_coo_ref,
     countsketch_csr,
+    countsketch_fold_ref,
     countsketch_ref,
 )
 from .sketch_matmul import (
@@ -88,6 +89,7 @@ __all__ = [
     "countsketch_csr",
     "countsketch_gram",
     "countsketch_gram_ref",
+    "countsketch_fold_ref",
     "countsketch_ref",
     "fused_gaussian_ref",
     "fused_gaussian_sketch",

@@ -52,12 +52,16 @@ _F32 = ctypes.c_float
 _F64 = ctypes.c_double
 _SIGNATURES = {
     "repro_countsketch_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_countsketch_fold": [_I, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "repro_coo_scatter": [_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     "repro_panel_gram": [_I, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "repro_countsketch_gram": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "repro_sketch_matmul": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "repro_fused_gaussian": [
         _I, _U32, _U32, _F32, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
+    ],
+    "repro_fused_gaussian_cols": [
+        _I, _U32, _U32, _U32, _F32, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
     ],
     "repro_gaussian_engine": [_U32, _U32, _F32, _P, _P, _I64, _I64, _I64, _I, _P],
     "repro_gaussian_clusters": [_I, _P],

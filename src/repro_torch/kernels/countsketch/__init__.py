@@ -6,7 +6,7 @@ from .ops import (
     countsketch_coo_plan,
     countsketch_csr,
 )
-from .ref import countsketch_coo_ref, countsketch_ref
+from .ref import countsketch_coo_ref, countsketch_fold_ref, countsketch_ref
 
 __all__ = [
     "CooPlan",
@@ -16,5 +16,6 @@ __all__ = [
     "countsketch_coo_plan",
     "countsketch_coo_ref",
     "countsketch_csr",
+    "countsketch_fold_ref",
     "countsketch_ref",
 ]

@@ -23,6 +23,13 @@ or (d,); f64 and f32 inputs keep their dtype, bf16 and f16 inputs give f32;
 the weights are rounded to A's dtype.  A CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version of ``ref.py``.
 
+``out=`` is the fold mode of the streaming accumulator
+(``repro_torch.streaming.accumulate``): SA is added into the given (d, n)
+state, each (bucket, column) sum starting from the state's value and going
+on in row order (``countsketch_fold_ref`` on the CPU: the state's
+``index_add_``).  A tile-by-tile fold is then bitwise the apply over all
+rows, for any tiling.  On CUDA ``index_add_`` is atomic and never used.
+
 :func:`countsketch_coo_apply` is the coordinate scatter of the bucket
 sketches, their apply to a sparse A given by its entries (r, c, v)
 (``csrc/countsketch.cuh``, ``coo_scatter_kernel``).  It replaces no TPU
@@ -46,7 +53,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .ref import acc_dtype, coo_keys, countsketch_coo_ref, countsketch_ref
+from .ref import acc_dtype, coo_keys, countsketch_coo_ref, countsketch_fold_ref, countsketch_ref
 
 __all__ = [
     "countsketch_apply",
@@ -143,6 +150,19 @@ def _prepare(name, A, buckets, signs, d, csr, ndims):
     return code, A2, csr
 
 
+def _check_out(out, A, d: int) -> None:
+    """The fold mode's state: (d, n) — (d,) for a vector A — contiguous, in
+    A's accumulation dtype, on A's device."""
+    shape = (d,) if A.ndim == 1 else (d, A.shape[1])
+    if not isinstance(out, torch.Tensor) or tuple(out.shape) != shape:
+        raise ValueError(f"out must be a {shape} tensor, got {getattr(out, 'shape', out)}")
+    if out.dtype != acc_dtype(A.dtype) or out.device != A.device or not out.is_contiguous():
+        raise ValueError(
+            f"out must be contiguous {acc_dtype(A.dtype)} on {A.device}, got "
+            f"{out.dtype} on {out.device}"
+        )
+
+
 def countsketch_apply(
     A: torch.Tensor,
     buckets: torch.Tensor,
@@ -150,29 +170,40 @@ def countsketch_apply(
     d: int,
     *,
     csr: CountSketchCSR | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """SA for the bucket sketch (buckets, signs), through kernel B1 on CUDA.
 
     ``buckets``/``signs`` are (m,) or (k, m) (see the module docstring);
     ``csr`` is the operator's cached :func:`countsketch_csr` for A's dtype
-    and device; it is built here when not given.
+    and device; it is built here when not given.  With ``out`` (the fold
+    mode) SA is added into that state in place, and ``out`` is returned.
     """
     prepared = _prepare("countsketch_apply", A, buckets, signs, d, csr, (1, 2))
+    if out is not None:
+        _check_out(out, A, d)
     if prepared is None:
-        return countsketch_ref(A, buckets, signs, d)
+        if out is None:
+            return countsketch_ref(A, buckets, signs, d)
+        return countsketch_fold_ref(out.view(d, -1), A, buckets, signs).view(out.shape)
     code, A2, csr = prepared
     n = A2.shape[1]
-    out = torch.empty((d, n), dtype=acc_dtype(A.dtype), device=A.device)
+    if out is None:
+        dest, entry = torch.empty((d, n), dtype=acc_dtype(A.dtype), device=A.device), "repro_countsketch_apply"
+    else:
+        dest, entry = out, "repro_countsketch_fold"
     lib = _build.load()
     with torch.cuda.device(A.device):
-        err = lib.repro_countsketch_apply(
+        err = getattr(lib, entry)(
             code, A2.data_ptr(), csr.rows.data_ptr(), csr.signs.data_ptr(),
-            csr.offsets.data_ptr(), out.data_ptr(), d, n,
+            csr.offsets.data_ptr(), dest.data_ptr(), d, n,
             _build.stream_ptr(A.device),
         )
     _build.check(err, "countsketch_apply")
     countsketch_apply.launches += 1
-    return out[:, 0] if A.ndim == 1 else out
+    if out is not None:
+        return out
+    return dest[:, 0] if A.ndim == 1 else dest
 
 
 countsketch_apply.launches = 0

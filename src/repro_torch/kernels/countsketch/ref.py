@@ -10,6 +10,10 @@ is rounded on its own in both, so the two agree bitwise in f64 and f32.  On
 a CUDA tensor ``index_add_`` uses atomics and its order varies from run to
 run.
 
+``countsketch_fold_ref`` is the plain version of B1's fold mode (the
+streaming accumulator's): the same adds, into a given state instead of
+into zeros.
+
 ``countsketch_coo_ref`` is the plain version of the coordinate scatter,
 the bucket sketches' apply to a sparse A given by its entries (r, c, v):
 each entry adds w_j(r)·v to the cell (h_j(r), c), for j = 0..k−1.  It is
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["countsketch_ref", "countsketch_coo_ref", "coo_keys", "acc_dtype"]
+__all__ = ["countsketch_ref", "countsketch_fold_ref", "countsketch_coo_ref", "coo_keys", "acc_dtype"]
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -35,13 +39,21 @@ def countsketch_ref(
     """SA for the bucket sketch (buckets, signs), each (m,) or (k, m); A is
     (m, n) or (m,).  The weights are rounded to A's dtype first, as the
     kernel's CSR holds them (exact for ±1)."""
-    acc = acc_dtype(A.dtype)
-    vec = A.ndim == 1
-    A2 = (A[:, None] if vec else A).to(acc)
-    out = torch.zeros((d, A2.shape[1]), dtype=acc, device=A.device)
+    n = 1 if A.ndim == 1 else A.shape[1]
+    out = torch.zeros((d, n), dtype=acc_dtype(A.dtype), device=A.device)
+    countsketch_fold_ref(out, A, buckets, signs)
+    return out[:, 0] if A.ndim == 1 else out
+
+
+def countsketch_fold_ref(
+    out: torch.Tensor, A: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor
+) -> torch.Tensor:
+    """out += SA in place, the adds in :func:`countsketch_ref`'s order: out
+    is (d, n) in A's accumulation dtype, A (m, n) or (m,)."""
+    A2 = (A[:, None] if A.ndim == 1 else A).to(out.dtype)
     for h, s in zip(buckets.reshape(-1, A2.shape[0]), signs.reshape(-1, A2.shape[0])):
-        out.index_add_(0, h, s.to(A.dtype).to(acc)[:, None] * A2)
-    return out[:, 0] if vec else out
+        out.index_add_(0, h, s.to(A.dtype).to(out.dtype)[:, None] * A2)
+    return out
 
 
 def coo_keys(rows, cols, n: int, buckets) -> torch.Tensor:

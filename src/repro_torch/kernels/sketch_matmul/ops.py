@@ -21,6 +21,11 @@ to A's dtype before the product (``sketch_matmul`` casts it when the
 dtypes differ), as the reference's fused route does.  A CUDA tensor
 launches the kernel or raises; a CPU tensor runs the plain version of
 ``ref.py``.  ``wrapper.launches`` counts kernel launches only.
+
+``fused_gaussian_sketch(A, key, d, col0=o)`` is B4 on a row tile of a
+streamed A that starts at row o: the kernel draws the counter pair
+(i, o + j) for the tile's row j (C entry ``repro_fused_gaussian_cols``, on
+every route), so the tile's contribution is formed with S never stored.
 """
 from __future__ import annotations
 
@@ -108,25 +113,35 @@ def sketch_matmul(S: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
 sketch_matmul.launches = 0
 
 
-def fused_gaussian_sketch(A: torch.Tensor, key, d: int, *, scale=None) -> torch.Tensor:
+def fused_gaussian_sketch(A: torch.Tensor, key, d: int, *, scale=None, col0: int | None = None) -> torch.Tensor:
     """scale·G·A with G ~ N(0, 1)^{d×m} from ``key = (k0, k1)``, generated
     inside kernel B4 on CUDA; ``scale=None`` means 1/√d.  G·scale is formed
-    in f32 and cast to A's dtype."""
+    in f32 and cast to A's dtype.
+
+    ``col0`` is the counter column that A's row 0 meets: A is then the row
+    tile starting at row ``col0`` of a larger A, and the result its
+    contribution (1/√d)·G[:, col0 : col0 + m]·A, S never formed (the
+    streaming accumulator's Gaussian fold; ``GaussianSketch.apply_rows``).
+    ``None`` is the whole-A entry; ``col0 = 0`` gives its bits."""
     prepared = _prepare("fused_gaussian_sketch", A, (1, 2))
     k0, k1 = _check_key(key, d)
+    if col0 is not None and not 0 <= col0 <= _U32 - A.shape[0]:
+        raise ValueError(f"col0 = {col0}: the counter columns col0 .. col0 + m must stay below 2^32")
     if prepared is None:
-        return fused_gaussian_ref(A, (k0, k1), d, scale)
+        return fused_gaussian_ref(A, (k0, k1), d, scale, col0=col0 or 0)
     code, A2 = prepared
     m, n = A2.shape
     out = torch.empty((d, n), dtype=acc_dtype(A.dtype), device=A.device)
     split = gaussian_split(A.dtype, d, m, n, sm_count(A.device))
     scratch = scratch_for([split], A.device)
     lib = _build.load()
+    tail = (A2.data_ptr(), out.data_ptr(), _build.ptr(scratch), d, m, n, split.slab, split.parts,
+            _build.stream_ptr(A.device))
     with torch.cuda.device(A.device):
-        err = lib.repro_fused_gaussian(
-            code, k0, k1, default_scale(d, scale), A2.data_ptr(), out.data_ptr(),
-            _build.ptr(scratch), d, m, n, split.slab, split.parts, _build.stream_ptr(A.device),
-        )
+        if col0 is None:
+            err = lib.repro_fused_gaussian(code, k0, k1, default_scale(d, scale), *tail)
+        else:
+            err = lib.repro_fused_gaussian_cols(code, k0, k1, int(col0), default_scale(d, scale), *tail)
     _build.check(err, "fused_gaussian_sketch")
     fused_gaussian_sketch.launches += 1
     return out[:, 0] if A.ndim == 1 else out

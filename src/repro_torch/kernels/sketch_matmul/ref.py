@@ -81,10 +81,11 @@ def gaussian_matrix_ref(k0, k1, d, m, dtype=torch.float32, *, col_offset=0, devi
     return gaussian_cols_ref(k0, k1, d, cols, dtype)
 
 
-def fused_gaussian_ref(A: torch.Tensor, key, d: int, scale=None) -> torch.Tensor:
-    """scale·G·A with G the (d, m) Gaussian stream of ``key = (k0, k1)``;
-    ``scale=None`` means 1/√d.  G·scale is formed in f32, then cast."""
+def fused_gaussian_ref(A: torch.Tensor, key, d: int, scale=None, *, col0: int = 0) -> torch.Tensor:
+    """scale·G·A with G the (d, m) Gaussian stream of ``key = (k0, k1)``
+    from counter column ``col0`` on; ``scale=None`` means 1/√d.  G·scale is
+    formed in f32, then cast."""
     k0, k1 = key
-    S = gaussian_matrix_ref(k0, k1, d, A.shape[0], device=A.device)
+    S = gaussian_matrix_ref(k0, k1, d, A.shape[0], col_offset=col0, device=A.device)
     S.mul_(default_scale(d, scale))
     return sketch_matmul_ref(S, A)

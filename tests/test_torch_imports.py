@@ -54,6 +54,14 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_the_scan_covers_every_package():
+    mods = _port_modules()
+    for pkg in ("core", "kernels", "obs", "streaming"):
+        assert f"repro_torch.{pkg}" in mods, pkg
+    assert {"repro_torch.streaming.sources", "repro_torch.streaming.accumulate",
+            "repro_torch.streaming.solve"} <= set(mods)
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -115,6 +123,7 @@ def _entry_points():
         saa_sas,
     )
     from repro_torch.kernels import sketch_qr, tsqr
+    from repro_torch.streaming import ArraySource, StreamingSolver, stream_lstsq, stream_sketch
 
     A = np.random.default_rng(0).standard_normal((200, 5))
     b = A[:, 0].copy()
@@ -173,6 +182,13 @@ def _entry_points():
         "lstsq_reg": lambda: lstsq(A, b, 0, reg=0.1),
         "lstsq_sparse": lambda: lstsq(A_cpu.to_sparse(), b, 0),
         "SketchedSolver_reg": lambda: SketchedSolver(A, 0, reg=0.1),
+        "stream_lstsq": lambda: stream_lstsq(A, b, 0),
+        "stream_lstsq_cpu_tensor": lambda: stream_lstsq(ArraySource(A_cpu), b, 0, method="saa"),
+        "stream_sketch": lambda: stream_sketch(A, 0),
+        "StreamingSolver": lambda: StreamingSolver(A, 0),
+        "SketchedFactor.build_streaming": lambda: SketchedFactor.build_streaming(A, 0),
+        "lstsq_row_source": lambda: lstsq(ArraySource(A), b, 0),
+        "source_from_reference": lambda: convert.source_from_reference(ArraySource(A)),
     }
 
 

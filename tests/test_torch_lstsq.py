@@ -24,6 +24,7 @@ from repro.core import sketch as jsketch  # noqa: E402
 from repro.core.precond import default_sketch_size  # noqa: E402
 from repro_torch.convert import countsketch_from_reference, problem_from_reference  # noqa: E402
 from repro_torch.core import generate_problem, lstsq, qr_solve, select_method  # noqa: E402
+from repro_torch.streaming import ArraySource, RowSource  # noqa: E402
 
 CPU = "cpu"
 M, N = 4000, 64
@@ -156,11 +157,16 @@ def test_tolerance_audit_like_reference(prob):
     assert res.method == "direct"
 
 
-class _RowSource:
-    shape = (100, 4)
+class _RowSource(RowSource):
+    """A row source with a cluster engine's hook (the cluster slice's)."""
+
+    shape, dtype = (100, 4), torch.float64
 
     def tiles(self):
         return iter(())
+
+    def cluster_sketch(self, op, rhs=None, backend="auto"):
+        raise AssertionError("never called")
 
 
 @pytest.mark.parametrize(
@@ -234,8 +240,13 @@ def test_forward_stable_and_certified_calls_reach_truth(big, kw, method):
 
 
 def test_unported_inputs_raise(prob):
-    with pytest.raises(NotImplementedError, match="A9"):
+    """A row source delegates to the streaming solvers since A9
+    (tests/test_torch_streaming.py); what it reaches of the cluster slice
+    raises, naming A11."""
+    with pytest.raises(NotImplementedError, match="A11"):
         lstsq(_RowSource(), np.zeros(100), 0, device=CPU)
+    with pytest.raises(NotImplementedError, match="A11"):
+        lstsq(ArraySource(np.zeros((100, 4))), np.zeros(100), 0, cluster=object(), device=CPU)
 
 
 def test_sparse_input_solves(big):
