@@ -107,6 +107,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    {1, 1, 16}).  The streamed runs pass through ``_NoPlain``: a plain
    version, ``index_add_`` or ``torch.cuda.synchronize`` reached there on
    the card fails the run.
+14. serving (class ``_Phase14``, last, on problems of its own): two
+   tenants at m = 2^20, n = 1000, κ = 1e4, β = 1e-6 with 64 right-hand
+   sides each, one ``SolveService`` (24 GiB cache, 2 ms window, rtol
+   1e-6): the digest of a full A (GB/s) and its memo hit, an in-place
+   write changing a fingerprint; a closed loop of 64 requests cold and
+   warm (one batch each, certified, 4 columns against the QR of A) beside
+   a per-request certified ``lstsq``; ``prewarm`` and an open loop of
+   Poisson arrivals at 50/s for 4 s (p50/p99, solves/s, hit rate 1.0,
+   occupancy); 256 small problems through the shape buckets (each within
+   1e-10 of its own QR); an expired deadline, a request at rtol 1e-13
+   through the slow path; ``update_rows`` of 4096 rows re-keying the
+   session and a request on the updated A answered by it.  Each part runs
+   through ``_NoPlain`` with B1's launches held to the count the code
+   implies, and prints its peak device memory.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -1270,6 +1284,12 @@ def main() -> int:
     del p9, res9, op9, B9
     torch.cuda.empty_cache()
 
+    # ---- phase 14: serving, last, on problems of its own -------------------
+    phase14 = _Phase14(torch, dev, smi, paths)
+    _, t14 = _sync_time(torch, phase14.run)
+    _p(f"phase 14: {t14:.1f} s")
+    torch.cuda.empty_cache()
+
     # Every kernel of KERNELS: its source, the TPU kernel it replaces, the
     # path whose launches it reports, and its times.
     table = {
@@ -1305,6 +1325,8 @@ def main() -> int:
             max_abs_err=max(err, errs[name]), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
         ))
+        if name == "countsketch_apply":  # phase 14's serving parts, each counted on its own
+            rows[-1]["serve_launches"] = {part: v["launches"] for part, v in phase14.b1.items()}
     _p(f"paths (launches per path) {json.dumps(paths)}")
     _p(smi)
     _p(json.dumps({"kernels": rows}))
@@ -2857,6 +2879,478 @@ class _Phase13:
         self.times["session"] = dict(stats=stats, **t)
         del singles, many, D, B, X_true, X_qr, s
         torch.cuda.empty_cache()
+
+class _Phase14:
+    """Phase 14: serving (``repro_torch.serve``) at the paper's size.
+
+    Two tenants, each an A (M, N) f64 at κ = 1e4, β = 1e-6 with a pool of
+    K right-hand sides (``benchmarks/serve_bench.py:_make_problem``'s
+    regime), served by one ``SolveService`` (CACHE_BYTES, max_delay_s
+    0.002, rtol 1e-6):
+
+    1. the digest of tenant 1's A (ms, GB/s), a memo hit under 1 ms, and
+       an in-place write on a (SMALL_M, N) card tensor changing the
+       fingerprint, the saved value restoring it;
+    2. a closed loop of K session requests, cold (one batch, one miss);
+    3. the same K requests warm (one batch, a hit; median of 3) beside a
+       per-request certified ``lstsq``;
+    4. ``prewarm`` of both tenants (tenant 2 by ``token=``/``tenant=``) and
+       an open loop of Poisson arrivals at RATE_HZ for DURATION_S on the
+       pump thread (max_batch OPEN_BATCH);
+    5. N_SMALL small problems through the bucket path (``mode="auto"``),
+       each within 1e-10 of the QR of its own augmented problem, and one
+       bucket's batched QR timed beside a loop of per-problem calls;
+    6. an expired deadline, and two requests through the slow path, each
+       with its B1 launches held to a replay of the same certified
+       ``lstsq`` on the same derived generator: one at SLOW_RTOL, which
+       the slow path must answer (ok, certified, within 10 × its bound of
+       the QR solution), and one at TIGHT_RTOL, which it answers or
+       rejects with the reference's reason;
+    7. ``cache.update_rows`` of DRIFT_ROWS rows of tenant 1 re-keying the
+       session, and a request on the updated A answered by it.
+
+    Each part's service calls pass through ``_NoPlain`` and are counted as
+    a path of their own; B1's launches are held to one per session build
+    on A and one per dispatched session batch (prewarm: one per width of
+    its ladder), plus the slow path's."""
+
+    M, N = 2**20, 1000
+    SMALL_M = 2**16
+    SEED = 1401
+    K = 64
+    RTOL = 1e-6
+    # below the ≈1.2e-12 relative bound the session's batches certify in
+    # this regime, so both requests need the slow path; SLOW_RTOL is above
+    # the ≈1.3e-13 its certified ladder reaches, TIGHT_RTOL below it
+    SLOW_RTOL = 5e-13
+    TIGHT_RTOL = 1e-13
+    CACHE_BYTES = 24 << 30
+    RATE_HZ, DURATION_S, OPEN_BATCH = 50.0, 4.0, 32
+    N_SMALL = 256
+    DRIFT_ROWS = 4096
+
+    def __init__(self, torch, dev, smi, paths):
+        self.torch, self.dev, self.smi, self.paths = torch, dev, smi, paths
+        self.b1, self.peaks, self.walls = {}, {}, {}
+        self.gen = torch.Generator(device=dev).manual_seed(self.SEED)
+
+    def problem(self):
+        """(A, RHS pool) in serve_bench's regime, on the card."""
+        from repro_torch.core import generate_problem
+
+        torch, gen = self.torch, self.gen
+        A = generate_problem(gen, self.M, self.N, cond=1e4, beta=1e-6, device=self.dev).A
+        X = torch.randn((self.N, self.K), generator=gen, dtype=A.dtype, device=self.dev)
+        R = torch.randn((self.M, self.K), generator=gen, dtype=A.dtype, device=self.dev)
+        P = A @ (X / X.norm(dim=0)) + 1e-6 * R / R.norm(dim=0)
+        del X, R
+        return A, P
+
+    def counted(self, name, fn, expected):
+        """``fn()`` through ``_NoPlain`` as a path of its own; hold B1's
+        launches to ``expected`` (a number, or a function of ``fn``'s
+        result) and keep the part's peak device memory."""
+        from repro_torch.kernels import KERNELS, countsketch_apply, reset_launches
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with _NoPlain(torch):
+            out = fn()
+        torch.cuda.synchronize()
+        self.paths[f"serve_{name}"] = {f.__name__: f.launches for f in KERNELS}
+        self.peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        launches = countsketch_apply.launches
+        want = expected(out) if callable(expected) else expected
+        self.b1[name] = dict(launches=launches, expected=want)
+        if launches != want:
+            raise AssertionError(f"phase 14 {name}: B1 launched {launches} times, the code implies {want}")
+        others = {k: v for k, v in self.paths[f"serve_{name}"].items() if v and k != "countsketch_apply"}
+        if others:
+            raise AssertionError(f"phase 14 {name}: kernels off the CountSketch path launched: {others}")
+        return out
+
+    @staticmethod
+    def certified(resps, rtol, what):
+        for r in resps:
+            c = r.certificate
+            if not r.ok or c is None or not bool(c.passed) or float(c.target) > rtol * 1.001:
+                raise AssertionError(f"phase 14 {what}: a response without a passing certificate "
+                                     f"(status {r.status}, reason {r.reason}, path {r.path})")
+
+    def qr_gate(self, A, B, resps, what):
+        """‖x − x_qr‖ ≤ 10 × the certificate's bound for each column of B."""
+        torch = self.torch
+        Q, R = torch.linalg.qr(A)
+        X_qr = torch.linalg.solve_triangular(R, Q.T @ B, upper=True).cpu()
+        del Q, R
+        torch.cuda.empty_cache()
+        gaps = []
+        for j, r in enumerate(resps):
+            gap, bound = float((r.x - X_qr[:, j]).norm()), float(r.certificate.error_bound)
+            gaps.append(dict(gap=gap, bound=bound, rel_bound=float(r.certificate.rel_error_bound)))
+            if not gap <= 10 * bound:
+                raise AssertionError(f"phase 14 {what}: column {j}: ‖x − x_qr‖ {gap} > 10 × bound {bound}")
+        return gaps
+
+    def run(self):
+        import importlib
+
+        from repro_torch.serve import SolveService
+
+        torch = self.torch
+        fp_mod = importlib.import_module("repro_torch.serve.fingerprint")
+        A1, P1 = self.problem()
+        torch.cuda.synchronize()
+        svc = SolveService(self.SEED, cache_bytes=self.CACHE_BYTES, max_batch=self.K,
+                           max_delay_s=0.002, default_rtol=self.RTOL, device=self.dev)
+        self.fingerprint(fp_mod, A1)
+        self.closed(svc, A1, P1)
+        A2, P2 = self.problem()
+        self.open_loop(svc, A1, P1, A2, P2)
+        fp2 = fp_mod.fingerprint(A2, sketch=svc.sketch, sketch_size=svc._resolve_sketch_size(self.M, self.N),
+                                 token="t2-v1", tenant="tenant-2")
+        svc.cache.invalidate(fp2)
+        del A2, P2
+        torch.cuda.empty_cache()
+        self.buckets(svc)
+        self.rejections(svc, A1, P1)
+        self.drift(svc, fp_mod, A1, P1)
+        st = svc.stats()
+        _p(f"phase 14: service stats {json.dumps({k: v for k, v in st.items() if k != 'cache'})}; cache "
+           f"{json.dumps({k: v for k, v in st['cache'].items() if k != 'per_entry'})}")
+        _p(f"phase 14: B1 launches by part (each held to the count the code implies) {json.dumps(self.b1)}")
+        _p(f"phase 14: peak device memory by part (GiB) {json.dumps(self.peaks)} (card: {self.smi})")
+
+    def fingerprint(self, fp_mod, A):
+        torch = self.torch
+        digest, t_cold = self._host_time(lambda: fp_mod.digest_array(A))
+        again, t_memo = self._host_time(lambda: fp_mod.digest_array(A))
+        if again != digest or t_memo >= 1e-3:
+            raise AssertionError(f"phase 14: second digest of the same tensor: {t_memo * 1e3} ms, equal {again == digest}")
+        small = torch.randn((self.SMALL_M, self.N), generator=self.gen, dtype=torch.float64, device=self.dev)
+        fp0 = fp_mod.fingerprint(small)
+        saved = small[0, 0].clone()
+        small[0, 0] += 1.0
+        fp1 = fp_mod.fingerprint(small)
+        small[0, 0] = saved
+        fp2 = fp_mod.fingerprint(small)
+        if fp1 == fp0 or fp2 != fp0:
+            raise AssertionError("phase 14: an in-place write did not change the fingerprint, or the restored value "
+                                 "did not give it back")
+        gbs = A.numel() * A.element_size() / t_cold / 1e9
+        self.walls["digest_s"] = t_cold
+        # the digest's two halves apart, on its first GiB: the chunked
+        # device→host copies, and BLAKE2b over bytes already on the host
+        import hashlib
+
+        head = A.reshape(-1)[: (1 << 30) // A.element_size()]
+        step = fp_mod._CHUNK_BYTES // A.element_size()
+        chunks, t_d2h = self._host_time(lambda: [head[i:i + step].cpu().numpy() for i in range(0, head.numel(), step)])
+        _, t_hash = self._host_time(lambda: [hashlib.blake2b(c, digest_size=16) for c in chunks])
+        del chunks
+        _p(f"phase 14: digest_array of A{tuple(A.shape)} f64 on the card: {t_cold * 1e3:.1f} ms "
+           f"({gbs:.3f} GB/s, device→host in {fp_mod._CHUNK_BYTES >> 20} MiB chunks + BLAKE2b-128; on 1 GiB "
+           f"apart: the copies {2**30 / t_d2h / 1e9:.3f} GB/s, the hash {2**30 / t_hash / 1e9:.3f} GB/s); memo hit "
+           f"{t_memo * 1e3:.4f} ms; in-place A[0, 0] += 1 on A({self.SMALL_M}, {self.N}) changed the "
+           f"fingerprint, the saved value restored it (card: {self.smi})")
+
+    @staticmethod
+    def _host_time(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def closed(self, svc, A, P):
+        from repro_torch.core import lstsq
+
+        torch = self.torch
+        K, rtol = self.K, self.RTOL
+
+        def burst():
+            futs = [svc.submit(A, P[:, j], certified_rtol=rtol, mode="session") for j in range(K)]
+            svc.flush()
+            return [f.result(timeout=600) for f in futs]
+
+        def cold():
+            return self._host_time(burst)
+
+        before = svc.stats()
+        resps, t_cold = self.counted("closed_cold", cold, 2)  # the build on A, the batch
+        after = svc.stats()
+        self.certified(resps, rtol, "closed loop, cold")
+        if (after["session_batches"] - before["session_batches"], after["cache"]["misses"],
+                any(r.cache_hit for r in resps), {r.batch_size for r in resps}) != (1, 1, False, {K}):
+            raise AssertionError(f"phase 14: the cold burst was not one batch on one miss: {after}")
+        gaps = self.qr_gate(A, P[:, :4], resps[:4], "closed loop, cold")
+        itn = sorted({int(r.result.itn) for r in resps})
+        _p(f"phase 14: closed loop cold: {K} requests, one batch, one miss, every certificate passed at rtol "
+           f"{rtol:g}; itn {itn}; 4 columns against the QR of A: {json.dumps(gaps)}")
+
+        walls = []
+        for i in range(3):
+            if i == 0:
+                resps, w = self.counted("closed_warm", cold, 1)  # the batch
+            else:
+                with _NoPlain(torch):
+                    resps, w = cold()
+            walls.append(w)
+            self.certified(resps, rtol, "closed loop, warm")
+            if not all(r.cache_hit for r in resps) or {r.batch_size for r in resps} != {K}:
+                raise AssertionError("phase 14: a warm burst missed the cache or split")
+        t_warm = sorted(walls)[1]
+        per = []
+        for i in range(3):
+            res, w = _sync_time(torch, lambda: lstsq(
+                A, P[:, 0], torch.Generator(device=self.dev).manual_seed(i), accuracy="certified",
+                certified_rtol=rtol))
+            if not bool(res.certificate.passed):
+                raise AssertionError("phase 14: the per-request certified lstsq failed its certificate")
+            per.append(w)
+        t_per = sorted(per)[1]
+        self.walls.update(closed_cold_s=t_cold, closed_warm_s=t_warm, per_request_s=t_per)
+        _p(f"phase 14: closed loop walls ({K} requests): cold {t_cold:.4f} s, warm {t_warm:.4f} s (median of 3: "
+           f"{', '.join(f'{w:.4f}' for w in walls)}); per-request lstsq(accuracy='certified', certified_rtol="
+           f"{rtol:g}) median of 3 {t_per:.4f} s (method {res.method}); speedup {K} × per-request / warm "
+           f"{K * t_per / t_warm:.1f}x, / cold {K * t_per / t_cold:.1f}x (card: {self.smi})")
+
+    def open_loop(self, svc, A1, P1, A2, P2):
+        import numpy as np
+
+        t2 = dict(token="t2-v1", tenant="tenant-2")
+        widths = self.OPEN_BATCH.bit_length() - 1  # the ladder 2, 4, ..., OPEN_BATCH
+        svc.sessions.max_batch = self.OPEN_BATCH  # the closed loops ran at K
+
+        def prewarm():
+            svc.prewarm(A1)
+            svc.prewarm(A2, **t2)
+
+        # tenant 1 is cached: a solve and the ladder; tenant 2 adds its build
+        _, t_pre = self._host_time(lambda: self.counted("prewarm", prewarm, 2 * (1 + widths) + 1))
+        rng = np.random.default_rng(self.SEED)
+        n_req = int(self.RATE_HZ * self.DURATION_S)
+        gaps = rng.exponential(1.0 / self.RATE_HZ, n_req)
+        tenants = [(A1, P1, {}), (A2, P2, t2)]
+        before = svc.stats()
+        pending = []
+
+        def loop():
+            futs = []
+            svc.start(poll_s=2e-4)
+            try:
+                t0 = time.perf_counter()
+                t_next = 0.0
+                for i in range(n_req):
+                    t_next += gaps[i]
+                    lag = t_next - (time.perf_counter() - t0)
+                    if lag > 0:
+                        time.sleep(lag)
+                    A, P, kw = tenants[int(rng.integers(2))]
+                    futs.append(svc.submit(A, P[:, int(rng.integers(self.K))], certified_rtol=self.RTOL,
+                                           mode="session", **kw))
+                    pending.append(svc.sessions.pending)
+                t_sent = time.perf_counter() - t0
+                resps = [f.result(timeout=600) for f in futs]
+                wall = time.perf_counter() - t0
+            finally:
+                svc.stop()
+            return resps, wall, t_sent
+
+        def batches(out):
+            after = svc.stats()
+            if after["slow_path"] != before["slow_path"]:
+                raise AssertionError("phase 14: the open loop took the slow path")
+            return after["session_batches"] - before["session_batches"]
+
+        resps, wall, t_sent = self.counted("open_loop", loop, batches)
+        after = svc.stats()
+        self.certified(resps, self.RTOL, "open loop")
+        hits = after["cache"]["hits"] - before["cache"]["hits"]
+        misses = after["cache"]["misses"] - before["cache"]["misses"]
+        rejected = after["rejected"] - before["rejected"]
+        if rejected or misses or hits == 0:
+            raise AssertionError(f"phase 14: open loop: {rejected} rejected, {hits} hits, {misses} misses")
+        lat = np.sort([r.latency_s for r in resps])
+        sizes = np.array([r.batch_size for r in resps])
+        n_batches = after["session_batches"] - before["session_batches"]
+        mean_occ = float(n_req / n_batches / self.OPEN_BATCH)
+        half = n_req // 2
+        self.walls.update(open_p50_s=float(np.percentile(lat, 50)), open_p99_s=float(np.percentile(lat, 99)),
+                          open_solves_per_s=n_req / wall)
+        _p(f"phase 14: prewarm of both tenants (tenant 2 by token, no digest) {t_pre:.3f} s")
+        _p(f"phase 14: open loop: {n_req} Poisson arrivals at {self.RATE_HZ:g}/s over {t_sent:.3f} s across 2 "
+           f"tenants, max_batch {self.OPEN_BATCH}: {n_req / wall:.2f} solves/s achieved (last response at "
+           f"{wall:.3f} s); latency p50 {np.percentile(lat, 50) * 1e3:.1f} ms p99 "
+           f"{np.percentile(lat, 99) * 1e3:.1f} ms max {lat[-1] * 1e3:.1f} ms; hit rate "
+           f"{hits / (hits + misses):.3f}; {n_batches} batches, mean occupancy {mean_occ:.3f} (mean batch "
+           f"{n_req / n_batches:.2f}, per-request batch size median {int(np.median(sizes))} max {sizes.max()}); "
+           f"queue at each arrival: median {int(np.median(pending))} (first half {int(np.median(pending[:half]))}, "
+           f"second half {int(np.median(pending[half:]))}) max {max(pending)}, last {pending[-1]} "
+           f"(card: {self.smi})")
+
+    def buckets(self, svc):
+        import numpy as np
+
+        from repro_torch.serve import bucket_shape, pad_problem, solve_bucket
+
+        torch, dev = self.torch, self.dev
+        rng = np.random.default_rng(self.SEED + 5)
+        probs = []
+        for i in range(self.N_SMALL):
+            m, n = int(rng.integers(40, 401)), int(rng.integers(3, 25))
+            A = torch.as_tensor(rng.standard_normal((m, n)), device=dev)
+            b = torch.as_tensor(rng.standard_normal(m), device=dev)
+            probs.append((A, b, 0.25 if i % 2 else None))
+        keys = {}
+        for A, b, _ in probs:
+            keys.setdefault(bucket_shape(*A.shape), []).append((A, b))
+        before = svc.stats()
+
+        def run():
+            futs = [svc.submit(A, b, reg=lam, mode="auto") for A, b, lam in probs]
+            svc.flush()
+            return [f.result(timeout=600) for f in futs]
+
+        resps, t_all = self._host_time(lambda: self.counted("buckets", run, 0))
+        after = svc.stats()
+        self.certified(resps, self.RTOL, "buckets")
+        worst = 0.0
+        for (A, b, lam), r in zip(probs, resps):
+            n = A.shape[1]
+            A_aug = torch.cat([A, (lam or 0.0) ** 0.5 * torch.eye(n, dtype=A.dtype, device=dev)])
+            b_aug = torch.cat([b, b.new_zeros(n)])
+            Q, R = torch.linalg.qr(A_aug)
+            x_qr = torch.linalg.solve_triangular(R, (Q.T @ b_aug)[:, None], upper=True)[:, 0].cpu()
+            worst = max(worst, _rel(r.x, x_qr))
+            if r.path != "bucket" or _rel(r.x, x_qr) > 1e-10:
+                raise AssertionError(f"phase 14: bucket answer {r.path} off its QR by {_rel(r.x, x_qr)}")
+        want_batches = sum(-(-len(v) // self.K) for v in keys.values())
+        if (after["bucket_executables"] - before["bucket_executables"],
+                after["bucket_batches"] - before["bucket_batches"]) != (len(keys), want_batches):
+            raise AssertionError(f"phase 14: buckets {after['bucket_executables']} / batches "
+                                 f"{after['bucket_batches']}, want {len(keys)} / {want_batches}")
+        shape, members = max(keys.items(), key=lambda kv: len(kv[1]))
+        pads = [pad_problem(A, b, *shape) for A, b in members]
+        A_stack = torch.stack([p[0] for p in pads])
+        b_stack = torch.stack([p[1] for p in pads])
+
+        def batched():
+            return solve_bucket(A_stack, b_stack, certify=True)
+
+        def looped():
+            return [solve_bucket(A_stack[j:j + 1], b_stack[j:j + 1], certify=True) for j in range(len(members))]
+
+        one, loop = batched(), looped()  # also the warm-up
+        t_b = sorted(_sync_time(torch, batched)[1] for _ in range(3))[1]
+        t_l = sorted(_sync_time(torch, looped)[1] for _ in range(3))[1]
+        same = max(float((one["x"][j] - loop[j]["x"][0]).abs().max()) for j in range(len(members)))
+        self.walls.update(bucket_batched_s=t_b, bucket_loop_s=t_l)
+        _p(f"phase 14: buckets: {self.N_SMALL} problems (m 40–400, n 3–24, half at λ = 0.25) in {len(keys)} "
+           f"buckets, {want_batches} batches, submit + flush {t_all:.4f} s; every x within {worst:.2e} of the QR of "
+           f"its own augmented problem, every certificate passed")
+        _p(f"phase 14: bucket {shape} of {len(members)} problems: one batched QR + certify {t_b * 1e3:.3f} ms, "
+           f"a loop of {len(members)} single-problem calls {t_l * 1e3:.3f} ms (median of 3 warm; max|Δx| "
+           f"{same:.2e}; card: {self.smi})")
+
+    def rejections(self, svc, A, P):
+        from repro_torch.core import lstsq
+        from repro_torch.kernels import countsketch_apply, reset_launches
+        from repro_torch.serve.service import derive_generator
+
+        torch = self.torch
+
+        def expired():
+            fut = svc.submit(A, P[:, 0], mode="session", deadline_s=-1.0)
+            svc.flush()
+            return fut.result(timeout=600)
+
+        r = self.counted("deadline", expired, 0)
+        if r.ok or r.reason != "deadline expired while queued":
+            raise AssertionError(f"phase 14: the expired request was answered: {r.status} {r.reason}")
+
+        _p("phase 14: expired deadline: rejected with 'deadline expired while queued', nothing launched")
+
+        def slow(name, rtol):
+            def submit():
+                fut = svc.submit(A, P[:, 1], certified_rtol=rtol, mode="session")
+                svc.flush()
+                return fut.result(timeout=600)
+
+            replay = {}
+
+            def expected(res):
+                if res.path != "slow":
+                    raise AssertionError(f"phase 14: the rtol {rtol:g} request took the {res.path} path")
+                # the same certified lstsq on the same derived generator, counted
+                counter = svc._session_counter
+                torch.cuda.synchronize()
+                reset_launches()
+                with _NoPlain(torch):
+                    again = lstsq(A, P[:, 1], derive_generator(svc._seed, counter, self.dev), accuracy="certified",
+                                  certified_rtol=rtol, sketch=svc.sketch)
+                torch.cuda.synchronize()
+                replay.update(launches=countsketch_apply.launches, res=again)
+                return 1 + countsketch_apply.launches  # the session batch, then the slow path
+
+            before = svc.stats()
+            r, t_slow = self._host_time(lambda: self.counted(name, submit, expected))
+            if r.path != "slow" or svc.stats()["slow_path"] != before["slow_path"] + 1:
+                raise AssertionError(f"phase 14: the slow path was not counted: {svc.stats()['slow_path']}")
+            if not r.ok and "unattainable" not in r.reason:
+                raise AssertionError(f"phase 14: slow path rejected without the reference's reason: {r.reason}")
+            again = replay["res"]
+            if r.ok:
+                outcome = (f"passed: rel. bound {float(r.certificate.rel_error_bound):.3e} via {r.result.method}, "
+                           f"{r.certificate.escalations} escalations; x bitwise the replay "
+                           f"{bool(torch.equal(r.x, again.x.cpu()))}")
+            else:
+                outcome = f"rejected: {r.reason}"
+            self.walls[f"{name}_s"] = t_slow
+            return r, (f"phase 14: slow path at certified_rtol={rtol:g}: {outcome}; wall {t_slow:.3f} s; B1 launches "
+                       f"{self.b1[name]['launches']} = 1 (the session batch) + {replay['launches']} (the replayed "
+                       f"certified lstsq)")
+
+        r, line = slow("slow_path", self.SLOW_RTOL)
+        if not r.ok:
+            raise AssertionError(f"phase 14: the slow path did not answer at rtol {self.SLOW_RTOL:g}: {r.reason}")
+        self.certified([r], self.SLOW_RTOL, "slow path")
+        (gap,) = self.qr_gate(A, P[:, 1:2], [r], "slow path")
+        _p(f"{line}; ‖x − x_qr‖ {gap['gap']:.3e} against 10 × bound {10 * gap['bound']:.3e}")
+        _, line = slow("slow_tight", self.TIGHT_RTOL)
+        _p(line)
+
+    def drift(self, svc, fp_mod, A, P):
+        torch = self.torch
+        m, n = A.shape
+        fp = fp_mod.fingerprint(A, sketch=svc.sketch, sketch_size=svc._resolve_sketch_size(m, n))
+        idx = torch.randperm(m, generator=self.gen, device=self.dev)[: self.DRIFT_ROWS]
+        rows = A[idx] * (1 + 0.01 * torch.randn((idx.numel(), n), generator=self.gen, dtype=A.dtype,
+                                                device=self.dev))
+        b = P[:, 2]
+        walls = {}
+
+        def update():
+            new_fp, walls["update_rows"] = self._host_time(lambda: svc.cache.update_rows(fp, idx, rows))
+            A[idx] = rows  # the caller's copy takes the same update
+            fut = svc.submit(A, b, certified_rtol=self.RTOL, mode="session")
+            svc.flush()
+            return new_fp, fut.result(timeout=600)
+
+        before = svc.stats()["cache"]
+        (new_fp, r), t_all = self._host_time(lambda: self.counted("drift", update, 2))  # delta-sketch, batch
+        after = svc.stats()["cache"]
+        if new_fp is None or new_fp == fp or new_fp not in svc.cache or fp in svc.cache:
+            raise AssertionError("phase 14: update_rows did not re-key the session")
+        if not r.cache_hit or after["hits"] != before["hits"] + 1:
+            raise AssertionError("phase 14: the request on the updated A missed the re-keyed session")
+        self.certified([r], self.RTOL, "drift")
+        gaps = self.qr_gate(A, b[:, None], [r], "drift")
+        _p(f"phase 14: drift: update_rows of {self.DRIFT_ROWS} rows of tenant 1 {walls['update_rows']:.3f} s "
+           f"(delta-sketch, QR, Y and the new digest) re-keyed {fp.short()} → {new_fp.short()}; the request on "
+           f"the updated A (one more digest of the caller's A) hit it: {json.dumps(gaps)}; part wall "
+           f"{t_all:.3f} s (card: {self.smi})")
+
 
 # The device kernels each wrapper launches on the traced solves' routes
 # (f64 A with n = 1000, and the vector b), by name.

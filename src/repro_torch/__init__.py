@@ -7,10 +7,12 @@ Hopper kernels (CUDA C++ in ``csrc/``) that replace the reference's Pallas
 kernels, each beside its plain PyTorch version; ``repro_torch.obs`` the
 span tracer, the metrics registry and their exporters; ``repro_torch.streaming``
 the row sources, the mergeable sketch accumulators and the out-of-core
-solvers (``stream_lstsq``, ``StreamingSolver``).  Entry points run on the
+solvers (``stream_lstsq``, ``StreamingSolver``); ``repro_torch.serve`` the
+multi-tenant ``SolveService`` (content fingerprints, the factor cache,
+micro-batching and shape buckets).  Entry points run on the
 card unless the caller passes ``device="cpu"``.
 """
-from . import convert, core, kernels, obs, streaming
+from . import convert, core, kernels, obs, serve, streaming
 from .core import (
     Certificate,
     SketchedSolver,
@@ -25,10 +27,12 @@ from .core import (
     saa_sas_batch,
     sap_sas,
 )
+from .serve import SolveService
 from .streaming import StreamingSolver, stream_lstsq
 
 __all__ = [
-    "convert", "core", "kernels", "obs", "streaming", "Certificate", "SketchedSolver",
+    "convert", "core", "kernels", "obs", "serve", "streaming", "Certificate", "SketchedSolver",
+    "SolveService",
     "StreamingSolver", "stream_lstsq",
     "certify_solution", "fossils", "generate_problem", "iterative_sketching",
     "lsqr_dense", "lstsq", "qr_solve", "saa_sas", "saa_sas_batch", "sap_sas",

@@ -69,12 +69,12 @@ from .linop import (
     ensure_dense,
     estimate_2norm,
 )
-from .lsqr import lsqr as lsqr_solve, lsqr_dense, lsqr_operator
+from .lsqr import LSQRResult, lsqr as lsqr_solve, lsqr_dense, lsqr_operator
 from .lstsq import ACCURACIES, CERTIFIED_LADDER, METHODS, TOL_SUPPORT, lstsq, select_method
 from .precond import SketchedFactor, default_sketch_size, distortion
 from .problems import Problem, generate as generate_problem
 from .result import SolveResult
-from .saa import saa_sas, saa_sas_batch
+from .saa import SAAResult, saa_sas, saa_sas_batch
 from .sap import sap_sas
 from .session import SketchedSolver
 from .sketch import (
@@ -87,6 +87,7 @@ from .sketch import (
     StackedSketch,
     UniformDenseSketch,
     UniformSparseSketch,
+    fwht,
     sample as sample_sketch,
 )
 
@@ -100,18 +101,18 @@ __all__ = [
     "iterative_sketching",
     "LinearOperator", "DenseOperator", "SparseOperator", "TikhonovAugmented",
     "CustomOperator", "as_operator", "ensure_dense", "estimate_2norm",
-    "lsqr_solve", "lsqr_dense", "lsqr_operator",
+    "LSQRResult", "lsqr_solve", "lsqr_dense", "lsqr_operator",
     "ACCURACIES", "CERTIFIED_LADDER", "METHODS", "TOL_SUPPORT", "lstsq",
     "select_method",
     "SketchedFactor", "default_sketch_size", "distortion",
     "Problem", "generate_problem",
     "SolveResult",
-    "saa_sas", "saa_sas_batch",
+    "SAAResult", "saa_sas", "saa_sas_batch",
     "sap_sas",
     "SketchedSolver",
     "SKETCH_KINDS", "CountSketch", "GaussianSketch", "UniformDenseSketch",
     "SRHTSketch", "SparseSignSketch", "UniformSparseSketch", "StackedSketch",
-    "AugmentedSketch", "sample_sketch",
+    "AugmentedSketch", "fwht", "sample_sketch",
     "stream_lstsq", "StreamingSolver",
 ]
 

@@ -51,6 +51,7 @@ __all__ = [
     "TikhonovAugmented",
     "CustomOperator",
     "CSR",
+    "input_kind",
     "as_operator",
     "ensure_dense",
     "estimate_2norm",
@@ -440,6 +441,22 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
+def input_kind(A) -> str:
+    """``"dense"``, ``"sparse"`` or ``"operator"``: the form
+    :func:`as_operator` gives ``A``, read without converting it."""
+    if isinstance(A, DenseOperator):
+        return "dense"
+    if isinstance(A, SparseOperator):
+        return "sparse"
+    if isinstance(A, LinearOperator):
+        return "operator"
+    if isinstance(A, torch.Tensor) and A.layout != torch.strided:
+        return "sparse"
+    if hasattr(A, "matvec") and hasattr(A, "rmatvec") and hasattr(A, "shape"):
+        return "operator"
+    return "dense"
+
+
 def as_operator(A, *, device=None) -> LinearOperator:
     """Coerce a dense matrix (tensor or numpy array), a torch sparse tensor
     (COO, CSR or CSC), a duck-typed operator (``matvec``, ``rmatvec``,
@@ -449,9 +466,10 @@ def as_operator(A, *, device=None) -> LinearOperator:
     one."""
     if isinstance(A, LinearOperator):
         return A
-    if isinstance(A, torch.Tensor) and A.layout != torch.strided:
+    kind = input_kind(A)
+    if kind == "sparse":
         return SparseOperator.from_tensor(A, device=device)
-    if hasattr(A, "matvec") and hasattr(A, "rmatvec") and hasattr(A, "shape"):
+    if kind == "operator":
         dtype = getattr(A, "dtype", None)
         if dtype is None:
             raise TypeError(f"duck-typed operator {A!r} must expose .dtype")

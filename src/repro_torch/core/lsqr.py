@@ -38,7 +38,10 @@ import torch
 from .backend import as_tensor
 from .result import SolveResult
 
-__all__ = ["lsqr", "lsqr_dense", "lsqr_operator"]
+__all__ = ["lsqr", "lsqr_dense", "lsqr_operator", "LSQRResult"]
+
+# The reference's name for the result type, kept for its callers.
+LSQRResult = SolveResult
 
 
 class _State(NamedTuple):

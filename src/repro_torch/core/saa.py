@@ -38,7 +38,10 @@ from .lsqr import lsqr
 from .precond import SketchedFactor, _operator_for, default_sketch_size
 from .result import SolveResult
 
-__all__ = ["saa_sas", "saa_sas_batch", "default_sketch_size"]
+__all__ = ["saa_sas", "saa_sas_batch", "SAAResult", "default_sketch_size"]
+
+# The reference's name for the result type, kept for its callers.
+SAAResult = SolveResult
 
 
 def _solve_with_factor(

@@ -56,10 +56,44 @@ def test_every_module_imports_without_jax():
 
 def test_the_scan_covers_every_package():
     mods = _port_modules()
-    for pkg in ("core", "kernels", "obs", "streaming"):
+    for pkg in ("core", "kernels", "obs", "streaming", "serve", "analysis"):
         assert f"repro_torch.{pkg}" in mods, pkg
     assert {"repro_torch.streaming.sources", "repro_torch.streaming.accumulate",
             "repro_torch.streaming.solve"} <= set(mods)
+    assert {"repro_torch.serve.fingerprint", "repro_torch.serve.cache",
+            "repro_torch.serve.batching", "repro_torch.serve.service",
+            "repro_torch.analysis.annotations"} <= set(mods)
+
+
+def test_serve_imports_neither_jax_nor_the_reference():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.serve, repro_torch.analysis.annotations\n"
+        "from repro_torch import SolveService\n"
+        "assert SolveService is repro_torch.serve.SolveService\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'jaxlib', 'repro.'))\n"
+        "               for k in sys.modules if sys.modules[k] is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_core_exports_the_references_names():
+    import repro_torch.core as core
+    from repro_torch.kernels.srht import fwht
+
+    for name in ("fwht", "LSQRResult", "SAAResult"):
+        assert name in core.__all__, name
+    assert core.fwht is fwht
+    assert core.LSQRResult is core.SAAResult is core.SolveResult
+    assert core.lsqr.LSQRResult is core.SolveResult and core.saa.SAAResult is core.SolveResult
 
 
 def _imports(path):
@@ -123,6 +157,7 @@ def _entry_points():
         saa_sas,
     )
     from repro_torch.kernels import sketch_qr, tsqr
+    from repro_torch.serve import SolveService
     from repro_torch.streaming import ArraySource, StreamingSolver, stream_lstsq, stream_sketch
 
     A = np.random.default_rng(0).standard_normal((200, 5))
@@ -189,6 +224,7 @@ def _entry_points():
         "SketchedFactor.build_streaming": lambda: SketchedFactor.build_streaming(A, 0),
         "lstsq_row_source": lambda: lstsq(ArraySource(A), b, 0),
         "source_from_reference": lambda: convert.source_from_reference(ArraySource(A)),
+        "SolveService": lambda: SolveService(0),
     }
 
 

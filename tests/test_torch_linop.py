@@ -201,6 +201,22 @@ def test_as_operator_coercion(A):
         as_operator(np.ones(5), device=CPU)
 
 
+def test_input_kind_names_what_as_operator_makes(A):
+    """``input_kind`` reads the form without converting it, and agrees
+    with the operator ``as_operator`` builds."""
+    At = torch.as_tensor(A)
+    raw = {
+        "dense": A, "tensor": At, "coo": At.to_sparse(), "csr": At.to_sparse_csr(),
+        "csc": At.to_sparse_csc(), "duck": _Duck(A), "custom": _custom(A),
+        "ridge": TikhonovAugmented.wrap(as_operator(A, device=CPU), 0.5),
+    }
+    made = {DenseOperator: "dense", SparseOperator: "sparse"}
+    for name, x in raw.items():
+        op = as_operator(x, device=CPU)
+        assert linop.input_kind(x) == made.get(type(op), "operator"), name
+        assert linop.input_kind(op) == linop.input_kind(x), name
+
+
 @pytest.mark.parametrize("core", ["dense", "bcoo", "custom"])
 def test_tikhonov_augmented(A, core):
     lam = 0.3
