@@ -121,6 +121,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    session and a request on the updated A answered by it.  Each part runs
    through ``_NoPlain`` with B1's launches held to the count the code
    implies, and prints its peak device memory.
+15. the cluster (class ``_Phase15``, right after phase 13, on the main
+   problem as a device-resident ``ArraySource`` of 128 tiles): 4 workers,
+   a checkpoint every 8 tiles into a temporary directory.  The
+   CountSketch's pass 1 with b riding along bitwise ``merge_all`` of the
+   four range partials built on one thread and within 2·γ_m·|S||A| of the
+   serial stream, one B1 fold a tile; a worker killed at its tenth tile
+   recovered from its checkpoint (bitwise; B1 again for the tiles past the
+   watermark only), restarted without checkpoints (bitwise), a duplicate
+   submission dropped (bitwise); ``stream_lstsq`` ``saa``/``iterative`` and
+   ``lstsq(A, b, gen, cluster=...)`` within 1e-5 and 100× ``qr_solve``'s
+   error, the ``saa`` solve with the kill bitwise the clean one; a
+   ``StreamingSolver`` (8 solves and a ``solve_many`` of 8) with its passes
+   fed through the engine's counters; the SRHT at m = 2^18 bitwise the
+   serial stream (peak memory), the Gaussian at m = 2^16 and the
+   sparse-sign sketch within their bounds; the reference's acceptance demo
+   at m = 2^16 (tiles of 2048 rows) from a ``.npy`` memmap (a kill, both certified answers
+   passing and agreeing to 1e-9; a stalled worker evicted by its
+   heartbeat).  It prints walls beside phase 13's serial streamed and
+   in-memory ones, the heartbeat gaps and checkpoint times of a traced
+   pass, the pass-2 poll floor, the engine's stats and B1's launches by
+   part; after every part no worker thread or checkpoint directory is
+   left.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -1089,6 +1111,11 @@ def main() -> int:
     _, t13 = _sync_time(torch, lambda: phase13.main_problem(A, b, x_true, e_qr, phase12.x_ridge))
     errs["fused_gaussian_sketch"] = max(errs["fused_gaussian_sketch"], phase13.err_col0)
     _p(f"phase 13: {t13:.1f} s")
+
+    # ---- phase 15: the cluster, on the main problem before it is freed -----
+    phase15 = _Phase15(torch, dev, gen, smi, run_path, paths, root, phase13)
+    _, t15 = _sync_time(torch, lambda: phase15.main_problem(A, b, x_true, e_qr))
+    _p(f"phase 15: {t15:.1f} s")
     del op_t, St, prob, A, b, x_true
     torch.cuda.empty_cache()
     phase12.sparse()
@@ -1325,8 +1352,9 @@ def main() -> int:
             max_abs_err=max(err, errs[name]), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
         ))
-        if name == "countsketch_apply":  # phase 14's serving parts, each counted on its own
+        if name == "countsketch_apply":  # phase 14's serving parts and phase 15's cluster parts
             rows[-1]["serve_launches"] = {part: v["launches"] for part, v in phase14.b1.items()}
+            rows[-1]["cluster_launches"] = dict(phase15.b1)
     _p(f"paths (launches per path) {json.dumps(paths)}")
     _p(smi)
     _p(json.dumps({"kernels": rows}))
@@ -2879,6 +2907,503 @@ class _Phase13:
         self.times["session"] = dict(stats=stats, **t)
         del singles, many, D, B, X_true, X_qr, s
         torch.cuda.empty_cache()
+
+class _Phase15:
+    """Phase 15: the cluster (``repro_torch.cluster``) on the card, on the
+    main problem as a device-resident ``ArraySource`` of 128 tiles of 8192
+    rows, 4 workers, a checkpoint every 8 tiles into a temporary directory
+    (removed after).
+
+    (1) pass 1 of the CountSketch with b riding along: B and c bitwise
+    ``merge_all`` of the four range partials built on one thread, within
+    2·γ_m·|S||A| of the serial streamed B, one B1 fold a tile; the walls
+    with and without checkpoints beside the serial stream; a traced pass's
+    longest heartbeat gap and checkpoint times; the pass-2 poll floor.
+    (2) a worker killed at its tenth tile: one recovery, one restore, B and
+    c bitwise the clean run's, B1 launched again for the tiles past the
+    watermark only; the same kill without checkpoints (the range restarts);
+    a duplicate submission dropped.  (3) ``stream_lstsq`` ``saa`` and
+    ``iterative``, ``lstsq(A, b, gen, method="saa", cluster=...)`` on the
+    card tensor, each within 1e-5 and 100× ``qr_solve``'s error; the ``saa``
+    solve with the kill bitwise the clean solve; a ``StreamingSolver``
+    serving 8 solves and a ``solve_many`` of 8 with its passes and tiles
+    fed through the engine's counters.  (4) the SRHT at m = 2^18 (bitwise
+    the serial stream), the Gaussian at m = 2^16 and the sparse-sign
+    sketch on the main problem (within their regrouping bounds).  (5) the
+    reference's acceptance demo at m = 2^16 in 32 tiles of 2048 rows (κ =
+    1e6, β = 1e-4) from a ``.npy`` memmap: a kill with checkpoints every 3
+    tiles, the sketch
+    bitwise the clean run's, both certified answers passing and agreeing;
+    a stalled worker evicted by its heartbeat.  (6) after every part no
+    worker thread is alive and no checkpoint namespace or engine-made
+    temporary directory is left.  Counted runs go through ``_NoPlain``."""
+
+    SEED = 1501
+    TILE = 8192  # the sources' tile rows (DEFAULT_TILE_ROWS)
+    WORKERS = 4
+    EVERY = 8  # tiles between checkpoints
+    KILL = (1, 10)  # (worker, at_tile)
+    M_SRHT = 2**18
+    M_DEMO = 2**16  # at 2^18 the demo alone took 86 s on the H100; the phase aims at 90 s
+    DEMO_TILE = 2048  # 32 tiles, 8 a worker, so the kill at tile 5 fires
+    DEMO_EVERY = 3
+    DEMO_KILL = (2, 5)
+    DELAY_S, HEARTBEAT_S = 3.0, 0.5
+    K_SOLVES = 8
+
+    def __init__(self, torch, dev, gen, smi, run_path, paths, root, phase13):
+        self.torch, self.dev, self.gen, self.smi = torch, dev, gen, smi
+        self.run_path, self.paths, self.root, self.phase13 = run_path, paths, root, phase13
+        self.b1, self.walls, self.times, self.stats = {}, {}, {}, {}
+
+    def seeded(self):
+        return self.torch.Generator(device=self.dev).manual_seed(self.SEED)
+
+    def spec(self, name, **kw):
+        from repro_torch.cluster import ClusterSpec
+
+        kw.setdefault("checkpoint_every", self.EVERY)
+        return ClusterSpec(num_workers=self.WORKERS, ckpt_dir=str(Path(self.ckpt_root) / name), **kw)
+
+    def counted(self, name, fn, guard=True):
+        """One run with every launch counted, through ``_NoPlain`` unless it
+        times its own steps (as phase 13's session does); B1's kept."""
+        torch = self.torch
+
+        def guarded():
+            with _NoPlain(torch):
+                return fn()
+
+        out = self.run_path(name, guarded if guard else fn)
+        self.b1[name] = self.paths[name]["countsketch_apply"]
+        return out
+
+    def median(self, fn, reps=3):
+        return sorted(_sync_time(self.torch, fn)[1] for _ in range(reps))[reps // 2]
+
+    def teardown(self, part):
+        """No worker thread alive (a zombie is given 30 s to wake into its
+        closed engine), no namespace left in the part's checkpoint dir, no
+        temporary dir an engine made."""
+        import tempfile
+        import threading
+
+        deadline = time.monotonic() + 30
+        for t in threading.enumerate():
+            if t.name.startswith("repro-cluster-w"):
+                t.join(timeout=max(0.0, deadline - time.monotonic()))
+        alive = [t.name for t in threading.enumerate() if t.name.startswith("repro-cluster-w") and t.is_alive()]
+        made = set(Path(tempfile.gettempdir()).glob("repro-cluster-*")) - self.tmp_before
+        left = list(Path(self.ckpt_root).rglob("pass1-*"))
+        if alive or made or left:
+            raise AssertionError(f"phase 15 {part}: threads {alive}, temporary dirs {made}, namespaces {left}")
+
+    def main_problem(self, A, b, x_true, e_qr):
+        import shutil
+        import tempfile
+
+        (self.root / "build").mkdir(exist_ok=True)
+        self.ckpt_root = tempfile.mkdtemp(prefix="phase15-", dir=self.root / "build")
+        self.tmp_before = set(Path(tempfile.gettempdir()).glob("repro-cluster-*"))
+        try:
+            self.pass1(A, b)
+            self.faults(A, b)
+            self.solves(A, b, x_true, e_qr)
+            self.session(A, b, x_true)
+            self.kinds(A, b)
+            self.demo()
+        finally:
+            shutil.rmtree(self.ckpt_root, ignore_errors=True)
+        _p(f"phase 15: B1 launches by part {json.dumps(self.b1)}")
+        _p(f"phase 15: engine stats by part {json.dumps(self.stats)}")
+        _p(f"phase 15: walls (s; card: {self.smi}) {json.dumps(self.walls)}")
+
+    def _cluster_pass1(self, name, src, op, b, **kw):
+        """One counted cluster pass 1 on a fresh engine → (B, c, stats, wall)."""
+        from repro_torch.cluster import ClusterEngine
+        from repro_torch.streaming import stream_sketch
+
+        eng = ClusterEngine(src, self.spec(name, **kw))
+        try:
+            (B, _, c), wall = _sync_time(self.torch, lambda: self.counted(
+                name, lambda: stream_sketch(eng, op=op, rhs=b)))
+        finally:
+            eng.close()
+        self.stats[name] = dict(eng.stats)
+        self.teardown(name)
+        return B, c, dict(eng.stats), wall
+
+    # ---- (1) -----------------------------------------------------------------
+    def pass1(self, A, b):
+        from repro_torch.cluster import ClusterEngine, RowRangeSource, partition_rows
+        from repro_torch.core import CountSketch
+        from repro_torch.core import sketch as sketch_lib
+        from repro_torch.obs import trace as obs_trace
+        from repro_torch.streaming import ArraySource, device_tiles, make_accumulator, merge_all, stream_sketch
+        from repro_torch.streaming.solve import _stream_matvec, _stream_rmatvec
+
+        torch, dev = self.torch, self.dev
+        m, n = A.shape
+        d, T = 4 * n, self.TILE
+        src = ArraySource(A, tile_rows=T)
+        tiles = src.num_tiles
+        op = sketch_lib.sample("countsketch", self.gen, d, m, device=dev)
+        self.src, self.op = src, op
+        B, c, st, t_first = self._cluster_pass1("cluster_pass1", src, op, b)
+        self.B, self.c = B, c
+        ckpts = sum((r.tiles(T) - 1) // self.EVERY for r in partition_rows(m, self.WORKERS, T))
+        if self.b1["cluster_pass1"] != tiles or st["tiles"] != tiles or st["checkpoints"] != ckpts:
+            raise AssertionError(f"cluster pass 1: B1 {self.b1['cluster_pass1']} (one fold a tile: {tiles}); {st}")
+        # the four range partials on this thread, merged in range order
+        accs = []
+        for r in partition_rows(m, self.WORKERS, T):
+            acc = make_accumulator(op, n + 1, dtype=A.dtype)
+            for o, tile in device_tiles(RowRangeSource(src, r.start, r.stop, tile_rows=T), dev):
+                gl = r.start + o
+                acc.update(torch.cat([tile, b[gl:gl + tile.shape[0], None]], dim=1), gl)
+            accs.append(acc)
+        Bc = merge_all(accs).finalize()
+        if not (torch.equal(B, Bc[:, :n]) and torch.equal(c, Bc[:, n])):
+            raise AssertionError("cluster pass 1: B, c not bitwise merge_all of the range partials")
+        del accs, Bc
+        # the serial stream: the same sums, grouped by range
+        Bs, _, cs = stream_sketch(src, op=op, rhs=b)
+        op_abs = CountSketch(buckets=op.buckets, signs=op.signs.abs(), d=d, m=m)
+        g = 2 * _gamma(torch, m, A.dtype)
+        err = float((c - cs).abs().max())
+        if not bool(((c - cs).abs() <= g * op_abs.apply(b.abs())).all()):
+            raise AssertionError(f"cluster pass 1: c {err} off the serial stream")
+        for c0 in range(0, n, 125):
+            gap = (B[:, c0:c0 + 125] - Bs[:, c0:c0 + 125]).abs()
+            if not bool((gap <= g * op_abs.apply(A[:, c0:c0 + 125].abs())).all()):
+                raise AssertionError(f"cluster pass 1: B {float(gap.max())} off the serial stream")
+            err = max(err, float(gap.max()))
+        self.err_serial = err
+        # walls: with checkpoints, without, serial
+        walls = {"first_counted": t_first}
+        for name, kw in (("cluster", {}), ("cluster_no_ckpt", {"checkpoint_every": 0})):
+            eng = ClusterEngine(src, self.spec(f"walls_{name}", **kw))
+            walls[name] = self.median(lambda: stream_sketch(eng, op=op, rhs=b))
+            eng.close()
+        walls["serial"] = self.median(lambda: stream_sketch(src, op=op, rhs=b))
+        self.teardown("pass1 walls")
+        # a traced pass: heartbeat gaps and checkpoint times (host clock)
+        eng = ClusterEngine(src, self.spec("traced"))
+        with obs_trace.tracing() as tracer:
+            mark = len(tracer.events)
+            stream_sketch(eng, op=op, rhs=b)
+            ev = tracer.timeline(mark).instants()
+        eng.close()
+        self.teardown("pass1 traced")
+        last, gaps, ckpt = {}, [], []
+        for e in sorted(ev, key=lambda e: e["ts"]):
+            w = e["args"].get("worker")
+            if e["name"] == "cluster.heartbeat":
+                if w in last:
+                    gaps.append((e["ts"] - last[w]) / 1e6)
+                last[w] = e["ts"]
+            elif e["name"] == "cluster.checkpoint":  # the gap to the next beat spans it
+                ckpt.append((e["ts"] - last[w]) / 1e6)
+        walls["heartbeat_gap_max"] = max(gaps)
+        walls["heartbeat_gap_median"] = sorted(gaps)[len(gaps) // 2]
+        walls["checkpoint_max"] = max(ckpt)
+        walls["checkpoint_median"] = sorted(ckpt)[len(ckpt) // 2]
+        # one checkpoint's parts apart, each the median of 3: the draw's
+        # digest, the state's copy to the host, the atomic write of the file
+        from repro_torch.cluster import op_digest
+        from repro_torch.train import checkpoint as ckpt_lib
+
+        state = make_accumulator(op, n + 1, dtype=A.dtype).state
+        host = state.cpu().numpy()
+        walls["checkpoint_digest"] = self.median(lambda: op_digest(op))
+        walls["checkpoint_d2h"] = self.median(lambda: state.cpu())
+        walls["checkpoint_write"] = self.median(lambda: ckpt_lib.save(
+            str(Path(self.ckpt_root) / "write_probe"), 0, {"state": host}))
+        del state, host
+        # the poll floor: a pass-2 product through the pool, polled every
+        # 10 ms (the default) and every 1 ms, beside the serial stream
+        x, u = self.torch.ones(n, dtype=A.dtype, device=dev), b
+        for name, kw in (("matvec_cluster", {}), ("matvec_cluster_poll_1ms", {"poll_interval": 0.001})):
+            eng = ClusterEngine(src, self.spec(name, checkpoint_every=0, **kw))
+            walls[name] = self.median(lambda: eng.matvec(x), 5)
+            walls[name.replace("matvec", "rmatvec")] = self.median(lambda: eng.rmatvec(u), 5)
+            eng.close()
+        walls["matvec_serial"] = self.median(lambda: _stream_matvec(src, x), 5)
+        walls["rmatvec_serial"] = self.median(lambda: _stream_rmatvec(src, u), 5)
+        self.teardown("pass1 poll")
+        self.walls["pass1"] = walls
+        self.times["pass1"] = dict(max_abs_err_vs_serial=err, ckpt_bytes=d * (n + 1) * 8, checkpoints=len(ckpt))
+        _p(f"phase 15: pass 1 (countsketch, b riding along) on {self.WORKERS} workers, {tiles} tiles of {T}: B, c "
+           f"bitwise merge_all of the four range partials; max|Δ| from the serial stream {err:.3e} (within "
+           f"2·γ_m·|S||A|); B1 launches {self.b1['cluster_pass1']}; stats {json.dumps(st)}")
+        _p(f"phase 15: pass 1 walls (s; checkpoint every {self.EVERY} tiles, {d * (n + 1) * 8 / 1e6:.1f} MB each; "
+           f"heartbeat gaps and checkpoint times from one traced pass; matvec/rmatvec: pass-2 products, median of "
+           f"5; card: {self.smi}): {json.dumps(walls)}")
+        del Bs, cs, op_abs
+
+    # ---- (2) -----------------------------------------------------------------
+    def faults(self, A, b):
+        from repro_torch.cluster import DuplicateMerge, KillWorker
+
+        src, op, tiles = self.src, self.op, self.src.num_tiles
+        w, at = self.KILL
+        again = at - (at // self.EVERY) * self.EVERY  # folds past the last watermark
+        runs = (
+            ("cluster_kill", dict(faults=[KillWorker(worker=w, at_tile=at)]),
+             dict(recoveries=1, restores=1, reassignments=1), tiles + again),
+            ("cluster_kill_restart", dict(faults=[KillWorker(worker=w, at_tile=at)], checkpoint_every=0),
+             dict(recoveries=1, restores=0, checkpoints=0), tiles + at),
+            ("cluster_duplicate", dict(faults=[DuplicateMerge(worker=0)]), dict(duplicates_dropped=1), tiles),
+        )
+        walls = {}
+        for name, kw, want, launches in runs:
+            B, c, st, walls[name] = self._cluster_pass1(name, src, op, b, **kw)
+            got = {k: st[k] for k in want}
+            same = self.torch.equal(B, self.B) and self.torch.equal(c, self.c)
+            _p(f"phase 15: {name}: B, c bitwise the clean run's {same}; stats {json.dumps(st)}; B1 launches "
+               f"{self.b1[name]} (expected {launches}); wall {walls[name]:.4f} s")
+            if not (same and got == want and self.b1[name] == launches):
+                raise AssertionError(f"phase 15 {name}: bitwise {same}, stats {got} (want {want}), B1 "
+                                     f"{self.b1[name]} (want {launches})")
+            del B, c
+        self.walls["faults"] = walls
+
+    # ---- (3) -----------------------------------------------------------------
+    def solves(self, A, b, x_true, e_qr):
+        from repro_torch.cluster import ClusterSpec, KillWorker
+        from repro_torch.core import lstsq
+        from repro_torch.streaming import DEFAULT_TILE_ROWS, stream_lstsq
+
+        torch, src, g = self.torch, self.src, self.seeded
+        tiles = src.num_tiles
+        coerced = -(-A.shape[0] // DEFAULT_TILE_ROWS)  # lstsq's own tiling of a card tensor
+        own = ClusterSpec(num_workers=self.WORKERS, checkpoint_every=self.EVERY)  # the engine makes its dir
+        runs = (
+            ("cluster_saa", "stream_saa", lambda: stream_lstsq(src, b, g(), method="saa",
+                                                               cluster=self.spec("saa"))),
+            ("cluster_iterative", "stream_iterative", lambda: stream_lstsq(src, b, g(), method="iterative",
+                                                                           cluster=self.spec("iterative"))),
+            ("cluster_lstsq_saa", "stream_saa", lambda: lstsq(A, b, g(), method="saa", cluster=own)),
+        )
+        rows, self.results = {}, {}
+        p13 = self.phase13.times["solves"]
+        for name, serial, fn in runs:
+            res = self.counted(name, fn)
+            self.teardown(name)
+            wall = self.median(fn)
+            self.teardown(name)
+            e = _rel(res.x, x_true)
+            row = dict(itn=int(res.itn), istop=int(res.istop), err=e, qr_err=e_qr, wall=wall,
+                       serial_stream_wall=p13[serial]["wall"], in_memory_wall=p13[serial]["in_memory_wall"],
+                       b1_launches=self.b1[name], method=res.method)
+            rows[name] = row
+            self.results[name] = res
+            _p(f"phase 15: {name}: {json.dumps(row)} (card: {self.smi})")
+            if not (e < 1e-5 and e <= 100 * max(e_qr, 1e-12)
+                    and self.b1[name] == (coerced if name == "cluster_lstsq_saa" else tiles)):
+                raise AssertionError(f"phase 15 {name}: {row}")
+        w, at = self.KILL
+        again = at - (at // self.EVERY) * self.EVERY
+        res = self.counted("cluster_saa_kill", lambda: stream_lstsq(
+            src, b, g(), method="saa", cluster=self.spec("saa_kill", faults=[KillWorker(worker=w, at_tile=at)])))
+        self.teardown("cluster_saa_kill")
+        same = torch.equal(res.x, self.results["cluster_saa"].x) and int(res.itn) == rows["cluster_saa"]["itn"]
+        rows["cluster_saa_kill"] = dict(bitwise_clean=same, itn=int(res.itn), b1_launches=self.b1["cluster_saa_kill"])
+        _p(f"phase 15: cluster_saa_kill (worker {w} killed at its tile {at}): x bitwise the clean cluster solve's "
+           f"{same}; {json.dumps(rows['cluster_saa_kill'])}")
+        if not (same and self.b1["cluster_saa_kill"] == tiles + again):
+            raise AssertionError(f"phase 15 cluster_saa_kill: {rows['cluster_saa_kill']}")
+        self.times["solves"] = rows
+        self.walls["solves"] = {k: v["wall"] for k, v in rows.items() if "wall" in v}
+
+    def session(self, A, b, x_true):
+        from repro_torch.streaming import StreamingSolver
+
+        torch, gen, dev, src = self.torch, self.gen, self.dev, self.src
+        m, n = A.shape
+        k = self.K_SOLVES
+        D = torch.randn(n, k, generator=gen, dtype=A.dtype, device=dev)
+        Bm = b[:, None] + A @ D
+        X_true = x_true[:, None] + D
+        Qa, Ra = torch.linalg.qr(A)
+        X_qr = torch.linalg.solve_triangular(Ra, Qa.T @ Bm, upper=True)
+        del Qa, Ra
+        torch.cuda.empty_cache()
+        e_qrs = [_rel(X_qr[:, j], X_true[:, j]) for j in range(k)]
+        t = {}
+
+        def serve():
+            s, t["build"] = _sync_time(torch, lambda: StreamingSolver(src, self.seeded(), cluster=self.spec("session")))
+            try:
+                out, walls = [], []
+                for j in range(k):
+                    res, wj = _sync_time(torch, lambda: s.solve(Bm[:, j]))
+                    out.append(res)
+                    walls.append(wj)
+                t["solve"] = sorted(walls)[k // 2]
+                many, t["solve_many"] = _sync_time(torch, lambda: s.solve_many(Bm))
+                return dict(s.stats), out, many
+            finally:
+                s.close()
+
+        stats, singles, many = self.counted("cluster_session", serve, guard=False)
+        self.teardown("cluster_session")
+        cols = []
+        for j in range(k):
+            e1, e8 = _rel(singles[j].x, X_true[:, j]), _rel(many.x[:, j], X_true[:, j])
+            cols.append(dict(solve_itn=int(singles[j].itn), solve_err=e1, many_err=e8, qr_err=e_qrs[j]))
+            if not all(e < 1e-5 and e <= 100 * max(e_qrs[j], 1e-12) for e in (e1, e8)):
+                raise AssertionError(f"phase 15 cluster session column {j}: {cols[-1]}")
+        passes = 1 + sum(3 + 2 * int(r.itn) for r in singles) + 3 + 2 * int(many.itn)
+        want = dict(sketches=1, qr_factorizations=1, solves=2 * k, passes=passes, tiles=passes * src.num_tiles)
+        _p(f"phase 15: StreamingSolver(cluster=...) at A({m}, {n}): columns {json.dumps(cols)}")
+        _p(f"phase 15: StreamingSolver stats {stats} (expected {want}: the sketch pass, then 3 + 2·itn streams a "
+           f"solve, fed through the engine's counters); walls build {t['build']:.4f} s, median solve "
+           f"{t['solve']:.4f} s, solve_many (k = {k}) {t['solve_many']:.4f} s; B1 launches "
+           f"{self.b1['cluster_session']} (card: {self.smi})")
+        if stats != want or self.b1["cluster_session"] != src.num_tiles * (k + 2):
+            raise AssertionError(f"phase 15 cluster session: stats {stats}, B1 {self.b1['cluster_session']}")
+        self.walls["session"] = t
+        del singles, many, D, Bm, X_true, X_qr
+
+    # ---- (4) -----------------------------------------------------------------
+    def kinds(self, A, b):
+        from repro_torch.core import SparseSignSketch
+        from repro_torch.core import sketch as sketch_lib
+        from repro_torch.streaming import ArraySource, stream_sketch
+        from repro_torch.streaming.sources import solve_device
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        n, T = A.shape[1], self.TILE
+        d = 4 * n
+        rows = {}
+        # the SRHT at m = 2^18: placement, an exact merge
+        m4 = self.M_SRHT
+        src4 = ArraySource(A[:m4], tile_rows=T)
+        op = sketch_lib.sample("srht", gen, d, m4, device=dev)
+        Bs, _, cs = stream_sketch(src4, op=op, rhs=b[:m4])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        B, c, st, wall = self._cluster_pass1("cluster_srht", src4, op, b[:m4], checkpoint_every=0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        launched = self.paths["cluster_srht"]
+        rows["srht"] = dict(m=m4, bitwise_serial=torch.equal(B, Bs) and torch.equal(c, cs), peak_gib=peak,
+                            wall=wall, srht_apply=launched["srht_apply"], b1=launched["countsketch_apply"])
+        if not (rows["srht"]["bitwise_serial"] and launched["srht_apply"] >= 1 and launched["countsketch_apply"] == 0):
+            raise AssertionError(f"phase 15 cluster srht: {rows['srht']}")
+        del B, c, Bs, cs, op
+        torch.cuda.empty_cache()
+        # the Gaussian at m = 2^16: B4 with col0, one launch a tile
+        m16 = M_DENSE
+        A16, b16 = A[:m16], b[:m16]
+        src16 = ArraySource(A16, tile_rows=T)
+        # the device with its index, as the streaming drivers check an operator's
+        op = sketch_lib.sample("gaussian", gen, d, m16, device=solve_device(dev), materialize=False)
+        Bs, _, cs = stream_sketch(src16, op=op, rhs=b16)
+        B, c, st, wall = self._cluster_pass1("cluster_gaussian", src16, op, b16, checkpoint_every=0)
+        S_abs = op.as_dense().abs()
+        g = 2 * _gamma(torch, m16, A.dtype)
+        ok = bool(((B - Bs).abs() <= g * (S_abs @ A16.abs())).all()) and bool(
+            ((c - cs).abs() <= g * (S_abs @ b16.abs())).all())
+        launched = self.paths["cluster_gaussian"]["fused_gaussian_sketch"]
+        rows["gaussian"] = dict(m=m16, max_abs_err_vs_serial=float((B - Bs).abs().max()), within=ok, wall=wall,
+                                b4_launches=launched)
+        if not (ok and launched == src16.num_tiles):
+            raise AssertionError(f"phase 15 cluster gaussian: {rows['gaussian']}")
+        del B, c, Bs, cs, S_abs, op
+        torch.cuda.empty_cache()
+        # sparse-sign on the main problem: the (k·d, n + 1) state per worker
+        m = A.shape[0]
+        op = sketch_lib.sample("sparse_sign", gen, d, m, device=dev)
+        Bs, _, cs = stream_sketch(self.src, op=op, rhs=b)
+        B, c, st, wall = self._cluster_pass1("cluster_sparse_sign", self.src, op, b, checkpoint_every=0)
+        K = int(op.csr(A.dtype).offsets.diff().max())
+        op_abs = SparseSignSketch(buckets=op.buckets, signs=op.signs.abs(), d=d, m=m, k=op.k)
+        gK = 2 * _gamma(torch, K, A.dtype)
+        ok = bool(((c - cs).abs() <= gK * op_abs.apply(b.abs())).all())
+        err = float((c - cs).abs().max())
+        for c0 in range(0, n, 125):
+            gap = (B[:, c0:c0 + 125] - Bs[:, c0:c0 + 125]).abs()
+            ok = ok and bool((gap <= gK * op_abs.apply(A[:, c0:c0 + 125].abs())).all())
+            err = max(err, float(gap.max()))
+            del gap
+        rows["sparse_sign"] = dict(m=m, K=K, max_abs_err_vs_serial=err, within=ok, wall=wall,
+                                   b1=self.b1["cluster_sparse_sign"],
+                                   state_mb_per_worker=op.k * d * (n + 1) * 8 / 1e6)
+        if not (ok and self.b1["cluster_sparse_sign"] == self.src.num_tiles):
+            raise AssertionError(f"phase 15 cluster sparse_sign: {rows['sparse_sign']}")
+        del B, c, Bs, cs, op, op_abs
+        torch.cuda.empty_cache()
+        self.times["kinds"] = rows
+        _p(f"phase 15: other kinds on {self.WORKERS} workers, no checkpoints (srht bitwise the serial stream; "
+           f"gaussian within 2·γ_m·|S||A|, sparse_sign within 2·γ_K·|S||A| of it; card: {self.smi}): "
+           f"{json.dumps(rows)}")
+
+    # ---- (5) -----------------------------------------------------------------
+    def demo(self):
+        import numpy as np
+
+        from repro_torch.cluster import ClusterEngine, DelayWorker, KillWorker
+        from repro_torch.core import generate_problem, lstsq, qr_solve
+        from repro_torch.streaming import MemmapSource, stream_sketch
+
+        torch, gen, dev = self.torch, self.gen, self.dev
+        m, n = self.M_DEMO, N_MAIN
+        p = generate_problem(gen, m, n, cond=1e6, beta=1e-4, device=dev)
+        e_qr = _rel(qr_solve(p.A, p.b), p.x_true)
+        path = Path(self.ckpt_root) / "A.npy"
+        _, t_save = _sync_time(torch, lambda: np.save(path, p.A.cpu().numpy()))
+
+        def solve(name, faults, certify=True, **kw):
+            eng = ClusterEngine(MemmapSource(path, tile_rows=self.DEMO_TILE),
+                                self.spec(name, faults=faults, checkpoint_every=self.DEMO_EVERY, **kw))
+
+            def run():
+                # the sketch first: the injected fault fires here
+                B, _, c = stream_sketch(eng, self.seeded(), sketch_size=8 * n, rhs=p.b)
+                if not certify:
+                    return B, c, None
+                return B, c, lstsq(eng, p.b, self.seeded(), accuracy="certified", sketch_size=8 * n)
+
+            try:
+                (B, c, res), wall = _sync_time(torch, lambda: self.counted(name, run))
+            finally:
+                eng.close()
+            self.stats[name] = dict(eng.stats)
+            self.teardown(name)
+            return B, c, res, dict(eng.stats), wall
+
+        B0, c0, r0, st0, t0 = solve("demo_clean", None)
+        w, at = self.DEMO_KILL
+        B1, c1, r1, st1, t1 = solve("demo_kill", [KillWorker(worker=w, at_tile=at)])
+        row = dict(m=m, n=n, tiles=-(-m // self.DEMO_TILE), err=_rel(r1.x, p.x_true), qr_err=e_qr,
+                   sketch_bitwise=torch.equal(B0, B1) and torch.equal(c0, c1),
+                   passed=[bool(r0.certificate.passed), bool(r1.certificate.passed)],
+                   rel_error_bound=float(r1.certificate.rel_error_bound),
+                   x_gap=float((r0.x - r1.x).abs().max()), x_bitwise=torch.equal(r0.x, r1.x),
+                   recoveries=st1["recoveries"], restores=st1["restores"], wall_clean=t0, wall_kill=t1,
+                   save_s=t_save, method=r1.method, itn=int(r1.itn))
+        _p(f"phase 15: acceptance demo (MemmapSource, {self.WORKERS} workers, checkpoint every {self.DEMO_EVERY} "
+           f"tiles, worker {w} killed at its tile {at}; each run: the cluster sketch, then lstsq(accuracy="
+           f"'certified'); card: {self.smi}): {json.dumps(row)}")
+        if not (row["sketch_bitwise"] and all(row["passed"]) and row["x_gap"] <= 1e-9
+                and st1["recoveries"] == 1 and st1["restores"] == 1
+                and row["err"] < max(row["rel_error_bound"], 1e-6)):
+            raise AssertionError(f"phase 15 demo: {row}")
+        B2, c2, _, st2, t2 = solve("demo_delay", [DelayWorker(worker=w, seconds=self.DELAY_S, at_tile=1)],
+                                   certify=False, heartbeat_timeout=self.HEARTBEAT_S)
+        delay = dict(heartbeat_evictions=st2["heartbeat_evictions"], recoveries=st2["recoveries"],
+                     sketch_bitwise=torch.equal(B0, B2) and torch.equal(c0, c2), wall=t2,
+                     b1=self.b1["demo_delay"])
+        _p(f"phase 15: demo_delay (worker {w} stalls {self.DELAY_S} s at its tile 1, heartbeat timeout "
+           f"{self.HEARTBEAT_S} s; the sketch only): {json.dumps(delay)}")
+        if not (delay["sketch_bitwise"] and st2["heartbeat_evictions"] >= 1):
+            raise AssertionError(f"phase 15 demo_delay: {delay}")
+        self.times["demo"] = dict(row, delay=delay)
+        del p, B0, B1, B2, r0, r1
+        torch.cuda.empty_cache()
+
 
 class _Phase14:
     """Phase 14: serving (``repro_torch.serve``) at the paper's size.

@@ -9,10 +9,14 @@ span tracer, the metrics registry and their exporters; ``repro_torch.streaming``
 the row sources, the mergeable sketch accumulators and the out-of-core
 solvers (``stream_lstsq``, ``StreamingSolver``); ``repro_torch.serve`` the
 multi-tenant ``SolveService`` (content fingerprints, the factor cache,
-micro-batching and shape buckets).  Entry points run on the
-card unless the caller passes ``device="cpu"``.
+micro-batching and shape buckets); ``repro_torch.cluster`` the
+fault-tolerant worker pool (``ClusterSpec``, ``ClusterEngine``) that the
+streaming drivers and ``lstsq`` take as ``cluster=``, and
+``repro_torch.train`` its atomic checkpoint store.  Entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
-from . import convert, core, kernels, obs, serve, streaming
+from . import cluster, convert, core, kernels, obs, serve, streaming, train
+from .cluster import ClusterEngine, ClusterSpec
 from .core import (
     Certificate,
     SketchedSolver,
@@ -31,7 +35,8 @@ from .serve import SolveService
 from .streaming import StreamingSolver, stream_lstsq
 
 __all__ = [
-    "convert", "core", "kernels", "obs", "serve", "streaming", "Certificate", "SketchedSolver",
+    "cluster", "convert", "core", "kernels", "obs", "serve", "streaming", "train",
+    "ClusterEngine", "ClusterSpec", "Certificate", "SketchedSolver",
     "SolveService",
     "StreamingSolver", "stream_lstsq",
     "certify_solution", "fossils", "generate_problem", "iterative_sketching",

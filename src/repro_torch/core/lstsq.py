@@ -24,8 +24,9 @@ stored B = SA is extended, never recomputed).  A row source (anything
 with a ``tiles()`` method, ``repro_torch.streaming``) delegates to
 :func:`repro_torch.streaming.solve.stream_lstsq` (also re-exported here as
 ``stream_lstsq``), whose two-pass solvers never hold A; there
-``accuracy="certified"`` becomes ``certify=True``.  ``cluster=`` (A11)
-raises ``NotImplementedError`` naming its ROADMAP slice.
+``accuracy="certified"`` becomes ``certify=True``.  ``cluster=ClusterSpec(...)``
+(``repro_torch.cluster``) makes a solve a streamed one (an in-memory A
+becomes a row source) across a fault-tolerant worker pool.
 
 ``A`` is a dense matrix, a torch sparse tensor (COO, CSR or CSC), a
 duck-typed operator or any ``repro_torch.core.linop`` operator.  Selection
@@ -173,10 +174,6 @@ def _ridge_diagnostics(A, b, x, reg):
     r = b - (A @ x)
     g = (A.rmatvec(r) if r.ndim == 1 else A.rmatmat(r)) - lam * x
     return torch.linalg.vector_norm(r, dim=0), torch.linalg.vector_norm(g, dim=0)
-
-
-def _not_ported(what: str, slice_: str):
-    return NotImplementedError(f"{what} arrives with ROADMAP {slice_}")
 
 
 def _certified_lstsq(
@@ -341,8 +338,8 @@ def lstsq(
     final posterior bound.  ``precision="mixed"`` sketches a bf16-rounded
     copy of A for the sketched methods; the certified tier then verifies
     the factor and escalates back to full precision when rounding broke
-    the embedding.  ``cluster`` (unported) keeps the reference's name and
-    accepts only its default.
+    the embedding.  ``cluster`` (a ``ClusterSpec`` or ``ClusterEngine``)
+    runs the solve as a streamed one across the cluster engine's workers.
 
     ``trace=True`` records a nested wall-clock span timeline of this call
     (method selection, sketch and QR, the solve, certificate rungs) and
@@ -380,8 +377,12 @@ def _lstsq_impl(
         raise ValueError(f"unknown accuracy {accuracy!r}; have {ACCURACIES}")
     backend_lib.check_precision(precision)
     backend_lib.check_backend(backend)
-    if cluster is not None:
-        raise _not_ported("cluster= (multi-worker solves)", "A11")
+    if cluster is not None and not callable(getattr(A, "tiles", None)):
+        # cluster solving is a streaming mode: an in-memory A becomes a
+        # row source (tiles of DEFAULT_TILE_ROWS rows)
+        from ..streaming.sources import as_source as _as_source
+
+        A = _as_source(A)
     if callable(getattr(A, "tiles", None)):
         # Row-streamed (out-of-core) input: the two-pass streaming drivers.
         # Lazy import (repro_torch.streaming imports this package).  A
@@ -397,8 +398,8 @@ def _lstsq_impl(
         return _stream_lstsq(
             A, b, key, method=method, sketch=sketch, sketch_size=sketch_size, reg=reg,
             backend=backend, history=history, certify=accuracy == "certified",
-            certified_rtol=certified_rtol, certified_probes=certified_probes, device=device,
-            **tol,
+            certified_rtol=certified_rtol, certified_probes=certified_probes, cluster=cluster,
+            device=device, **tol,
         )
 
     A_in = linop.as_operator(A, device=device)

@@ -22,11 +22,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
 
-__all__ = ["load", "check", "dtype_code", "stream_ptr", "ptr", "BUILD_DIR", "CSRC"]
+__all__ = ["load", "check", "dtype_code", "stream_ptr", "ptr", "count_launch", "BUILD_DIR", "CSRC"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -89,6 +90,16 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_LAUNCHES_MU = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: under a lock, since the cluster's
+    worker threads launch the same kernel at once."""
+    with _LAUNCHES_MU:
+        wrapper.launches += 1
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -200,7 +200,7 @@ def countsketch_apply(
             _build.stream_ptr(A.device),
         )
     _build.check(err, "countsketch_apply")
-    countsketch_apply.launches += 1
+    _build.count_launch(countsketch_apply)
     if out is not None:
         return out
     return dest[:, 0] if A.ndim == 1 else dest
@@ -300,7 +300,7 @@ def _coo_launch(rows, cols, vals, shape, buckets, weights, d, plan):
             d * n, nnz, m, _build.stream_ptr(vals.device),
         )
     _build.check(err, "countsketch_coo_apply")
-    countsketch_coo_apply.launches += 1
+    _build.count_launch(countsketch_coo_apply)
     return out.view(d, n) if len(shape) == 2 else out
 
 

@@ -106,7 +106,7 @@ def sketch_matmul(S: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
             split.slab, split.parts, _build.stream_ptr(A.device),
         )
     _build.check(err, "sketch_matmul")
-    sketch_matmul.launches += 1
+    _build.count_launch(sketch_matmul)
     return out[:, 0] if A.ndim == 1 else out
 
 
@@ -143,7 +143,7 @@ def fused_gaussian_sketch(A: torch.Tensor, key, d: int, *, scale=None, col0: int
         else:
             err = lib.repro_fused_gaussian_cols(code, k0, k1, int(col0), default_scale(d, scale), *tail)
     _build.check(err, "fused_gaussian_sketch")
-    fused_gaussian_sketch.launches += 1
+    _build.count_launch(fused_gaussian_sketch)
     return out[:, 0] if A.ndim == 1 else out
 
 

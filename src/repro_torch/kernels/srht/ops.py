@@ -158,7 +158,7 @@ def hadamard_transform(x: torch.Tensor) -> torch.Tensor:
             code, x2.data_ptr(), out.data_ptr(), m, n, _build.stream_ptr(x.device)
         )
     _build.check(err, "hadamard_transform")
-    hadamard_transform.launches += 1
+    _build.count_launch(hadamard_transform)
     return out[:, 0] if x.ndim == 1 else out
 
 
@@ -220,7 +220,7 @@ def srht_apply(
             _build.stream_ptr(A.device),
         )
     _build.check(err, "srht_apply")
-    srht_apply.launches += 1
+    _build.count_launch(srht_apply)
     return out[:, 0] if A.ndim == 1 else out
 
 

@@ -73,7 +73,7 @@ def countsketch_gram(A, buckets, signs, d, *, csr=None):
             split.slab, split.parts, _build.stream_ptr(A.device),
         )
     _build.check(err, "countsketch_gram")
-    countsketch_gram.launches += 1
+    _build.count_launch(countsketch_gram)
     return B, G
 
 
@@ -112,7 +112,7 @@ def matmul_gram(S, A):
             _build.stream_ptr(A.device),
         )
     _build.check(err, "matmul_gram")
-    matmul_gram.launches += 1
+    _build.count_launch(matmul_gram)
     return B, G
 
 
@@ -142,7 +142,7 @@ def gaussian_gram(A, key, d, *, scale=None):
             split_g.slab, split_g.parts, _build.stream_ptr(A.device),
         )
     _build.check(err, "gaussian_gram")
-    gaussian_gram.launches += 1
+    _build.count_launch(gaussian_gram)
     return B, G
 
 

@@ -60,7 +60,7 @@ def panel_gram(B: torch.Tensor) -> torch.Tensor:
             split.parts, _build.stream_ptr(B.device),
         )
     _build.check(err, "panel_gram")
-    panel_gram.launches += 1
+    _build.count_launch(panel_gram)
     return G
 
 

@@ -19,8 +19,9 @@ Port of ``repro.streaming``.  The in-memory solvers of
 
 The same generator draws the same S as the in-memory solvers, so streamed
 results match ``repro_torch.core.lstsq`` on the materialized A.
-``sharded_sketch`` and ``cluster=`` belong to later slices (ROADMAP A12,
-A11) and raise ``NotImplementedError``.
+``cluster=`` runs the streams across ``repro_torch.cluster``'s worker
+pool; ``sharded_sketch`` belongs to a later slice (ROADMAP A12) and raises
+``NotImplementedError``.
 """
 from . import accumulate, solve, sources
 from .accumulate import (

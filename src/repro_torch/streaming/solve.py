@@ -44,9 +44,10 @@ Spans (``repro_torch.obs.trace``), as the reference names them:
 ``stream.pass2`` per product stream, ``certify.streamed``, and the
 session's ``streaming.solve`` / ``streaming.solve_many``.
 
-``cluster=`` and a source's cluster hooks (``cluster_sketch``, ``matvec``,
-``rmatvec``, ``residual_grad``) belong to the cluster slice (ROADMAP A11)
-and raise ``NotImplementedError``.
+``cluster=ClusterSpec(...)`` (or a prebuilt ``ClusterEngine``) runs every
+stream across the worker pool of ``repro_torch.cluster``: a source with a
+cluster engine's hooks (``cluster_sketch``, ``matvec``, ``rmatvec``,
+``residual_grad``) takes pass 1 and each pass-2 product through them.
 """
 from __future__ import annotations
 
@@ -70,20 +71,27 @@ __all__ = ["stream_lstsq", "stream_sketch", "StreamingSolver", "STREAM_METHODS"]
 
 STREAM_METHODS = ("saa", "iterative", "sketch_and_solve")
 _ALIASES = {"sketch": "sketch_and_solve", "single_pass": "sketch_and_solve"}
-_CLUSTER_HOOKS = ("cluster_sketch", "matvec", "rmatvec", "residual_grad")
 
 
-def _no_cluster(cluster=None, source=None):
-    """Raise for ``cluster=`` and for a source with a cluster engine's
-    hooks: the cluster slice's."""
-    if cluster is not None:
-        raise NotImplementedError("cluster= (streaming across a worker pool) arrives with ROADMAP A11")
-    for hook in _CLUSTER_HOOKS:
-        if callable(getattr(source, hook, None)):
-            raise NotImplementedError(
-                f"a row source's {hook} hook (the cluster engine's distributed "
-                "pass) arrives with ROADMAP A11"
-            )
+def _maybe_cluster(source, cluster, backend, counters=None, device=None):
+    """Wrap ``source`` in a ``ClusterEngine`` when a spec or engine was given.
+
+    Returns ``(source, owned)``: ``owned`` is the engine THIS call built
+    (the caller must ``close()`` it when done, or its worker threads and
+    temp checkpoint dir outlive the solve), or ``None`` when the source
+    passed through or the engine was the caller's (left open for reuse).
+    Lazy import: ``repro_torch.cluster`` imports the streaming layer.
+    """
+    if cluster is None:
+        return source, None
+    from ..cluster.coordinator import ClusterEngine
+
+    if isinstance(cluster, ClusterEngine):
+        if counters is not None and cluster.counters is None:
+            cluster.counters = counters
+        return cluster, None
+    engine = ClusterEngine(source, cluster, backend=backend, counters=counters, device=device)
+    return engine, engine
 
 
 def _operator(source, key, sketch, sketch_size, device):
@@ -128,19 +136,26 @@ def stream_sketch(source, key=None, *, op=None, sketch="clarkson_woodruff",
         raise ValueError(f"operator over m={op.m} rows, source has m={m}")
     if rhs is not None and tuple(rhs.shape) != (m,):
         raise ValueError(f"rhs must have shape ({m},), got {tuple(rhs.shape)}")
-    _no_cluster(source=source)
     ncols = n + (1 if rhs is not None else 0)
-    with obs_trace.span("stream.pass1", mode="serial", rows=m):
-        acc = make_accumulator(op, ncols, dtype=source.dtype, backend=backend)
-        for offset, tile in device_tiles(source, dev):
-            with obs_trace.span("stream.tile", offset=offset):
-                if rhs is not None:
-                    t = tile.shape[0]
-                    tile = torch.cat([tile, rhs[offset : offset + t, None].to(tile.dtype)], dim=1)
-                acc.update(tile, offset)
-                obs_trace.maybe_block(tile)
-        Bc = acc.finalize()
-        obs_trace.maybe_block(Bc)
+    cluster_sketch = getattr(source, "cluster_sketch", None)
+    if callable(cluster_sketch):
+        # a ClusterEngine source: pass 1 fans out over the worker pool
+        # (checkpointed, fault-tolerant) and merges to the same sketch
+        with obs_trace.span("stream.pass1", mode="cluster", rows=m):
+            Bc = cluster_sketch(op, rhs=rhs, backend=backend)
+            obs_trace.maybe_block(Bc)
+    else:
+        with obs_trace.span("stream.pass1", mode="serial", rows=m):
+            acc = make_accumulator(op, ncols, dtype=source.dtype, backend=backend)
+            for offset, tile in device_tiles(source, dev):
+                with obs_trace.span("stream.tile", offset=offset):
+                    if rhs is not None:
+                        t = tile.shape[0]
+                        tile = torch.cat([tile, rhs[offset : offset + t, None].to(tile.dtype)], dim=1)
+                    acc.update(tile, offset)
+                    obs_trace.maybe_block(tile)
+            Bc = acc.finalize()
+            obs_trace.maybe_block(Bc)
     if rhs is None:
         return Bc, op, None
     # contiguous, as the in-memory sketches are: the products that read B
@@ -154,9 +169,16 @@ def stream_sketch(source, key=None, *, op=None, sketch="clarkson_woodruff",
 
 
 def _stream_matvec(source, x):
-    """A @ x by placing per-tile products (exact placement, no summation)."""
-    _no_cluster(source=source)
+    """A @ x by placing per-tile products (exact placement, no summation).
+
+    A source that distributes the product itself (``ClusterEngine``) has a
+    ``matvec`` method, which takes precedence over the serial tile loop;
+    the same holds for ``rmatvec`` and ``residual_grad`` below.
+    """
+    mv = getattr(source, "matvec", None)
     with obs_trace.span("stream.pass2", op="matvec"):
+        if callable(mv):
+            return obs_trace.maybe_block(mv(x))
         out = torch.empty((source.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
         for offset, tile in device_tiles(source, x.device):
             torch.matmul(tile, x, out=out[offset : offset + tile.shape[0]])
@@ -165,8 +187,10 @@ def _stream_matvec(source, x):
 
 def _stream_rmatvec(source, u):
     """Aᵀ @ u by adding per-tile adjoint products in tile order."""
-    _no_cluster(source=source)
+    rmv = getattr(source, "rmatvec", None)
     with obs_trace.span("stream.pass2", op="rmatvec"):
+        if callable(rmv):
+            return obs_trace.maybe_block(rmv(u))
         g = torch.zeros((source.shape[1],) + tuple(u.shape[1:]), dtype=u.dtype, device=u.device)
         for offset, tile in device_tiles(source, u.device):
             g = g + tile.T @ u[offset : offset + tile.shape[0]]
@@ -181,8 +205,12 @@ def _stream_residual_grad(source, b, x):
     stacked right-hand sides (b (m, k), x (n, k)): the squared norms come
     back per column.
     """
-    _no_cluster(source=source)
+    rg = getattr(source, "residual_grad", None)
     with obs_trace.span("stream.pass2", op="residual_grad"):
+        if callable(rg):
+            out = rg(b, x)
+            obs_trace.maybe_block(out)
+            return out
         g = torch.zeros((source.shape[1],) + tuple(b.shape[1:]), dtype=b.dtype, device=b.device)
         rn2 = torch.zeros(tuple(b.shape[1:]), dtype=b.dtype, device=b.device)
         for offset, tile in device_tiles(source, b.device):
@@ -487,17 +515,29 @@ def stream_lstsq(
     residual/gradient stream (which also fills the diagnostics that
     ``"sketch_and_solve"`` otherwise skips).  No escalation runs
     out-of-core: a failed certificate reports ``passed=False``.
+
+    ``cluster=ClusterSpec(...)`` (or a prebuilt
+    ``repro_torch.cluster.ClusterEngine``) runs every stream, the pass-1
+    sketch and each pass-2 product, across a fault-tolerant worker pool
+    with checkpointed sketch state (``repro_torch.cluster``).  An engine
+    built here from a spec is closed before returning (its threads joined,
+    its temp checkpoint dir removed); a prebuilt engine stays open for the
+    caller to reuse and ``close()``.
     """
-    _no_cluster(cluster)
     source = as_source(source, tile_rows)
     scope = obs_trace.solve_scope(trace)
     with scope, obs_trace.span("stream_lstsq"):
-        res = _stream_lstsq_impl(
-            source, b, key, method=method, sketch=sketch, sketch_size=sketch_size, reg=reg,
-            atol=atol, btol=btol, steptol=steptol, iter_lim=iter_lim, backend=backend,
-            history=history, certify=certify, certified_rtol=certified_rtol,
-            certified_probes=certified_probes, device=device,
-        )
+        source, owned = _maybe_cluster(source, cluster, backend, device=device)
+        try:
+            res = _stream_lstsq_impl(
+                source, b, key, method=method, sketch=sketch, sketch_size=sketch_size, reg=reg,
+                atol=atol, btol=btol, steptol=steptol, iter_lim=iter_lim, backend=backend,
+                history=history, certify=certify, certified_rtol=certified_rtol,
+                certified_probes=certified_probes, device=device,
+            )
+        finally:
+            if owned is not None:
+                owned.close()
     return scope.attach(res)
 
 
@@ -605,8 +645,11 @@ def _history(hist, b):
 class _CountingSource(RowSource):
     """Transparent wrapper that counts passes and tiles into a stats dict.
 
-    Unknown attributes forward to the wrapped source (so the cluster-hook
-    probes see through it)."""
+    Unknown attributes forward to the wrapped source, so the probes in
+    ``_stream_matvec`` and the others find a ``ClusterEngine``'s methods
+    through the wrapper (the engine then counts its own passes and tiles
+    through its ``counters`` hook; the serial count here fires only on the
+    serial ``tiles()`` path, never both)."""
 
     def __init__(self, inner: RowSource, stats: dict):
         self.inner = inner
@@ -647,7 +690,10 @@ class StreamingSolver:
     a kind name or a drawn operator, ``device=None`` means ``"cuda"``.
 
     ``stats`` counts ``sketches`` / ``qr_factorizations`` / ``solves`` as
-    the in-memory session does, plus ``passes`` / ``tiles``.
+    the in-memory session does, plus ``passes`` / ``tiles``.  With
+    ``cluster=`` every stream runs on a ``ClusterEngine`` whose counters
+    feed ``stats``; ``close()`` (or leaving a ``with`` block) releases an
+    engine the session built.
     """
 
     def __init__(
@@ -667,40 +713,49 @@ class StreamingSolver:
         cluster=None,
         device=None,
     ):
-        _no_cluster(cluster)
         self.stats = REGISTRY.stats_dict("streaming", {
             "sketches": 0, "qr_factorizations": 0, "solves": 0, "passes": 0, "tiles": 0,
         })
-        self.source = _CountingSource(as_source(source, tile_rows), self.stats)
-        m, n = self.source.shape
-        self.shape = (m, n)
         self.device = solve_device(device)
-        self.reg = reg
         self.backend = backend_lib.check_backend(backend)
-        self._dtype = self.source.dtype
-        if steptol is None:
-            steptol = 32 * float(torch.finfo(self._dtype).eps)
-        self._kw = dict(atol=atol, btol=btol, steptol=steptol, iter_lim=iter_lim)
-        self._lam = None if reg is None else torch.as_tensor(reg, dtype=self._dtype, device=self.device)
-
-        gen = None if key is None else backend_lib.as_generator(key, self.device)
-        B, self._sketch_op, _ = stream_sketch(
-            self.source, gen, sketch=sketch, sketch_size=sketch_size, backend=self.backend,
-            device=self.device,
+        inner, self._owned_engine = _maybe_cluster(
+            as_source(source, tile_rows), cluster, self.backend, counters=self.stats, device=self.device,
         )
-        self.sketch_size = self._sketch_op.d
-        self.stats["sketches"] += 1
-        if self._lam is not None:
-            B = _augment(B, self._lam)
-        with obs_trace.span("factor.qr", shape=tuple(B.shape)):
-            self.factor = SketchedFactor.from_sketch(B)
-            obs_trace.maybe_block(self.factor.R)
-        self.stats["qr_factorizations"] += 1
+        try:
+            self.source = _CountingSource(inner, self.stats)
+            m, n = self.source.shape
+            self.shape = (m, n)
+            self.reg = reg
+            self._dtype = self.source.dtype
+            if steptol is None:
+                steptol = 32 * float(torch.finfo(self._dtype).eps)
+            self._kw = dict(atol=atol, btol=btol, steptol=steptol, iter_lim=iter_lim)
+            self._lam = None if reg is None else torch.as_tensor(reg, dtype=self._dtype, device=self.device)
+
+            gen = None if key is None else backend_lib.as_generator(key, self.device)
+            B, self._sketch_op, _ = stream_sketch(
+                self.source, gen, sketch=sketch, sketch_size=sketch_size, backend=self.backend,
+                device=self.device,
+            )
+            self.sketch_size = self._sketch_op.d
+            self.stats["sketches"] += 1
+            if self._lam is not None:
+                B = _augment(B, self._lam)
+            with obs_trace.span("factor.qr", shape=tuple(B.shape)):
+                self.factor = SketchedFactor.from_sketch(B)
+                obs_trace.maybe_block(self.factor.R)
+            self.stats["qr_factorizations"] += 1
+        except BaseException:
+            self.close()  # a failed build must not leak the worker pool
+            raise
 
     def close(self):
-        """Release what the session holds for a cluster engine: nothing
-        until the cluster slice (ROADMAP A11); kept for the reference's
-        interface and the context manager."""
+        """Release a cluster engine this session built from a ``cluster=``
+        spec (worker threads and temp checkpoint dir); a no-op otherwise
+        and on repeat calls.  A caller-provided engine is never touched."""
+        if self._owned_engine is not None:
+            self._owned_engine.close()
+            self._owned_engine = None
 
     def __enter__(self):
         return self

@@ -56,13 +56,15 @@ def test_every_module_imports_without_jax():
 
 def test_the_scan_covers_every_package():
     mods = _port_modules()
-    for pkg in ("core", "kernels", "obs", "streaming", "serve", "analysis"):
+    for pkg in ("core", "kernels", "obs", "streaming", "serve", "analysis", "cluster", "train"):
         assert f"repro_torch.{pkg}" in mods, pkg
     assert {"repro_torch.streaming.sources", "repro_torch.streaming.accumulate",
             "repro_torch.streaming.solve"} <= set(mods)
     assert {"repro_torch.serve.fingerprint", "repro_torch.serve.cache",
             "repro_torch.serve.batching", "repro_torch.serve.service",
             "repro_torch.analysis.annotations"} <= set(mods)
+    assert {"repro_torch.cluster.shard", "repro_torch.cluster.faults", "repro_torch.cluster.checkpoint",
+            "repro_torch.cluster.coordinator", "repro_torch.train.checkpoint"} <= set(mods)
 
 
 def test_serve_imports_neither_jax_nor_the_reference():

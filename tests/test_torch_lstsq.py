@@ -8,6 +8,7 @@ QR each, κ = 1e10); ``lsqr`` stopped after 5 iterations within 1e-8;
 ``test_torch_saa.py``), on the same S.
 """
 import itertools
+import threading
 
 import numpy as np
 import pytest
@@ -157,27 +158,71 @@ def test_tolerance_audit_like_reference(prob):
     assert res.method == "direct"
 
 
-class _RowSource(RowSource):
-    """A row source with a cluster engine's hook (the cluster slice's)."""
+class _HookSource(RowSource):
+    """A row source with a cluster engine's hooks, each recorded and
+    answered by the serial stream over the same tiles."""
 
-    shape, dtype = (100, 4), torch.float64
+    def __init__(self, A):
+        self.serial = ArraySource(A, tile_rows=4096)
+        self.shape, self.dtype = self.serial.shape, self.serial.dtype
+        self.calls = []
 
     def tiles(self):
-        return iter(())
+        raise AssertionError("the drivers must take the hooks, not the serial tiles")
 
     def cluster_sketch(self, op, rhs=None, backend="auto"):
-        raise AssertionError("never called")
+        from repro_torch.streaming import stream_sketch
+
+        self.calls.append("cluster_sketch")
+        B, _, c = stream_sketch(self.serial, op=op, rhs=rhs, backend=backend, device=CPU)
+        return B if c is None else torch.cat([B, c[:, None]], dim=1)
+
+    def matvec(self, x):
+        from repro_torch.streaming import solve as solve_mod
+
+        self.calls.append("matvec")
+        return solve_mod._stream_matvec(self.serial, x)
+
+    def rmatvec(self, u):
+        from repro_torch.streaming import solve as solve_mod
+
+        self.calls.append("rmatvec")
+        return solve_mod._stream_rmatvec(self.serial, u)
+
+    def residual_grad(self, b, x):
+        from repro_torch.streaming import solve as solve_mod
+
+        self.calls.append("residual_grad")
+        return solve_mod._stream_residual_grad(self.serial, b, x)
 
 
-@pytest.mark.parametrize(
-    "kw,slice_",
-    [
-        pytest.param(dict(cluster=object()), "A11", id="kw1-A11"),
-    ],
-)
-def test_unported_options_raise(big, kw, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        lstsq(big.A, big.b, 0, device=CPU, **kw)
+def test_cluster_option_builds_and_closes_an_engine(big, monkeypatch):
+    """cluster= (which raised before the cluster slice was ported) turns an
+    in-memory A into a row source and solves it on a ClusterEngine that the
+    call builds and closes again."""
+    from repro_torch.cluster import ClusterEngine, ClusterSpec
+
+    built, closed = [], []
+    real_init, real_close = ClusterEngine.__init__, ClusterEngine.close
+
+    def init(self, *a, **kw):
+        built.append(self)
+        real_init(self, *a, **kw)
+
+    def close(self):
+        closed.append(self)
+        real_close(self)
+
+    monkeypatch.setattr(ClusterEngine, "__init__", init)
+    monkeypatch.setattr(ClusterEngine, "close", close)
+    before = set(threading.enumerate())
+    res = lstsq(big.A, big.b, 0, device=CPU, cluster=ClusterSpec(num_workers=3, checkpoint_every=0))
+    assert res.method == "stream_iterative"  # a stream's auto method
+    assert len(built) == 1 and closed == built
+    assert not [t for t in threading.enumerate() if t.name.startswith("repro-cluster-w") and t not in before]
+    assert built[0].stats["passes"] >= 2 and built[0].source.tile_rows == 8192
+    e_qr = _rel(qr_solve(big.A, big.b, device=CPU), big.x_true)
+    assert _rel(res.x, big.x_true) <= 100 * max(e_qr, 1e-12)
 
 
 def test_reg_solves_the_ridge_problem(big):
@@ -239,14 +284,17 @@ def test_forward_stable_and_certified_calls_reach_truth(big, kw, method):
     assert _rel(res.x, big.x_true) <= 100 * max(e_qr, 1e-12)
 
 
-def test_unported_inputs_raise(prob):
-    """A row source delegates to the streaming solvers since A9
-    (tests/test_torch_streaming.py); what it reaches of the cluster slice
-    raises, naming A11."""
-    with pytest.raises(NotImplementedError, match="A11"):
-        lstsq(_RowSource(), np.zeros(100), 0, device=CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        lstsq(ArraySource(np.zeros((100, 4))), np.zeros(100), 0, cluster=object(), device=CPU)
+@pytest.mark.parametrize("method,hooks", [("saa", {"cluster_sketch", "matvec", "rmatvec"}),
+                                          ("iterative", {"cluster_sketch", "residual_grad"})])
+def test_row_source_cluster_hooks_are_called(big, method, hooks):
+    """A row source with a cluster engine's hooks (which raised before the
+    cluster slice was ported) takes pass 1 and every pass-2 product through
+    them: bitwise the serial stream over the same tiles."""
+    src = _HookSource(big.A)
+    res = lstsq(src, big.b, 0, method=method, device=CPU)
+    serial = lstsq(ArraySource(big.A, tile_rows=4096), big.b, 0, method=method, device=CPU)
+    assert set(src.calls) == hooks and src.calls.count("cluster_sketch") == 1
+    assert torch.equal(res.x, serial.x) and res.method == serial.method == f"stream_{method}"
 
 
 def test_sparse_input_solves(big):

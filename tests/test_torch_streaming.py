@@ -573,21 +573,42 @@ def test_build_streaming_factor_parity(prob):
     assert _rel(f.R.abs(), np.abs(np.asarray(jf.R))) < 1e-12
 
 
-def test_cluster_raises_naming_a11(prob):
+def test_cluster_routes_every_stream_through_an_engine(prob, monkeypatch):
+    """cluster= (which raised before the cluster slice was ported):
+    ``stream_lstsq`` builds a ClusterEngine and closes it before returning,
+    ``StreamingSolver`` closes the one it built in ``close()``, and a
+    source's ``cluster_sketch``/``matvec``/``rmatvec``/``residual_grad``
+    hooks answer pass 1 and every pass-2 product (x within 1e-12 of the
+    serial stream: only the grouping of the range sums differs)."""
+    from repro_torch.cluster import ClusterEngine, ClusterSpec
+
     A, b = prob
-    with pytest.raises(NotImplementedError, match="A11"):
+    calls = []
+    for hook in ("cluster_sketch", "matvec", "rmatvec", "residual_grad", "close"):
+        real = getattr(ClusterEngine, hook)
+
+        def recorded(self, *a, _real=real, _hook=hook, **kw):
+            calls.append(_hook)
+            return _real(self, *a, **kw)
+
+        monkeypatch.setattr(ClusterEngine, hook, recorded)
+    spec = ClusterSpec(num_workers=3, checkpoint_every=2)
+    for method, hooks in (("saa", {"cluster_sketch", "matvec", "rmatvec"}),
+                          ("iterative", {"cluster_sketch", "residual_grad"})):
+        calls.clear()
+        res = tst.stream_lstsq(A, b, 0, method=method, tile_rows=500, device=CPU, cluster=spec)
+        serial = tst.stream_lstsq(A, b, 0, method=method, tile_rows=500, device=CPU)
+        assert set(calls) == hooks | {"close"} and calls.count("cluster_sketch") == 1 and calls[-1] == "close"
+        assert _rel(res.x, serial.x) < 1e-12 and res.method == f"stream_{method}"
+    calls.clear()
+    with tst.StreamingSolver(A, 0, tile_rows=500, cluster=spec, device=CPU) as session:
+        x = session.solve(b).x
+        assert "close" not in calls and calls.count("cluster_sketch") == 1
+        assert session.stats["passes"] > 1 and session.stats["tiles"] == 4 * session.stats["passes"]
+    assert calls[-1] == "close" and calls.count("close") == 1
+    assert _rel(x, tst.StreamingSolver(A, 0, tile_rows=500, device=CPU).solve(b).x) < 1e-12
+    with pytest.raises(TypeError, match="ClusterSpec"):
         tst.stream_lstsq(A, b, 0, cluster=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tst.StreamingSolver(A, 0, cluster=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        lstsq(tst.ArraySource(A), b, 0, cluster=object(), device=CPU)
-
-    class Engine(tst.ArraySource):
-        def cluster_sketch(self, op, rhs=None, backend="auto"):
-            raise AssertionError("never called")
-
-    with pytest.raises(NotImplementedError, match="A11"):
-        tst.stream_lstsq(Engine(A), b, 0, device=CPU)
 
 
 def test_stream_spans_match_reference(prob):
