@@ -143,6 +143,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    pass, the pass-2 poll floor, the engine's stats and B1's launches by
    part; after every part no worker thread or checkpoint directory is
    left.
+16. the distributed solve (class ``_Phase16``, right after phase 15 on the
+   main problem): ``sketched_lstsq`` over a world of one NCCL rank, then
+   four gloo processes sharing the card (each given its 2^18-row block of
+   A by CUDA IPC; the kernels they launch were built here): every scatter
+   kind's solve bitwise on every rank and gated as phase 3, its assembled
+   SA within 2·γ·|S||A| of the monolithic B1 apply, ``sharded_sketch`` of
+   every additive kind (B1; B6 for the dense kinds at m = 2^16) against
+   the monolithic apply of the same S, the SRHT refused, and one
+   compressed all-reduce step (``sketched_psum_grads``) on llama3.2-1b's
+   tied embedding and one layer's seven matrices, gated as the
+   reference's test gates it, rank 0's B1 sketch of the embedding bitwise
+   its plain version on the CPU.  Launches a rank are held exactly; walls
+   and the bytes each rank hands to ``all_reduce`` and ``broadcast`` are
+   printed; every process started is joined or terminated.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -1116,6 +1130,11 @@ def main() -> int:
     phase15 = _Phase15(torch, dev, gen, smi, run_path, paths, root, phase13)
     _, t15 = _sync_time(torch, lambda: phase15.main_problem(A, b, x_true, e_qr))
     _p(f"phase 15: {t15:.1f} s")
+
+    # ---- phase 16: the distributed solve, on the main problem before it is freed
+    phase16 = _Phase16(torch, dev, smi, run_path, paths, root)
+    _, t16 = _sync_time(torch, lambda: phase16.main_problem(A, b, x_true, e_qr, t_saa))
+    _p(f"phase 16: {t16:.1f} s")
     del op_t, St, prob, A, b, x_true
     torch.cuda.empty_cache()
     phase12.sparse()
@@ -1355,6 +1374,8 @@ def main() -> int:
         if name == "countsketch_apply":  # phase 14's serving parts and phase 15's cluster parts
             rows[-1]["serve_launches"] = {part: v["launches"] for part, v in phase14.b1.items()}
             rows[-1]["cluster_launches"] = dict(phase15.b1)
+        if name in ("countsketch_apply", "sketch_matmul"):  # phase 16's parts, a rank each
+            rows[-1]["dist_launches"] = {part: v[name] for part, v in phase16.launches.items() if name in v}
     _p(f"paths (launches per path) {json.dumps(paths)}")
     _p(smi)
     _p(json.dumps({"kernels": rows}))
@@ -2412,6 +2433,7 @@ class _NoPlain:
         ("repro_torch.kernels.sketch_matmul.ops", "fused_gaussian_ref"),
         ("repro_torch.kernels.countsketch.ops", "countsketch_ref"),
         ("repro_torch.kernels.countsketch.ops", "countsketch_fold_ref"),
+        ("repro_torch.kernels.sketch_matmul.ops", "sketch_matmul_ref"),
         ("repro_torch.kernels.srht.ops", "srht_ref"),
         ("repro_torch.streaming.accumulate", "countsketch_fold_ref"),
         ("repro_torch.streaming.accumulate", "srht_ref"),
@@ -3403,6 +3425,505 @@ class _Phase15:
         self.times["demo"] = dict(row, delay=delay)
         del p, B0, B1, B2, r0, r1
         torch.cuda.empty_cache()
+
+
+class _Collectives:
+    """Within ``with``: the bytes this process hands to ``all_reduce`` and
+    ``broadcast`` (each call's tensor once: a rank's share of the traffic)."""
+
+    NAMES = ("all_reduce", "broadcast")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.bytes = dist, {name: 0 for name in self.NAMES}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.dist, name) for name in self.NAMES}
+        for name, real in self.saved.items():
+            def counting(tensor, *a, _name=name, _real=real, **kw):
+                self.bytes[_name] += tensor.numel() * tensor.element_size()
+                return _real(tensor, *a, **kw)
+            setattr(self.dist, name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.saved.items():
+            setattr(self.dist, name, real)
+        return False
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _phase16_rank(rank, world, init, plan, A, b, A_dense, grads, ef, queue):
+    """One rank of phase 16's gloo world, a process of its own on ``A``'s
+    device: its results (arrays as numpy, sent by value), or its traceback,
+    go to ``queue``.  The kernels were built by the parent; ``_build.load``
+    finds the library in ``build/repro_torch``."""
+    import multiprocessing
+    import traceback
+
+    try:
+        part = _Phase16Rank(rank, world, init, plan, A, b, A_dense, grads, ef)
+        # only ``part`` holds the parent's shared blocks now, and lets go of
+        # them when it is done, so the parent can release them (ipc_collect)
+        del A, b, A_dense, grads, ef
+        multiprocessing.current_process()._args = ()
+        queue.put((rank, part.run(), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+class _Phase16Rank:
+    """The parts of phase 16 one gloo rank runs (``_Phase16`` judges them):
+    its row block of the parent's A (shared by CUDA IPC, not copied), the
+    three scatter kinds' ``sketched_lstsq``, ``sharded_sketch`` of every
+    additive kind and one step of ``sketched_psum_grads``.  Each counted part
+    runs under ``_NoPlain`` with its launches and collective bytes read."""
+
+    def __init__(self, rank, world, init, plan, A, b, A_dense, grads, ef):
+        import datetime
+        import os
+
+        import torch
+        import torch.distributed as dist
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the host's cores, shared out
+        self.torch, self.dist, self.rank, self.world, self.plan = torch, dist, rank, world, plan
+        self.A, self.b, self.A_dense, self.grads, self.ef = A, b, A_dense, grads, ef
+        self.dev = A.device
+        if self.dev.type == "cuda":
+            torch.cuda.set_device(self.dev)
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=plan["timeout_s"]))
+        self.out = {"launches": {}, "bytes": {}, "walls": {}}
+
+    def run(self):
+        try:
+            for part in (self.collectives, self.solves, self.sharded, self.compress):
+                t0 = time.perf_counter()
+                part()
+                row = self.out.setdefault("parts", {})[part.__name__] = {"s": time.perf_counter() - t0}
+                if self.dev.type == "cuda":  # hand this rank's cached blocks back to the card
+                    self.torch.cuda.empty_cache()
+                    row.update(card_free_gib=self.torch.cuda.mem_get_info()[0] / 2**30,
+                               peak_gib=self.torch.cuda.max_memory_allocated() / 2**30)
+        finally:
+            self.dist.destroy_process_group()
+            self.A = self.b = self.A_dense = self.grads = self.ef = None
+        return self.out
+
+    def counted(self, name, fn):
+        from repro_torch.kernels import KERNELS, reset_launches
+
+        torch = self.torch
+        _sync(torch, self.dev)
+        reset_launches()
+        with _Collectives() as coll, _NoPlain(torch):
+            out = fn()
+        _sync(torch, self.dev)
+        self.out["launches"][name] = {f.__name__: f.launches for f in KERNELS if f.launches}
+        self.out["bytes"][name] = dict(coll.bytes)
+        return out
+
+    def timed(self, name, fn, reps=3):
+        """Median wall of ``reps`` runs, each started together on every rank."""
+        walls = []
+        for _ in range(reps):
+            self.dist.barrier()
+            _sync(self.torch, self.dev)
+            t0 = time.perf_counter()
+            fn()
+            _sync(self.torch, self.dev)
+            walls.append(time.perf_counter() - t0)
+        self.out["walls"][name] = sorted(walls)[reps // 2]
+
+    def collectives(self):
+        """gloo's all_reduce and broadcast on the device's tensors (what the
+        port uses; PyTorch documents gloo as running these two on CUDA)."""
+        from repro_torch import sharding
+
+        torch, dev, world = self.torch, self.dev, self.world
+        t = torch.full((3,), float(self.rank + 1), dtype=torch.float64, device=dev)
+        s = sharding.psum(t)
+        u = sharding.broadcast_first(torch.arange(5, dtype=torch.int32, device=dev) + 100 * self.rank)
+        self.out["collectives"] = dict(
+            device=str(dev), all_reduce=bool((s == world * (world + 1) / 2).all()) and bool((t == self.rank + 1).all()),
+            broadcast=bool(torch.equal(u, torch.arange(5, dtype=torch.int32, device=dev))))
+
+    def solves(self):
+        from repro_torch import sharding
+        from repro_torch.core import distributed, sketched_lstsq
+        from repro_torch.core import sketch as sketch_lib
+
+        torch, dev, plan = self.torch, self.dev, self.plan
+        A_i, b_i = distributed.shard_rows(self.A, self.b)
+        m, row0 = sharding.row_offset(A_i.shape[0], None, dev)
+        self.out["rows"] = (m, row0, A_i.shape[0])
+        for kind in plan["kinds"]:
+            def solve(kind=kind):
+                gen = torch.Generator(device=dev).manual_seed(plan["seed"])
+                return sketched_lstsq(A_i, b_i, gen, sketch=kind, sketch_size=plan["d"], device=dev)
+
+            res = self.counted(f"dist_{kind}", solve)
+            self.timed(f"dist_{kind}", solve)
+            gen = torch.Generator(device=dev).manual_seed(plan["seed"])
+            op = sketch_lib.SKETCH_KINDS[kind].sample(gen, plan["d"], m, dtype=A_i.dtype, device=dev)
+            SA, _ = distributed._local_sketch(A_i, b_i, op, row0, None)  # the solve's assembly again
+            self.out[f"dist_{kind}"] = dict(x=res.x.cpu().numpy(), itn=int(res.itn), istop=int(res.istop),
+                                            SA=SA.cpu().numpy() if self.rank == 0 else None)
+            del SA, op
+
+    def sharded(self):
+        from repro_torch.core import sketch as sketch_lib
+        from repro_torch.streaming import sharded_sketch
+
+        torch, dev, plan = self.torch, self.dev, self.plan
+        for kind, A in [(k, self.A) for k in plan["bucket_kinds"]] + [(k, self.A_dense) for k in plan["dense_kinds"]]:
+            A_i = A.tensor_split(self.world)[self.rank]
+            op = sketch_lib.sample(kind, plan["seed"], plan["d"], A.shape[0], dtype=A.dtype, device=dev)
+            B = self.counted(f"sharded_{kind}", lambda: sharded_sketch(A_i, op))
+            self.timed(f"sharded_{kind}", lambda: sharded_sketch(A_i, op))
+            self.out[f"sharded_{kind}"] = B.cpu().numpy() if self.rank == 0 else None
+            del op, B
+        op = sketch_lib.SRHTSketch.sample(plan["seed"], plan["d"], self.A_dense.shape[0], device=dev)
+        try:
+            sharded_sketch(self.A_dense.tensor_split(self.world)[self.rank], op)
+            self.out["srht_raises"] = "no error"
+        except ValueError as e:  # the gate: the SRHT must refuse
+            self.out["srht_raises"] = str(e)
+
+    def compress(self):
+        from repro_torch.kernels import countsketch_apply, countsketch_ref
+        from repro_torch.optim import CompressionConfig, compression, sketched_psum_grads
+
+        torch, dev, plan = self.torch, self.dev, self.plan
+        cfg = CompressionConfig(**plan["compress"])
+        grads, ef = self.grads, self.ef
+
+        def step():
+            return sketched_psum_grads(cfg, grads, ef, step=0)
+
+        out, ne = self.counted("compress", step)
+        g, r, e = grads["embed"], out["embed"], ne["embed"]
+        gd, rd = g.double().flatten(), r.double().flatten()
+        gc, rc = gd - gd.mean(), rd - rd.mean()
+        corr = float((gc @ rc) / (gc.norm() * rc.norm()))
+        gain = float(rd.mean() / gd.mean())
+        del gd, rd, gc, rc
+        ef_err = float((g - r - e).abs().max())
+        digest = [float(t.double().sum()) for t in (r, e)]
+        del out, ne, r, e
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        self.timed("compress", step)
+
+        def plain():  # the uncompressed all-reduce of the same gradients
+            from repro_torch import sharding
+            return {k: sharding.psum(v) / self.world for k, v in grads.items()}
+
+        self.counted("uncompressed", plain)
+        self.timed("uncompressed", plain)
+        row = dict(corr=corr, gain=gain, ef_err=ef_err, digest=digest)
+        if self.rank == 0:  # B1's sketch of the embedding against its plain version on the CPU
+            paths = list(compression._paths(grads))
+            i = paths.index(("embed",))
+            numel = g.numel()
+            s = numel // cfg.ratio
+            h, w = compression._buckets_signs(cfg.seed, i, 0, numel, s, dev)
+            gf = (g.reshape(-1) + ef["embed"].reshape(-1)).to(torch.float32)
+            sk = countsketch_apply(gf, h, w, s)
+            row["b1_bitwise_cpu"] = bool(torch.equal(sk.cpu(), countsketch_ref(gf.cpu(), h.cpu(), w.cpu(), s)))
+            del h, w, gf, sk
+        self.out["compress"] = row
+
+
+class _Phase16:
+    """Phase 16: the distributed solve (``repro_torch.core.distributed``,
+    ``repro_torch.streaming.sharded_sketch``) and the CountSketch-compressed
+    gradient all-reduce (``repro_torch.optim``), right after phase 15 on the
+    main problem.
+
+    (1) ``dist_nccl_p1``: ``sketched_lstsq`` on the main problem (s = 4000)
+    over a world of one NCCL rank in this process, gated as phase 3, B1
+    launched twice (A, b).  (2) a gloo world of 4 processes on the same
+    card (NCCL refuses two ranks on one device), each given its row block
+    of the main A (2^18 rows) by CUDA IPC and not copied: first a check that
+    gloo all-reduces and broadcasts the card's tensors; ``dist_gloo_p4``,
+    ``sketched_lstsq`` with the CountSketch, sparse-sign and uniform-sparse
+    sketches, x, itn and istop bitwise on every rank, phase 3's error gates,
+    the assembled SA within 2·γ·|S||A| of this process's monolithic B1
+    apply on the same S, B1 launched twice a rank a solve;
+    ``sharded_sketch_p4``: the three bucket kinds on the main A and the
+    Gaussian and uniform-dense kinds at m = 2^16 (B6 on (4000, 16384) ×
+    (16384, 1000) a rank; the Gaussian's restriction is a stored S, as in
+    the reference), each within 2·γ·|S||A| of the monolithic apply of the
+    same S, one launch a rank; the SRHT refused; ``compress_p4``: one step
+    of ``sketched_psum_grads`` on llama3.2-1b's tied embedding and one
+    layer's seven matrices (f32, N(0, 1) + 0.5, the same on every rank,
+    ratio 8, min_size 65536, error feedback on): the reference test's three
+    gates on the embedding, every rank's output the same, rank 0's B1
+    sketch of the embedding bitwise its plain version on the CPU, B1
+    launched 8 times a rank.  Counted parts run under ``_NoPlain``, their
+    launches held exactly; walls and each rank's collective bytes are
+    printed.  Every process is joined or terminated before the phase ends;
+    the group's timeout turns a diverged rank into a failure."""
+
+    SEED = 1601
+    D = 4000
+    WORLD = 4
+    TIMEOUT_S = 120  # the groups' timeout: a rank left waiting fails, never hangs
+    DEADLINE_S = 600  # the gloo world's whole run, start-up included
+    P1_BACKEND = "nccl"
+    KINDS = ("clarkson_woodruff", "sparse_sign", "uniform_sparse")
+    BUCKET_KINDS = ("countsketch", "sparse_sign", "uniform_sparse")
+    DENSE_KINDS = ("gaussian", "uniform_dense")
+    COMPRESS = dict(ratio=8, min_size=65536, error_feedback=True)
+    # llama3.2-1b (src/repro/configs/llama3_2_1b.py:10-12): the tied
+    # embedding and one layer's seven matrices
+    LLAMA = {"embed": (128256, 2048), "q": (2048, 2048), "k": (2048, 512), "v": (2048, 512),
+             "o": (2048, 2048), "gate": (2048, 8192), "up": (2048, 8192), "down": (8192, 2048)}
+    TARGET = staticmethod(_phase16_rank)  # the ranks' entry point
+
+    def __init__(self, torch, dev, smi, run_path, paths, root):
+        self.torch, self.dev, self.smi, self.run_path, self.paths, self.root = torch, dev, smi, run_path, paths, root
+        self.launches, self.walls, self.bytes = {}, {}, {}
+
+    def seeded(self):
+        return self.torch.Generator(device=self.dev).manual_seed(self.SEED)
+
+    def main_problem(self, A, b, x_true, e_qr, t_saa):
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        _p(f"phase 16: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; "
+           f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB free")
+        (self.root / "build").mkdir(exist_ok=True)
+        self.tmp = tempfile.mkdtemp(prefix="phase16-", dir=self.root / "build")
+        try:
+            self.nccl_p1(A, b, x_true, e_qr, t_saa)
+            self.gloo_p4(A, b, x_true, e_qr)
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        _p(f"phase 16: launches a rank by part {json.dumps(self.launches)}")
+        _p(f"phase 16: bytes a rank hands to all_reduce/broadcast by part {json.dumps(self.bytes)}")
+        _p(f"phase 16: walls (s; the slowest rank's median of 3; card: {self.smi}) {json.dumps(self.walls)}")
+
+    def counted(self, name, fn):
+        torch = self.torch
+
+        def guarded():
+            with _Collectives() as coll, _NoPlain(torch):
+                out = fn()
+            self.bytes[name] = dict(coll.bytes)
+            return out
+
+        out = self.run_path(name, guarded)
+        self.launches[name] = {k: v for k, v in self.paths[name].items() if v}
+        return out
+
+    def nccl_p1(self, A, b, x_true, e_qr, t_saa):
+        import datetime
+
+        import torch.distributed as dist
+        from repro_torch.core import sketched_lstsq
+
+        torch, dev = self.torch, self.dev
+        kw = {"device_id": torch.device(dev.type, torch.cuda.current_device())} if dev.type == "cuda" else {}
+        dist.init_process_group(self.P1_BACKEND, init_method=f"file://{self.tmp}/p1", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=self.TIMEOUT_S), **kw)
+        try:
+            def solve():
+                return sketched_lstsq(A, b, self.seeded(), sketch_size=self.D, device=dev)
+
+            res = self.counted("dist_nccl_p1", solve)
+            self.walls["dist_nccl_p1"] = sorted(_sync_time(torch, solve)[1] for _ in range(3))[1]
+        finally:
+            dist.destroy_process_group()
+        e = _rel(res.x, x_true)
+        row = dict(backend=self.P1_BACKEND, itn=int(res.itn), istop=int(res.istop), err=e, qr_err=e_qr,
+                   wall=self.walls["dist_nccl_p1"], saa_wall=t_saa, launches=self.launches["dist_nccl_p1"],
+                   bytes=self.bytes["dist_nccl_p1"])
+        _p(f"phase 16: dist_nccl_p1 (world 1, m=2^20, n={A.shape[1]}, s={self.D}): {json.dumps(row)} (card: {self.smi})")
+        if not (e < 1e-5 and e <= 100 * max(e_qr, 1e-12) and row["launches"] == {"countsketch_apply": 2}):
+            raise AssertionError(f"phase 16 dist_nccl_p1: {row}")
+
+    def _monolithic(self, op, A):
+        """(S·A by the whole operator, |S||A|, the longest sum) of a draw on
+        this process's card: B1 for the bucket kinds, B6 on the stored S
+        for the dense ones."""
+        from repro_torch.core import sketch as sketch_lib
+        from repro_torch.kernels import countsketch_ref
+
+        if isinstance(op, sketch_lib._BucketSketch):
+            w = op._weights().abs()
+            mag = countsketch_ref(self.absA, op.buckets, w, op.d)
+            k = op.k if isinstance(op, sketch_lib.SparseSignSketch) else 1
+            return op.apply(A), mag / math.sqrt(k), k * A.shape[0] + 1
+        dense = op.restrict_cols(slice(None))  # the stored S (the Gaussian's as the ranks restrict it)
+        return dense.apply(A), dense.S.abs() @ A.abs(), A.shape[0]
+
+    def _within(self, B, ref, what):
+        B_mono, mag, K = ref
+        err = (self.torch.as_tensor(B) - B_mono).abs()
+        ratio = float((err / (2 * _gamma(self.torch, K, B_mono.dtype) * mag).clamp_min(1e-300)).max())
+        if not ratio <= 1:
+            raise AssertionError(f"phase 16 {what}: max|Δ| {float(err.max())} is {ratio} × 2·γ·|S||A|")
+        return ratio
+
+    def gloo_p4(self, A, b, x_true, e_qr):
+        import queue as queue_lib
+
+        import torch.multiprocessing as mp
+        from repro_torch.core import sketch as sketch_lib
+        from repro_torch.optim import CompressionConfig, compress_state_init
+
+        torch, dev = self.torch, self.dev
+        gen = self.seeded()
+        A_dense = torch.randn((M_DENSE, A.shape[1]), generator=gen, dtype=A.dtype, device=dev)
+        grads = {k: torch.randn(s, generator=gen, dtype=torch.float32, device=dev) + 0.5 for k, s in self.LLAMA.items()}
+        ef = compress_state_init(CompressionConfig(**self.COMPRESS), grads)
+
+        # the monolithic applies the ranks are held to, before the ranks start
+        refs = {}
+        self.absA = A.abs()
+        for kind in self.KINDS:
+            op = sketch_lib.SKETCH_KINDS[kind].sample(self.seeded(), self.D, A.shape[0], dtype=A.dtype, device=dev)
+            refs[f"dist_{kind}"] = self._monolithic(op, A)
+        for kind in self.BUCKET_KINDS:
+            refs[f"sharded_{kind}"] = self._monolithic(
+                sketch_lib.sample(kind, self.SEED, self.D, A.shape[0], dtype=A.dtype, device=dev), A)
+        del self.absA
+        for kind in self.DENSE_KINDS:
+            refs[f"sharded_{kind}"] = self._monolithic(
+                sketch_lib.sample(kind, self.SEED, self.D, M_DENSE, dtype=A.dtype, device=dev), A_dense)
+        # the references wait on the host: a small tensor left in a freed 8.4 GB
+        # block would keep the whole block from the ranks
+        refs = {k: tuple(t.cpu() if isinstance(t, torch.Tensor) else t for t in v) for k, v in refs.items()}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        _p(f"phase 16: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+           f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) as the ranks start; {free / 2**30:.1f} GiB free")
+
+        plan = dict(seed=self.SEED, d=self.D, kinds=self.KINDS, bucket_kinds=self.BUCKET_KINDS,
+                    dense_kinds=self.DENSE_KINDS, compress=self.COMPRESS, timeout_s=self.TIMEOUT_S)
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        procs = [ctx.Process(target=self.TARGET, name=f"phase16-rank{r}",
+                             args=(r, self.WORLD, f"file://{self.tmp}/p4", plan, A, b, A_dense, grads, ef, results))
+                 for r in range(self.WORLD)]
+        ranks = {}
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.start()
+            while len(ranks) < self.WORLD:
+                left = self.DEADLINE_S - (time.perf_counter() - t0)
+                try:
+                    rank, out, err = results.get(timeout=max(left, 1.0))
+                except queue_lib.Empty:
+                    raise AssertionError(f"phase 16: the gloo world gave {len(ranks)} of {self.WORLD} results "
+                                         f"in {self.DEADLINE_S} s") from None
+                if err is not None:
+                    raise AssertionError(f"phase 16: gloo rank {rank} failed:\n{err}")
+                ranks[rank] = out
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+        t_world = time.perf_counter() - t0
+        torch.cuda.ipc_collect()  # the blocks the ranks shared, released by them
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * self.WORLD:
+            raise AssertionError(f"phase 16: gloo ranks exited {codes}")
+        ranks = [ranks[r] for r in range(self.WORLD)]
+        del grads, ef
+        self.judge(ranks, refs, x_true, e_qr, t_world)
+
+    def judge(self, ranks, refs, x_true, e_qr, t_world):
+        import numpy as np
+
+        torch, W = self.torch, self.WORLD
+        coll = [r["collectives"] for r in ranks]
+        _p(f"phase 16: gloo world of {W} on one card ({t_world:.1f} s, start-up and teardown included); "
+           f"collectives on {coll[0]['device']} tensors: {json.dumps(coll)}")
+        _p(f"phase 16: each rank's parts (s, the card's free GiB after, the rank's own peak GiB): "
+           f"{json.dumps([r.get('parts') for r in ranks])}")
+        if not all(c["all_reduce"] and c["broadcast"] for c in coll):
+            raise AssertionError(f"phase 16: gloo collectives on the card: {coll}")
+        rows = [r["rows"] for r in ranks]
+        if [r[1] for r in rows] != [sum(k for _, _, k in rows[:i]) for i in range(W)] or rows[0][0] != sum(
+                k for _, _, k in rows):
+            raise AssertionError(f"phase 16: row blocks {rows}")
+
+        def per_rank(name):
+            """The part's launches and bytes, the same on every rank."""
+            for key, store in (("launches", self.launches), ("bytes", self.bytes)):
+                got = [r[key][name] for r in ranks]
+                if key == "launches" and any(g != got[0] for g in got):
+                    raise AssertionError(f"phase 16 {name}: launches by rank {got}")
+                store[name] = got[0]
+            self.walls[name] = max(r["walls"][name] for r in ranks)
+
+        table = {}
+        for kind in self.KINDS:
+            name = f"dist_{kind}"
+            per_rank(name)
+            res = [r[name] for r in ranks]
+            same = all(np.array_equal(r["x"], res[0]["x"]) and (r["itn"], r["istop"]) == (res[0]["itn"], res[0]["istop"])
+                       for r in res)
+            e = _rel(torch.as_tensor(res[0]["x"], device=x_true.device), x_true)
+            row = dict(itn=res[0]["itn"], istop=res[0]["istop"], err=e, qr_err=e_qr, bitwise_ranks=same,
+                       sa_bound_share=self._within(res[0]["SA"], refs[name], name),
+                       wall=self.walls[name], nccl_p1_wall=self.walls["dist_nccl_p1"],
+                       launches=self.launches[name], bytes=self.bytes[name])
+            table[name] = row
+            _p(f"phase 16: {name} (world {W}, gloo, {rows[0][2]} rows a rank): {json.dumps(row)}")
+            if not (same and e < 1e-5 and e <= 100 * max(e_qr, 1e-12)
+                    and self.launches[name] == {"countsketch_apply": 2}):
+                raise AssertionError(f"phase 16 {name}: {row}")
+        for kind in self.BUCKET_KINDS + self.DENSE_KINDS:
+            name = f"sharded_{kind}"
+            per_rank(name)
+            want = {"sketch_matmul" if kind in self.DENSE_KINDS else "countsketch_apply": 1}
+            share = self._within(ranks[0][name], refs[name], name)
+            table[name] = dict(bound_share=share, wall=self.walls[name], launches=self.launches[name],
+                               bytes=self.bytes[name])
+            if self.launches[name] != want:
+                raise AssertionError(f"phase 16 {name}: launches {self.launches[name]}, want {want}")
+        _p(f"phase 16: sharded_sketch_p4 (d={self.D}; bucket kinds on the main A, dense kinds at "
+           f"A({M_DENSE}, 1000); max|Δ| as a share of 2·γ·|S||A| from the monolithic apply of the same S): "
+           f"{json.dumps({k: v for k, v in table.items() if k.startswith('sharded_')})}")
+        refused = [r["srht_raises"] for r in ranks]
+        if not all("stream_semantics" in msg for msg in refused):
+            raise AssertionError(f"phase 16: sharded_sketch of the SRHT: {refused}")
+        _p(f"phase 16: sharded_sketch of the SRHT refused on every rank: {refused[0]!r}")
+
+        for name in ("compress", "uncompressed"):
+            per_rank(name)
+        comp = [r["compress"] for r in ranks]
+        row = dict(comp[0], wall=self.walls["compress"], uncompressed_wall=self.walls["uncompressed"],
+                   launches=self.launches["compress"], bytes=self.bytes["compress"],
+                   uncompressed_bytes=self.bytes["uncompressed"], ranks_equal=all(c["digest"] == comp[0]["digest"]
+                                                                                   for c in comp))
+        _p(f"phase 16: compress_p4 (llama3.2-1b embedding {self.LLAMA['embed']} + one layer's 7 matrices, f32, "
+           f"ratio {self.COMPRESS['ratio']}; gates on the embedding): {json.dumps(row)} (card: {self.smi})")
+        ratio = self.COMPRESS["ratio"]
+        if not (all(0.3 < c["corr"] < 0.7 and abs(c["gain"] - 1 / ratio) < 0.05 and c["ef_err"] < 1e-5 for c in comp)
+                and row["ranks_equal"] and row["b1_bitwise_cpu"]
+                and self.launches["compress"] == {"countsketch_apply": len(self.LLAMA)}):
+            raise AssertionError(f"phase 16 compress_p4: {row}")
 
 
 class _Phase14:

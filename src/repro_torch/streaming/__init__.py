@@ -20,8 +20,8 @@ Port of ``repro.streaming``.  The in-memory solvers of
 The same generator draws the same S as the in-memory solvers, so streamed
 results match ``repro_torch.core.lstsq`` on the materialized A.
 ``cluster=`` runs the streams across ``repro_torch.cluster``'s worker
-pool; ``sharded_sketch`` belongs to a later slice (ROADMAP A12) and raises
-``NotImplementedError``.
+pool; ``sharded_sketch`` assembles S·A of a row-sharded A across the ranks
+of a ``torch.distributed`` group in one all-reduce.
 """
 from . import accumulate, solve, sources
 from .accumulate import (

@@ -47,8 +47,9 @@ The state and its fold, per kind:
 ``merge`` adds the states of accumulators over disjoint row ranges (the
 additive kinds round as any regrouped sum does; the SRHT merges exactly)
 after checking, with ``torch.equal`` on the operators' tensors, that both
-sides hold the same draw.  ``sharded_sketch``, the collective form of the
-merge, belongs to the distributed slice (ROADMAP A12).
+sides hold the same draw.  ``sharded_sketch`` is the collective form of the
+merge: one all-reduce of the ranks' restricted partials over a
+``torch.distributed`` group.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ import dataclasses
 
 import torch
 
+from .. import sharding
 from ..core import backend as backend_lib
 from ..core import sketch as sketch_lib
 from ..kernels.common import sqrt_tensor
@@ -259,10 +261,37 @@ def merge_all(accs) -> SketchAccumulator:
     return accs[0]
 
 
-def sharded_sketch(A, op, *, mesh=None, axes=("data",), backend="auto"):
-    """S·A for a row-sharded A in one collective: the distributed slice's
-    (the reference's shard_map + psum form of :meth:`SketchAccumulator.merge`)."""
-    raise NotImplementedError(
-        "sharded_sketch (the collective merge of per-shard sketches) arrives "
-        "with ROADMAP A12"
-    )
+def sharded_sketch(A, op, *, group=None, mesh=None, axes=("data",), backend="auto"):
+    """S·A for a row-sharded A in ONE collective.
+
+    The collective form of :meth:`SketchAccumulator.merge`: each rank of
+    the group passes its contiguous row block ``A`` (ranks in order) and
+    the same global operator ``op``; it restricts S to its global rows
+    (``op.restrict_cols``), sketches them with the kind's
+    backend-dispatched ``apply`` (kernel B1 for the bucket kinds, B6 for the
+    uniform-dense kind and for the Gaussian, whose restriction is a stored
+    ``UniformDenseSketch`` as in the reference), and one all-reduce sums
+    the (d, n) partials.  Communication is O(d·n), independent of m — the
+    assembly ``repro_torch.core.distributed.sketched_lstsq`` performs inside
+    its solver.  Every rank returns the same (d, n) sketch.
+
+    ``group``/``mesh``/``axes`` name the group as in ``sketched_lstsq``
+    (``repro_torch.sharding.resolve_group``).  Additive kinds only: the
+    SRHT couples rows through the Hadamard transform and has no
+    independent column restriction — stream it through the padded-buffer
+    accumulator instead.
+    """
+    if op.stream_semantics != "add":
+        raise ValueError(
+            f"{type(op).__name__} cannot be assembled by per-shard "
+            "restriction (stream_semantics="
+            f"{op.stream_semantics!r}); use make_accumulator instead"
+        )
+    backend_lib.check_backend(backend)
+    group = sharding.resolve_group(group, mesh, axes, who="sharded_sketch")
+    A = backend_lib.as_tensor(A, op.device)
+    m, row0 = sharding.row_offset(A.shape[0], group, A.device)
+    if m != op.m:
+        raise ValueError(f"the shards hold {m} rows, the operator has m = {op.m}")
+    sub = op.restrict_cols(slice(row0, row0 + A.shape[0]))
+    return sharding.psum(sub.apply(A, backend=backend), group)

@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax():
 
 def test_the_scan_covers_every_package():
     mods = _port_modules()
-    for pkg in ("core", "kernels", "obs", "streaming", "serve", "analysis", "cluster", "train"):
+    for pkg in ("core", "kernels", "obs", "streaming", "serve", "analysis", "cluster", "train",
+                "sharding", "optim"):
         assert f"repro_torch.{pkg}" in mods, pkg
     assert {"repro_torch.streaming.sources", "repro_torch.streaming.accumulate",
             "repro_torch.streaming.solve"} <= set(mods)
@@ -65,6 +66,28 @@ def test_the_scan_covers_every_package():
             "repro_torch.analysis.annotations"} <= set(mods)
     assert {"repro_torch.cluster.shard", "repro_torch.cluster.faults", "repro_torch.cluster.checkpoint",
             "repro_torch.cluster.coordinator", "repro_torch.train.checkpoint"} <= set(mods)
+    assert {"repro_torch.core.distributed", "repro_torch.optim.compression"} <= set(mods)
+
+
+def test_the_distributed_slice_imports_neither_jax_nor_the_reference():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.sharding, repro_torch.optim, repro_torch.core.distributed\n"
+        "from repro_torch.core import sketched_lstsq\n"
+        "from repro_torch.streaming import sharded_sketch\n"
+        "from repro_torch.optim import sketched_psum_grads\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'jaxlib', 'repro.'))\n"
+        "               for k in sys.modules if sys.modules[k] is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_serve_imports_neither_jax_nor_the_reference():
@@ -157,6 +180,7 @@ def _entry_points():
         lstsq,
         qr_solve,
         saa_sas,
+        sketched_lstsq,
     )
     from repro_torch.kernels import sketch_qr, tsqr
     from repro_torch.serve import SolveService
@@ -227,6 +251,7 @@ def _entry_points():
         "lstsq_row_source": lambda: lstsq(ArraySource(A), b, 0),
         "source_from_reference": lambda: convert.source_from_reference(ArraySource(A)),
         "SolveService": lambda: SolveService(0),
+        "sketched_lstsq": lambda: sketched_lstsq(A_cpu, b, 0),
     }
 
 

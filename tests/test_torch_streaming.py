@@ -283,10 +283,48 @@ def test_bucket_tile_plans_are_cached(prob):
     assert all(op._csr[k] is plans[k] for k in plans)
 
 
-def test_sharded_sketch_raises_naming_a12(prob):
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo group of one rank in this process, for the collective form of
+    the merge; destroyed after the test."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ("countsketch", "uniform_sparse", "sparse_sign") + DENSE_KINDS)
+def test_sharded_sketch_matches_the_references(prob, kind, world_of_one):
+    """``sharded_sketch`` on one rank against the reference's on a (1,) mesh
+    (built with ``Auto`` axes) on the same S: bitwise for the bucket kinds
+    (the sparse-sign sketch through its ``backend="reference"`` route, the
+    reference's order), the dense kinds within their streaming tolerances;
+    and within 1e-12 of the port's monolithic apply.  The SRHT raises in
+    both."""
+    from jax.sharding import AxisType, Mesh
+
     A, _ = prob
-    _, op = _draw("countsketch", 9, 64, M_ROWS)
-    with pytest.raises(NotImplementedError, match="A12"):
+    jop, op = _draw(kind, 9, 64, M_ROWS)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",), axis_types=(AxisType.Auto,))
+    B_ref = np.asarray(jst.sharded_sketch(jnp.asarray(A), jop, mesh=mesh))
+    backend = "reference" if kind == "sparse_sign" else "auto"
+    B = tst.sharded_sketch(_t(A), op, backend=backend)
+    if kind in EXACT_KINDS:
+        assert torch.equal(B, _t(B_ref))
+        assert torch.equal(B, _monolithic(op, A))
+    else:
+        assert _rel(B, B_ref) < DENSE_REF_TOL[kind]
+        assert _rel(B, _monolithic(op, A)) < 1e-12
+    jop, op = _draw("srht", 9, 64, M_ROWS)
+    with pytest.raises(ValueError, match="stream_semantics"):
+        jst.sharded_sketch(jnp.asarray(A), jop, mesh=mesh)
+    with pytest.raises(ValueError, match="stream_semantics"):
         tst.sharded_sketch(_t(A), op)
 
 
