@@ -157,6 +157,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    its plain version on the CPU.  Launches a rank are held exactly; walls
    and the bytes each rank hands to ``all_reduce`` and ``broadcast`` are
    printed; every process started is joined or terminated.
+17. the LM substrate (class ``_Phase17``, last, after phase 14, with every
+   other buffer and process freed): llama3.2-1b at full width from the
+   port's ``configs.get_config``, seeded random weights.  ``lm_serve``:
+   ``generate`` (prefill + greedy decode) on 8 prompts of 2048 tokens, 64
+   new tokens, against a teacher-forced ``forward``; in f32 on 4 prompts
+   ``prefill`` and one ``decode_step`` against ``forward`` to 2e-3.
+   ``lm_train``: 12 steps of ``train_loop`` (bf16, f32 master, seq 512,
+   batch 8, ``n_micro`` 2), the loss falling; at depth 2 in f32 the
+   micro-batch equivalence and exact resume through the checkpoint store.
+   ``lm_dp_nccl_p1``: ``make_dp_train_step`` over a world of one NCCL rank,
+   compressed (B1 once per large gradient, 8 a step, the embedding's
+   sketch bitwise its CPU plain version) and not.  ``lm_dp_gloo_p4``: four
+   gloo ranks on the card at depth 2, parameters bitwise on every rank
+   after every step.  The `countsketch_apply` row gains `lm_launches`.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -223,6 +237,13 @@ COND, BETA = 1e10, 1e-10
 # CountSketch apply's reads: their paths run at m = 2^16, a point of the
 # paper's own m sweep at n = 1000 (PERF.md, section 4).
 M_DENSE = 2**16
+# 32-bit operations to generate one Gaussian in csrc/threefry.cuh: threefry2x32
+# (20 rounds of add, rotate and xor, 5 key injections of 2 adds, 3 to set up:
+# 73 integer operations) and Box–Muller (2 shifts, 2 conversions, 3 products
+# and sums, the accurate logf, sqrtf and cosf at about 15 each, 2 products:
+# about 54 f32 operations).  An estimate from the source, not a count of the
+# compiled instructions.
+GAUSS_OPS = 127
 # Largest gap, in f32 ulps, allowed between the Gaussians the kernels
 # generate and those of the plain versions (on the card and on the CPU).
 # The plain version on the CPU is within 3 ulps of the reference's.
@@ -1250,7 +1271,7 @@ def main() -> int:
         if not bool((err <= tol).all()):
             raise AssertionError(f"{name} at the dense paths' shape {tuple(out.shape)}: max|Δ| {float(err.max())}")
         errs[name] = max(errs[name], float(err.max()))
-    del ab8, out, plain, err, tol
+    del ab8, out, plain, err, tol, S  # S: the last row's S_u (2.1 GB), or it outlives the phase
     B4 = fused_gaussian_sketch(A8, key8, d8)
     B6 = sketch_matmul(S_u, A8)
     for name, (B, G), B_ref in [
@@ -1287,6 +1308,14 @@ def main() -> int:
             bound_ms=bound_ms, bound_by=bound_by,
         ), ops)
     t_dense["fused_gaussian_sketch"]["vec_ms"] = _event_ms(torch, lambda: fused_gaussian_sketch(b8, key8, d8))
+    # B4's vector route on b: b read once and S·b written, and the d·m
+    # Gaussians it generates (GAUSS_OPS 32-bit operations each) at the f32
+    # rate outside the tensor cores, beside the 2·d·m f64 operations
+    vec_ops = GAUSS_OPS * d8 * M_DENSE
+    t_dense["fused_gaussian_sketch"]["vec_bound_ms"] = max(
+        (M_DENSE + d8) * 8 / PEAK_BYTES_PER_S, vec_ops / PEAK_FLOPS["float32"], 2 * d8 * M_DENSE / PEAK_FLOPS["float64"]
+    ) * 1e3
+    t_dense["fused_gaussian_sketch"]["vec_bound_by"] = "operations"
     # B4's engine with clusters of 1 (each block generates its whole S tile)
     # beside the planned clusters: the same sums in the same order, so
     # bitwise the same B where the plan keeps one slab.
@@ -1336,6 +1365,11 @@ def main() -> int:
     _p(f"phase 14: {t14:.1f} s")
     torch.cuda.empty_cache()
 
+    # ---- phase 17: the LM substrate, last, once everything else is freed ---
+    phase17 = _Phase17(torch, dev, smi, root)
+    _, t17 = _sync_time(torch, phase17.run)
+    _p(f"phase 17: {t17:.1f} s")
+
     # Every kernel of KERNELS: its source, the TPU kernel it replaces, the
     # path whose launches it reports, and its times.
     table = {
@@ -1376,6 +1410,8 @@ def main() -> int:
             rows[-1]["cluster_launches"] = dict(phase15.b1)
         if name in ("countsketch_apply", "sketch_matmul"):  # phase 16's parts, a rank each
             rows[-1]["dist_launches"] = {part: v[name] for part, v in phase16.launches.items() if name in v}
+        if name == "countsketch_apply":  # phase 17's compressed train steps, a step (and a rank)
+            rows[-1]["lm_launches"] = {part: v[name] for part, v in phase17.launches.items() if name in v}
     _p(f"paths (launches per path) {json.dumps(paths)}")
     _p(smi)
     _p(json.dumps({"kernels": rows}))
@@ -3036,6 +3072,7 @@ class _Phase15:
             self.demo()
         finally:
             shutil.rmtree(self.ckpt_root, ignore_errors=True)
+            self.src = self.op = self.B = self.c = None  # the main A's source: freed with A
         _p(f"phase 15: B1 launches by part {json.dumps(self.b1)}")
         _p(f"phase 15: engine stats by part {json.dumps(self.stats)}")
         _p(f"phase 15: walls (s; card: {self.smi}) {json.dumps(self.walls)}")
@@ -3458,6 +3495,17 @@ def _sync(torch, dev):
         torch.cuda.synchronize()
 
 
+def _llama_matrices():
+    """llama3.2-1b's tied embedding and one layer's seven matrices, their
+    shapes from the port's config (``repro_torch.configs``)."""
+    from repro_torch.configs import get_config
+
+    c = get_config("llama3.2-1b")
+    D, F, Q, KV = c.d_model, c.d_ff, c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    return {"embed": (c.vocab, D), "q": (D, Q), "k": (D, KV), "v": (D, KV), "o": (Q, D), "gate": (D, F),
+            "up": (D, F), "down": (F, D)}
+
+
 def _phase16_rank(rank, world, init, plan, A, b, A_dense, grads, ef, queue):
     """One rank of phase 16's gloo world, a process of its own on ``A``'s
     device: its results (arrays as numpy, sent by value), or its traceback,
@@ -3599,6 +3647,7 @@ class _Phase16Rank:
 
     def compress(self):
         from repro_torch.kernels import countsketch_apply, countsketch_ref
+        from repro_torch.models.common import tree_paths
         from repro_torch.optim import CompressionConfig, compression, sketched_psum_grads
 
         torch, dev, plan = self.torch, self.dev, self.plan
@@ -3630,7 +3679,7 @@ class _Phase16Rank:
         self.timed("uncompressed", plain)
         row = dict(corr=corr, gain=gain, ef_err=ef_err, digest=digest)
         if self.rank == 0:  # B1's sketch of the embedding against its plain version on the CPU
-            paths = list(compression._paths(grads))
+            paths = list(tree_paths(grads))
             i = paths.index(("embed",))
             numel = g.numel()
             s = numel // cfg.ratio
@@ -3683,15 +3732,15 @@ class _Phase16:
     BUCKET_KINDS = ("countsketch", "sparse_sign", "uniform_sparse")
     DENSE_KINDS = ("gaussian", "uniform_dense")
     COMPRESS = dict(ratio=8, min_size=65536, error_feedback=True)
-    # llama3.2-1b (src/repro/configs/llama3_2_1b.py:10-12): the tied
-    # embedding and one layer's seven matrices
-    LLAMA = {"embed": (128256, 2048), "q": (2048, 2048), "k": (2048, 512), "v": (2048, 512),
-             "o": (2048, 2048), "gate": (2048, 8192), "up": (2048, 8192), "down": (8192, 2048)}
+    # the gradients' shapes: None takes llama3.2-1b's tied embedding and one
+    # layer's seven matrices from the port's config (``_llama_matrices``)
+    LLAMA = None
     TARGET = staticmethod(_phase16_rank)  # the ranks' entry point
 
     def __init__(self, torch, dev, smi, run_path, paths, root):
         self.torch, self.dev, self.smi, self.run_path, self.paths, self.root = torch, dev, smi, run_path, paths, root
         self.launches, self.walls, self.bytes = {}, {}, {}
+        self.llama = self.LLAMA or _llama_matrices()
 
     def seeded(self):
         return self.torch.Generator(device=self.dev).manual_seed(self.SEED)
@@ -3788,7 +3837,7 @@ class _Phase16:
         torch, dev = self.torch, self.dev
         gen = self.seeded()
         A_dense = torch.randn((M_DENSE, A.shape[1]), generator=gen, dtype=A.dtype, device=dev)
-        grads = {k: torch.randn(s, generator=gen, dtype=torch.float32, device=dev) + 0.5 for k, s in self.LLAMA.items()}
+        grads = {k: torch.randn(s, generator=gen, dtype=torch.float32, device=dev) + 0.5 for k, s in self.llama.items()}
         ef = compress_state_init(CompressionConfig(**self.COMPRESS), grads)
 
         # the monolithic applies the ranks are held to, before the ranks start
@@ -3917,13 +3966,556 @@ class _Phase16:
                    launches=self.launches["compress"], bytes=self.bytes["compress"],
                    uncompressed_bytes=self.bytes["uncompressed"], ranks_equal=all(c["digest"] == comp[0]["digest"]
                                                                                    for c in comp))
-        _p(f"phase 16: compress_p4 (llama3.2-1b embedding {self.LLAMA['embed']} + one layer's 7 matrices, f32, "
+        _p(f"phase 16: compress_p4 (llama3.2-1b embedding {self.llama['embed']} + one layer's 7 matrices, f32, "
            f"ratio {self.COMPRESS['ratio']}; gates on the embedding): {json.dumps(row)} (card: {self.smi})")
         ratio = self.COMPRESS["ratio"]
         if not (all(0.3 < c["corr"] < 0.7 and abs(c["gain"] - 1 / ratio) < 0.05 and c["ef_err"] < 1e-5 for c in comp)
                 and row["ranks_equal"] and row["b1_bitwise_cpu"]
-                and self.launches["compress"] == {"countsketch_apply": len(self.LLAMA)}):
+                and self.launches["compress"] == {"countsketch_apply": len(self.llama)}):
             raise AssertionError(f"phase 16 compress_p4: {row}")
+
+
+def _bits_digest(torch, tensors):
+    """Exact integer sums of each tensor's 16-bit words and of their
+    squares (an f32 tensor is read as twice as many int16 words), summed on
+    the tensors' device: two ranks whose bits differ agree on a tensor's
+    digest only if the differing words cancel in both sums."""
+    sums = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(torch.int16)
+        acc = torch.zeros(2, dtype=torch.int64, device=t.device)
+        for chunk in bits.split(1 << 24):
+            c = chunk.long()
+            acc[0] += c.sum()
+            acc[1] += (c * c).sum()
+        sums.append(acc)
+    return torch.stack(sums).tolist()
+
+
+def _n_compressed(cfg, min_size):
+    """How many tensors of ``cfg``'s parameter tree the compressed all-reduce
+    sketches (those of ``min_size`` entries or more): one B1 launch each."""
+    from repro_torch.models import params_shapes
+    from repro_torch.models.common import is_shape, tree_leaves
+
+    return sum(math.prod(shape) >= min_size for shape, _ in tree_leaves(params_shapes(cfg), is_leaf=is_shape))
+
+
+def _phase17_rank(rank, world, init, plan, queue):
+    """One rank of phase 17's gloo world, a process of its own on the card:
+    its results (numbers only), or its traceback, go to ``queue``.  The
+    kernels were built by the parent; ``_build.load`` finds the library in
+    ``build/repro_torch``."""
+    import traceback
+
+    try:
+        queue.put((rank, _Phase17Rank(rank, world, init, plan).run(), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+class _Phase17Rank:
+    """One gloo rank of ``lm_dp_gloo_p4``: the whole depth-2 state drawn from
+    the shared seed, its quarter of each global batch, ``make_dp_train_step``
+    compressed and not; per step the loss, the wall, B1's launches, the bytes
+    handed to ``all_reduce`` and a digest of the parameters and the master."""
+
+    def __init__(self, rank, world, init, plan):
+        import datetime
+        import os
+
+        import torch
+        import torch.distributed as dist
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the host's cores, shared out
+        self.torch, self.dist, self.rank, self.world, self.plan = torch, dist, rank, world, plan
+        self.dev = torch.device(plan["device"])
+        if self.dev.type == "cuda":
+            # four ranks share the card: each caps its caching allocator at its
+            # share (it frees its cached blocks before it would take more),
+            # and expandable segments keep that share unfragmented
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+            torch.cuda.set_device(self.dev)
+            torch.cuda.set_per_process_memory_fraction(plan["mem_fraction"], self.dev)
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=plan["timeout_s"]))
+
+    def run(self):
+        from repro_torch.data import SyntheticConfig, batch_at
+        from repro_torch.kernels import KERNELS, reset_launches
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.optim import AdamWConfig, CompressionConfig, compress_state_init
+        from repro_torch.train import init_train_state, make_dp_train_step
+
+        torch, dev, plan = self.torch, self.dev, self.plan
+        cfg = plan["cfg"]
+        dcfg = SyntheticConfig(vocab=cfg.vocab, seq_len=plan["seq"], global_batch=plan["batch"])
+        rows = plan["batch"] // self.world
+        out = {}
+        try:
+            for mode in ("compressed", "uncompressed"):
+                comp = CompressionConfig(**plan["compress"]) if mode == "compressed" else None
+                state = init_train_state(cfg, plan["seed"], device=dev)
+                ef = compress_state_init(comp, state.params) if comp else None
+                step = make_dp_train_step(cfg, AdamWConfig(**plan["opt"]), compression=comp)
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                steps = []
+                for i in range(plan["steps"]):
+                    batch = {k: v[self.rank * rows:(self.rank + 1) * rows]
+                             for k, v in batch_at(dcfg, i, device=dev).items()}
+                    self.dist.barrier()
+                    _sync(torch, dev)
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    with _Collectives() as coll, _NoPlain(torch):
+                        (state, ef), m = step(state, ef, batch)
+                    _sync(torch, dev)
+                    wall = time.perf_counter() - t0
+                    steps.append(dict(
+                        loss=float(m["loss"]), wall=wall, bytes=coll.bytes["all_reduce"],
+                        launches={f.__name__: f.launches for f in KERNELS if f.launches},
+                        digest=_bits_digest(torch, tree_leaves(state.params) + tree_leaves(state.opt["master"]))))
+                out[mode] = dict(steps=steps, peak_gib=torch.cuda.max_memory_allocated() / 2**30
+                                 if dev.type == "cuda" else None,
+                                 reserved_gib=torch.cuda.max_memory_reserved() / 2**30 if dev.type == "cuda" else None)
+                del state, ef, step
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+        finally:
+            self.dist.destroy_process_group()
+        return out
+
+
+class _Phase17:
+    """Phase 17: the LM substrate (``repro_torch.models``, ``train``,
+    ``optim``, ``data``) on llama3.2-1b at full width from the port's own
+    ``configs.get_config``, last, after every other phase's buffers and
+    processes are freed.
+
+    (1) ``lm_serve``: bf16 parameters from ``init_params`` on a seeded
+    generator; ``generate`` on 8 prompts of 2048 tokens (4 query blocks and
+    2 kv blocks of ``flash_attention``), 64 new tokens; prefill and the
+    decode loop timed apart as ``generate`` runs them (their tokens bitwise
+    ``generate``'s); the greedy tokens against a teacher-forced ``forward``
+    over the prompts and the generated tokens: where they differ, forward's
+    top logit exceeds its logit at the generated token by at most twice the
+    largest |decode − forward| logit gap measured over all positions, and
+    that gap is at most 0.2.  In f32 on 4 prompts: ``prefill`` of their
+    first 2032 tokens (4 query and 2 kv blocks), then 16 cached
+    ``decode_step``s fed their next tokens; the prefill's last logits and
+    each step's against ``forward`` over all 2048 tokens, to the reference
+    test's 2e-3.  (2) ``lm_train``: 12 steps of ``train_loop`` at
+    full depth (bf16 parameters, f32 master, the bigram stream at seq 512,
+    global batch 8, ``n_micro`` 2, AdamW lr 3e-3 with 5 warmup steps), no
+    checkpoints: the loss finite and falling by 0.05; at depth 2 in f32,
+    ``n_micro`` 1 against 2 on one batch (the master within 1e-5; m within
+    1e-4 of its largest entry) and exact resume (5 steps, 5 more after a
+    resume from its checkpoint, against 10 straight: final loss within
+    1e-4), each checkpoint write timed apart.  (3) ``lm_dp_nccl_p1``:
+    ``make_dp_train_step`` over a world of one NCCL rank at full depth, 5
+    steps with ``CompressionConfig(ratio=8, min_size=65536)`` (B1 launched
+    exactly 8 times a step, the first sketch of the embedding's gradient
+    bitwise its plain version on the CPU) and 5 without.  (4)
+    ``lm_dp_gloo_p4``: four gloo processes sharing the card at depth 2
+    (four full states do not fit one card), each its quarter of every
+    batch, 5 steps compressed and 5 not: the parameters and the master
+    bitwise equal on every rank after every step (``_bits_digest``), the
+    loss falling, B1 launched 8 times a compressed step a rank and no kernel
+    otherwise.  The LM's own products are torch matmuls: serving and the
+    single-process steps launch no port kernel, which is held.  Walls, peaks
+    and rates print beside the card's name and power limit."""
+
+    ARCH = "llama3.2-1b"
+    CFG = None  # a config in place of get_config(ARCH) (CPU rehearsals)
+    SEED = 1701
+    PROMPTS, PROMPT_LEN, NEW, GATE_PROMPTS = 8, 2048, 64, 4
+    SERVE_TOL = 2e-3  # tests/test_serving_consistency.py
+    GATE_DECODE_STEPS = 16  # cached f32 decode steps held to SERVE_TOL
+    # bf16: the largest |decode − teacher-forced forward| logit over the 64
+    # cached steps; 0.0859 measured on the H100, the prediction's ceiling 0.2
+    TF_GAP_MAX = 0.2
+    # few steps, so that the phase stays near two minutes: a depth-2 f32
+    # checkpoint (6.15 GB) takes ≈25 s to write and restore alone
+    SEQ, BATCH, MICRO, STEPS, SHALLOW = 512, 8, 2, 12, 2
+    RESUME_AT, RESUME_STEPS = 5, 10
+    OPT = dict(lr=3e-3, warmup_steps=5)
+    COMPRESS = dict(ratio=8, min_size=65536)
+    DP_STEPS = 5
+    WORLD = 4
+    RANK_MEM_FRACTION = 0.235  # of the card, a gloo rank's cap (four ranks and this process share it)
+    TIMEOUT_S = 120  # the groups' timeout: a rank left waiting fails, never hangs
+    DEADLINE_S = 600  # the gloo world's whole run, start-up included
+    P1_BACKEND = "nccl"
+    TARGET = staticmethod(_phase17_rank)  # the ranks' entry point
+
+    def __init__(self, torch, dev, smi, root):
+        self.torch, self.dev, self.smi, self.root = torch, dev, smi, root
+        self.launches, self.walls = {}, {}
+
+    def config(self, **kw):
+        from repro_torch.configs import get_config
+
+        return (self.CFG or get_config(self.ARCH)).replace(**kw)
+
+    def data(self):
+        from repro_torch.data import SyntheticConfig
+
+        return SyntheticConfig(vocab=self.config().vocab, seq_len=self.SEQ, global_batch=self.BATCH)
+
+    def opt(self):
+        from repro_torch.optim import AdamWConfig
+
+        return AdamWConfig(**self.OPT)
+
+    def counted(self, name, fn):
+        """``fn()`` with every kernel's launch count set to 0 just before and
+        read just after; the counts are kept under ``name``."""
+        from repro_torch.kernels import KERNELS, reset_launches
+
+        _sync(self.torch, self.dev)
+        reset_launches()
+        out = fn()
+        _sync(self.torch, self.dev)
+        self.launches[name] = {f.__name__: f.launches for f in KERNELS if f.launches}
+        return out
+
+    def run(self):
+        import gc
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        _p(f"phase 17: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card as the LM "
+           f"phase starts; {free / 2**30:.1f} of {total / 2**30:.1f} GiB free")
+        (self.root / "build").mkdir(exist_ok=True)
+        self.tmp = tempfile.mkdtemp(prefix="phase17-", dir=self.root / "build")
+        try:
+            for part in (self.serve, self.train, self.nccl_p1, self.gloo_p4):
+                t0 = time.perf_counter()
+                part()
+                gc.collect()
+                torch.cuda.empty_cache()
+                self.walls[part.__name__] = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        _p(f"phase 17: parts' walls (s; card: {self.smi}) {json.dumps(self.walls)}; launches by part "
+           f"{json.dumps(self.launches)}")
+
+    # ---- lm_serve ------------------------------------------------------------
+
+    def serve(self):
+        from repro_torch.models import decode_step, init_params, prefill
+        from repro_torch.models.common import tree_leaves, tree_map
+        from repro_torch.models.transformer import _embed_inputs, _head_weight, backbone
+        from repro_torch.train import generate
+
+        torch, dev = self.torch, self.dev
+        cfg = self.config()
+        gen = torch.Generator(device=dev).manual_seed(self.SEED)
+        params = init_params(cfg, gen, device=dev)
+        P, S, N = self.PROMPTS, self.PROMPT_LEN, self.NEW
+        prompts = torch.randint(0, cfg.vocab, (P, S), generator=gen, dtype=torch.int32, device=dev)
+        generate(cfg, params, prompts[:, : S // 16], max_new=2)  # warm-up: the library's handles
+        torch.cuda.reset_peak_memory_stats()
+        out, t_gen = _sync_time(torch, lambda: self.counted("lm_serve", lambda: generate(cfg, params, prompts,
+                                                                                          max_new=N)))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # prefill and the decode loop apart, as generate runs them
+        (logits, cache), t_pre = _sync_time(torch, lambda: prefill(cfg, params, {"tokens": prompts}, S_cache=S + N))
+        kv_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+        toks, dec = [torch.argmax(logits, -1).to(torch.int32)], [logits]
+
+        def loop():
+            nonlocal cache
+            for i in range(N - 1):
+                lg, cache = decode_step(cfg, params, cache, toks[-1], S + i)
+                toks.append(torch.argmax(lg, -1).to(torch.int32))
+                dec.append(lg)
+
+        _, t_dec = _sync_time(torch, loop)
+        if not torch.equal(torch.stack(toks, 1), out):
+            raise AssertionError("phase 17 lm_serve: prefill + decode_step gave other tokens than generate")
+        del cache
+        # teacher-forced forward over the prompts and every generated token
+        # (S + N = 2112 = 6 · 352 keeps the reference's blocks)
+        with torch.no_grad():
+            h, _ = backbone(cfg, params, _embed_inputs(cfg, params, {"tokens": torch.cat([prompts, out], 1)}))
+            tf = (h[:, S - 1:S - 1 + N] @ _head_weight(cfg, params)).float()  # (P, N, V)
+        dec = torch.stack(dec, 1)
+        gap = float((dec - tf).abs().max())
+        excess = tf.amax(-1) - tf.gather(-1, out.long()[..., None])[..., 0]
+        differ = torch.argmax(tf, -1) != out
+        worst = float(excess[differ].max()) if bool(differ.any()) else 0.0
+        del h, tf, dec
+        row = dict(prompts=P, prompt_len=S, new=N, params=sum(t.numel() for t in tree_leaves(params)),
+                   generate_s=t_gen, prefill_ms=1e3 * t_pre, prefill_tok_s=P * S / t_pre,
+                   decode_ms_per_token=1e3 * t_dec / (N - 1), generated_tok_s=P * (N - 1) / t_dec,
+                   kv_cache_bytes=kv_bytes, peak_gib=peak, launches=self.launches["lm_serve"],
+                   tf_gap=gap, tf_mismatches=int(differ.sum()), tf_worst_excess=worst)
+        _p(f"phase 17: lm_serve ({cfg.name} bf16, {row['params']} parameters; generate = prefill + greedy decode; "
+           f"card: {self.smi}): {json.dumps(row)}")
+        if not (gap <= self.TF_GAP_MAX and worst <= 2 * gap and self.launches["lm_serve"] == {}):
+            raise AssertionError(f"phase 17 lm_serve: {row}")
+
+        # f32 gates on GATE_PROMPTS prompts: prefill S - K tokens (S - K = 2032
+        # keeps 4 query and 2 kv blocks), then K cached decode steps fed the
+        # prompts' next tokens, each against forward over all S tokens
+        cfg32 = cfg.replace(dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        del params
+        torch.cuda.empty_cache()
+        K = self.GATE_DECODE_STEPS
+        pr = prompts[: self.GATE_PROMPTS]
+
+        def share(got, want):
+            return float(((got - want).abs() / (self.SERVE_TOL + self.SERVE_TOL * want.abs())).max())
+
+        pre, cache = prefill(cfg32, p32, {"tokens": pr[:, : S - K]}, S_cache=S)
+        with torch.no_grad():  # forward's logits at the K + 1 positions read
+            h, _ = backbone(cfg32, p32, _embed_inputs(cfg32, p32, {"tokens": pr}))
+            want = (h[:, S - K - 1:] @ _head_weight(cfg32, p32)).float()  # (GATE_PROMPTS, K + 1, V)
+        del h
+        e_pre, e_dec = share(pre, want[:, 0]), []
+        for i in range(K):
+            dlg, cache = decode_step(cfg32, p32, cache, pr[:, S - K + i], S - K + i)
+            e_dec.append(share(dlg, want[:, 1 + i]))
+        row = dict(prompts=self.GATE_PROMPTS, prompt_len=S - K, decode_steps=K, prefill_share=e_pre,
+                   decode_share_max=max(e_dec), decode_shares=e_dec)
+        _p(f"phase 17: lm_serve f32 gates (|Δ| as a share of {self.SERVE_TOL}·(1 + |forward|), allclose's "
+           f"bound): {json.dumps(row)}")
+        if not (e_pre <= 1 and max(e_dec) <= 1):
+            raise AssertionError(f"phase 17 lm_serve f32: {row}")
+        del p32, cache, pre, dlg, want
+
+    # ---- lm_train ------------------------------------------------------------
+
+    def train(self):
+        from repro_torch.data import batch_at
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.train import checkpoint as ckpt_lib
+        from repro_torch.train import init_train_state, make_train_step, train_loop
+
+        torch, dev = self.torch, self.dev
+        cfg, dcfg, ocfg = self.config(), self.data(), self.opt()
+        stamps = []
+        torch.cuda.reset_peak_memory_stats()
+        state, losses = self.counted("lm_train", lambda: train_loop(
+            cfg, dcfg, ocfg, steps=self.STEPS, n_micro=self.MICRO, log_every=1, seed=self.SEED,
+            log=lambda line: stamps.append(time.perf_counter()), device=dev))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del state
+        gaps = sorted(b - a for a, b in zip(stamps[1:], stamps[2:]))  # warm steps (each log reads the loss)
+        step_s = gaps[len(gaps) // 2]
+        first, last = losses[0][1], losses[-1][1]
+        row = dict(steps=self.STEPS, seq=self.SEQ, global_batch=self.BATCH, n_micro=self.MICRO, first_loss=first,
+                   last_loss=last, step_ms=1e3 * step_s, tok_s=self.SEQ * self.BATCH / step_s, peak_gib=peak,
+                   launches=self.launches["lm_train"])
+        _p(f"phase 17: lm_train ({cfg.name} full depth, bf16 parameters, f32 master; median warm step; card: "
+           f"{self.smi}): {json.dumps(row)}")
+        if not (all(math.isfinite(v) for _, v in losses) and last < first - 0.05 and row["launches"] == {}):
+            raise AssertionError(f"phase 17 lm_train: {row}")
+        torch.cuda.empty_cache()
+
+        # depth 2, f32: the micro-batch equivalence ...
+        cfg2 = cfg.replace(n_periods=self.SHALLOW, dtype="float32")
+        batch = batch_at(dcfg, 0, device=dev)
+        s1, _ = make_train_step(cfg2, ocfg, n_micro=1)(init_train_state(cfg2, self.SEED, device=dev), batch)
+        s2, _ = make_train_step(cfg2, ocfg, n_micro=self.MICRO)(init_train_state(cfg2, self.SEED, device=dev), batch)
+        d_master = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(s1.opt["master"]),
+                                                                   tree_leaves(s2.opt["master"])))
+        d_m = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(tree_leaves(s1.opt["m"]), tree_leaves(s2.opt["m"])))
+        del s1, s2, batch
+        torch.cuda.empty_cache()
+
+        # ... and exact resume through the checkpoint store, each write timed
+        writes, restores = [], []
+        real_write, real_restore = ckpt_lib._write, ckpt_lib.restore
+
+        def timed_write(ckpt_dir, step, host):
+            t0 = time.perf_counter()
+            out = real_write(ckpt_dir, step, host)
+            writes.append(dict(step=int(step), s=time.perf_counter() - t0,
+                               gb=sum(a.nbytes for a in host.values()) / 1e9))
+            return out
+
+        def timed_restore(*a, **kw):
+            out, t = _sync_time(torch, lambda: real_restore(*a, **kw))
+            restores.append(t)
+            return out
+
+        d = f"{self.tmp}/resume"
+        quiet = dict(seed=self.SEED, device=dev, log=lambda line: None, ckpt_every=10**9)
+        _, straight = train_loop(cfg2, dcfg, ocfg, steps=self.RESUME_STEPS, log_every=self.RESUME_STEPS, **quiet)
+        ckpt_lib._write, ckpt_lib.restore = timed_write, timed_restore
+        try:
+            _, t_a = _sync_time(torch, lambda: train_loop(cfg2, dcfg, ocfg, steps=self.RESUME_AT, ckpt_dir=d,
+                                                          log_every=self.RESUME_STEPS, **quiet))
+            (_, resumed), t_b = _sync_time(torch, lambda: train_loop(cfg2, dcfg, ocfg, steps=self.RESUME_STEPS,
+                                                                     ckpt_dir=d, log_every=self.RESUME_STEPS, **quiet))
+        finally:
+            ckpt_lib._write, ckpt_lib.restore = real_write, real_restore
+        gap = abs(straight[-1][1] - resumed[-1][1])
+        row = dict(n_periods=self.SHALLOW, micro_master_max_abs=d_master, micro_m_rel=d_m,
+                   straight_loss=straight[-1][1], resumed_loss=resumed[-1][1], resume_gap=gap,
+                   writes=writes, restore_s=restores, first_leg_s=t_a, second_leg_s=t_b)
+        _p(f"phase 17: lm_train gates (full width, depth {self.SHALLOW}, f32; n_micro 1 against {self.MICRO}; "
+           f"{self.RESUME_AT} steps + {self.RESUME_STEPS - self.RESUME_AT} after a resume against {self.RESUME_STEPS} "
+           f"straight; card: {self.smi}): {json.dumps(row)}")
+        if not (d_master < 1e-5 and d_m < 1e-4 and gap < 1e-4 and len(writes) == 2 and len(restores) == 1):
+            raise AssertionError(f"phase 17 lm_train gates: {row}")
+
+    # ---- lm_dp_nccl_p1 -------------------------------------------------------
+
+    def nccl_p1(self):
+        import datetime
+
+        import torch.distributed as dist
+        from repro_torch.data import batch_at
+        from repro_torch.kernels import countsketch_ref
+        from repro_torch.optim import CompressionConfig, compress_state_init
+        from repro_torch.optim import compression as comp_mod
+        from repro_torch.train import init_train_state, make_dp_train_step
+
+        torch, dev = self.torch, self.dev
+        cfg, dcfg, ocfg = self.config(), self.data(), self.opt()
+        kw = {"device_id": torch.device(dev.type, torch.cuda.current_device())} if dev.type == "cuda" else {}
+        dist.init_process_group(self.P1_BACKEND, init_method=f"file://{self.tmp}/p1", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=self.TIMEOUT_S), **kw)
+        first = {}
+        real_apply = comp_mod.countsketch_apply
+
+        def capture(A, buckets, signs, d, *a, **k):  # the step's first sketch: the embedding's gradient
+            out = real_apply(A, buckets, signs, d, *a, **k)
+            if not first:
+                first.update(A=A.clone(), h=buckets.clone(), w=signs.clone(), d=d, out=out.clone())
+            return out
+
+        rows = {}
+        try:
+            for mode in ("compressed", "uncompressed"):
+                comp = CompressionConfig(**self.COMPRESS) if mode == "compressed" else None
+                state = init_train_state(cfg, self.SEED, device=dev)
+                ef = compress_state_init(comp, state.params) if comp else None
+                step = make_dp_train_step(cfg, ocfg, compression=comp)
+                torch.cuda.reset_peak_memory_stats()
+                walls, losses, launches, nbytes = [], [], [], []
+                for i in range(self.DP_STEPS):
+                    batch = batch_at(dcfg, i, device=dev)
+                    comp_mod.countsketch_apply = capture if (comp and i == 0) else real_apply
+                    try:
+                        def one():
+                            with _Collectives() as coll, _NoPlain(torch):
+                                res = step(state, ef, batch)
+                            nbytes.append(coll.bytes["all_reduce"])
+                            return res
+                        ((state, ef), m), t = _sync_time(torch, lambda: self.counted(f"lm_dp_nccl_p1_{mode}", one))
+                    finally:
+                        comp_mod.countsketch_apply = real_apply
+                    walls.append(t)
+                    losses.append(float(m["loss"]))
+                    launches.append(self.launches.pop(f"lm_dp_nccl_p1_{mode}"))
+                rows[mode] = dict(step_ms=[1e3 * w for w in walls], losses=losses, launches=launches[0],
+                                  all_reduce_bytes=nbytes[0], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                want = {"countsketch_apply": _n_compressed(cfg, comp.min_size)} if comp else {}
+                if not (all(lc == want for lc in launches) and all(math.isfinite(v) for v in losses)):
+                    raise AssertionError(f"phase 17 lm_dp_nccl_p1 {mode}: launches {launches} (want {want} a "
+                                         f"step), losses {losses}")
+                del state, ef, step, batch
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        plain = countsketch_ref(first["A"].cpu(), first["h"].cpu(), first["w"].cpu(), first["d"])
+        rows["b1_embed_bitwise_cpu"] = bool(torch.equal(first["out"].cpu(), plain))
+        rows["b1_embed_entries"] = first["A"].numel()
+        del first, plain
+        self.launches["lm_dp_nccl_p1"] = rows["compressed"]["launches"]
+        self.launches["lm_dp_nccl_p1_uncompressed"] = rows["uncompressed"]["launches"]
+        ms = {k: sorted(rows[k]["step_ms"][1:])[len(rows[k]["step_ms"][1:]) // 2] for k in ("compressed",
+                                                                                             "uncompressed")}
+        rows["median_warm_step_ms"] = ms
+        _p(f"phase 17: lm_dp_nccl_p1 ({cfg.name} full depth, world of one {self.P1_BACKEND} rank, "
+           f"{self.DP_STEPS} steps each, ratio {self.COMPRESS['ratio']}; card: {self.smi}): {json.dumps(rows)}")
+        if not rows["b1_embed_bitwise_cpu"]:
+            raise AssertionError("phase 17 lm_dp_nccl_p1: B1's sketch of the embedding's gradient differs from its "
+                                 "plain version on the CPU")
+        self.nccl_rows = rows
+
+    # ---- lm_dp_gloo_p4 -------------------------------------------------------
+
+    def gloo_p4(self):
+        import queue as queue_lib
+
+        import torch.multiprocessing as mp
+
+        torch = self.torch
+        cfg = self.config(n_periods=self.SHALLOW)
+        if self.dev.type == "cuda":
+            free, total = torch.cuda.mem_get_info()
+            need = self.WORLD * self.RANK_MEM_FRACTION * total
+            if free < need:
+                raise AssertionError(f"phase 17 lm_dp_gloo_p4: {free / 2**30:.1f} GiB free on the card, the "
+                                     f"ranks' caps take {need / 2**30:.1f}; this process holds "
+                                     f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        plan = dict(cfg=cfg, seed=self.SEED, seq=self.SEQ, batch=self.BATCH, opt=self.OPT, compress=self.COMPRESS,
+                    steps=self.DP_STEPS, timeout_s=self.TIMEOUT_S, mem_fraction=self.RANK_MEM_FRACTION,
+                    device=f"cuda:{torch.cuda.current_device()}" if self.dev.type == "cuda" else str(self.dev))
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        procs = [ctx.Process(target=self.TARGET, name=f"phase17-rank{r}",
+                             args=(r, self.WORLD, f"file://{self.tmp}/p4", plan, results))
+                 for r in range(self.WORLD)]
+        ranks = {}
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.start()
+            while len(ranks) < self.WORLD:
+                left = self.DEADLINE_S - (time.perf_counter() - t0)
+                try:
+                    rank, out, err = results.get(timeout=max(left, 1.0))
+                except queue_lib.Empty:
+                    raise AssertionError(f"phase 17: the gloo world gave {len(ranks)} of {self.WORLD} results "
+                                         f"in {self.DEADLINE_S} s") from None
+                if err is not None:
+                    raise AssertionError(f"phase 17: gloo rank {rank} failed:\n{err}")
+                ranks[rank] = out
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+        t_world = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * self.WORLD:
+            raise AssertionError(f"phase 17: gloo ranks exited {codes}")
+        ranks = [ranks[r] for r in range(self.WORLD)]
+        n_big = _n_compressed(cfg, self.COMPRESS["min_size"])
+        table = {}
+        for mode, want in (("compressed", {"countsketch_apply": n_big}), ("uncompressed", {})):
+            steps = [r[mode]["steps"] for r in ranks]
+            bitwise = all(s[i]["digest"] == steps[0][i]["digest"] for s in steps for i in range(self.DP_STEPS))
+            losses = [s["loss"] for s in steps[0]]
+            same_loss = all([s["loss"] for s in st] == losses for st in steps)
+            launches_ok = all(s["launches"] == want for st in steps for s in st)
+            walls = [max(st[i]["wall"] for st in steps) for i in range(self.DP_STEPS)]
+            table[mode] = dict(losses=losses, bitwise_ranks=bitwise, same_loss=same_loss, launches=steps[0][0]["launches"],
+                               step_s=walls, median_warm_step_s=sorted(walls[1:])[len(walls[1:]) // 2],
+                               all_reduce_bytes=steps[0][0]["bytes"], peak_gib=[r[mode]["peak_gib"] for r in ranks],
+                               reserved_gib=[r[mode]["reserved_gib"] for r in ranks])
+            if not (bitwise and same_loss and launches_ok and losses[-1] < losses[0]):
+                raise AssertionError(f"phase 17 lm_dp_gloo_p4 {mode}: {table[mode]}")
+        self.launches["lm_dp_gloo_p4"] = table["compressed"]["launches"]
+        _p(f"phase 17: lm_dp_gloo_p4 ({cfg.name} full width, depth {self.SHALLOW}, {self.WORLD} gloo ranks on one "
+           f"card, {self.BATCH // self.WORLD} rows a rank, {self.DP_STEPS} steps each; the slowest rank's walls; "
+           f"world {t_world:.1f} s with start-up; card: {self.smi}): {json.dumps(table)}")
 
 
 class _Phase14:

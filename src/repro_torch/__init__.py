@@ -16,10 +16,15 @@ streaming drivers and ``lstsq`` take as ``cluster=``, and
 the collective plumbing (groups, all-reduce, row offsets) of the
 distributed solve (``core.sketched_lstsq``, ``streaming.sharded_sketch``)
 and of ``repro_torch.optim``'s CountSketch-compressed gradient
-all-reduce.  Entry points run on the card unless the caller passes
-``device="cpu"``.
+all-reduce.  The LM substrate: ``repro_torch.configs`` (the reference's
+architecture configs, copied), ``repro_torch.models`` (the attention-only
+decoder stack with a dense FFN), ``repro_torch.data`` (the synthetic
+stream), ``repro_torch.optim``'s AdamW and ``repro_torch.train``'s steps
+(one process and data-parallel), training loop and greedy generation;
+``repro_torch.launch`` holds their command lines.  Entry points run on the
+card unless the caller passes ``device="cpu"``.
 """
-from . import cluster, convert, core, kernels, obs, optim, serve, sharding, streaming, train
+from . import cluster, configs, convert, core, data, kernels, models, obs, optim, serve, sharding, streaming, train
 from .cluster import ClusterEngine, ClusterSpec
 from .core import (
     Certificate,
@@ -39,8 +44,8 @@ from .serve import SolveService
 from .streaming import StreamingSolver, stream_lstsq
 
 __all__ = [
-    "cluster", "convert", "core", "kernels", "obs", "optim", "serve", "sharding", "streaming",
-    "train",
+    "cluster", "configs", "convert", "core", "data", "kernels", "models", "obs", "optim", "serve",
+    "sharding", "streaming", "train",
     "ClusterEngine", "ClusterSpec", "Certificate", "SketchedSolver",
     "SolveService",
     "StreamingSolver", "stream_lstsq",

@@ -8,6 +8,12 @@ same S and the same problem.  Pass the converted operator as ``sketch=`` to
 ``SketchedFactor.build``, ``saa_sas`` or ``lstsq``.  ``sparse_from_reference`` takes a BCOO's
 entries to the port's ``SparseOperator``; ``source_from_reference`` a row
 source of ``repro.streaming`` to the port's, with the same tiling.
+
+The LM stack's state crosses too: ``params_from_reference`` takes a
+``repro.models`` parameter tree (the same nested dicts and lists, so the
+copy renames nothing), ``train_state_from_reference`` a ``repro.train``
+``TrainState`` and ``batch_from_reference`` a batch of tokens, labels or
+frame embeddings, so both packages compute on the same numbers.
 """
 from __future__ import annotations
 
@@ -39,6 +45,9 @@ __all__ = [
     "problem_from_reference",
     "sparse_from_reference",
     "source_from_reference",
+    "params_from_reference",
+    "train_state_from_reference",
+    "batch_from_reference",
 ]
 
 
@@ -163,3 +172,67 @@ def source_from_reference(source, *, device=None):
         f"no converter for a reference {name}: convert its array (ArraySource) "
         "or its file (MemmapSource)"
     )
+
+
+def _tensor(x, dtype, dev) -> torch.Tensor:
+    """A reference array (numpy, bf16 through ``ml_dtypes`` included) as a
+    tensor of ``dtype`` on ``dev``; bf16 goes through f32, exactly."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return as_tensor(arr, dev).to(dtype)
+
+
+def _tree_from_reference(shapes, tree, dev, dtype=None):
+    """``tree``'s leaves as tensors, checked against ``shapes`` (a tree of
+    ``(shape, dtype)``; ``dtype=`` overrides the leaves' dtype)."""
+    from .models.common import is_shape, tree_get, tree_paths, tree_rebuild
+
+    leaves = {}
+    for path in tree_paths(shapes, is_leaf=is_shape):
+        shape, want = tree_get(shapes, path)
+        arr = np.asarray(tree_get(tree, path))
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{path}: shape {arr.shape}, the model wants {shape}")
+        leaves[path] = _tensor(arr, dtype or want, dev)
+    return tree_rebuild(shapes, leaves, is_shape)
+
+
+def params_from_reference(cfg, params, *, device=None):
+    """The port's parameter tree for a ``repro.models`` tree of ``cfg``
+    (leaves as numpy arrays), in ``cfg.dtype`` on ``device``."""
+    from .models.transformer import params_shapes
+
+    return _tree_from_reference(params_shapes(cfg), params, resolve_device(device))
+
+
+def train_state_from_reference(cfg, state, *, device=None):
+    """The port's ``TrainState`` for a ``repro.train`` ``TrainState`` of
+    ``cfg``: the step as a host int32 scalar, the parameters in
+    ``cfg.dtype``, the f32 master and the moments in
+    ``cfg.opt_moments_dtype`` on ``device``."""
+    from .models.common import DTYPES
+    from .models.transformer import params_shapes
+    from .train.step import TrainState
+
+    dev = resolve_device(device)
+    shapes = params_shapes(cfg)
+    moments = DTYPES[cfg.opt_moments_dtype]
+    opt = {
+        "master": _tree_from_reference(shapes, state.opt["master"], dev, torch.float32),
+        "m": _tree_from_reference(shapes, state.opt["m"], dev, moments),
+        "v": _tree_from_reference(shapes, state.opt["v"], dev, moments),
+    }
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32)
+    return TrainState(step=step, params=_tree_from_reference(shapes, state.params, dev), opt=opt)
+
+
+def batch_from_reference(batch, *, device=None) -> dict:
+    """A reference batch (``tokens``/``labels`` as int32, ``embeds`` as f32)
+    as tensors on ``device``."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in batch.items():
+        arr = np.asarray(v)
+        out[k] = _tensor(arr, torch.int32 if arr.dtype.kind in "iu" else torch.float32, dev)
+    return out

@@ -31,6 +31,7 @@ import torch
 
 from .. import sharding
 from ..kernels.countsketch import countsketch_apply
+from ..models.common import tree_get, tree_paths, tree_rebuild
 
 __all__ = ["CompressionConfig", "compress_state_init", "sketched_psum_grads"]
 
@@ -52,43 +53,15 @@ def _buckets_signs(seed: int, i: int, step: int, numel: int, s: int, device):
     return buckets, bits.to(torch.float32) * 2 - 1
 
 
-def _paths(tree, prefix=()):
-    """Paths to the tensors of a gradient tree, in the reference's flatten
-    order (dict keys sorted; lists and tuples in order)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], prefix + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for j, sub in enumerate(tree):
-            yield from _paths(sub, prefix + (j,))
-    else:
-        yield prefix
-
-
-def _get(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
-
-
-def _rebuild(tree, values: dict, prefix=()):
-    """``tree``'s structure with ``values[path]`` at each tensor's path."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, values, prefix + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, values, prefix + (j,)) for j, v in enumerate(tree))
-    return values[prefix]
-
-
 def compress_state_init(cfg: CompressionConfig, params):
     """Error-feedback residual buffers: f32 zeros on each parameter's
     device, ``None`` for tensors below ``min_size``."""
     bufs = {}
-    for path in _paths(params):
-        p = _get(params, path)
+    for path in tree_paths(params):
+        p = tree_get(params, path)
         big = p.numel() >= cfg.min_size
         bufs[path] = torch.zeros(p.shape, dtype=torch.float32, device=p.device) if big else None
-    return _rebuild(params, bufs)
+    return tree_rebuild(params, bufs, torch.is_tensor)
 
 
 def sketched_psum_grads(cfg: CompressionConfig, grads, ef_state, group=None, step: int = 0):
@@ -108,9 +81,9 @@ def sketched_psum_grads(cfg: CompressionConfig, grads, ef_state, group=None, ste
     group = sharding.resolve_group(group, who="sketched_psum_grads")
     n_dev = torch.distributed.get_world_size(group)
     out, out_ef = {}, {}
-    for i, path in enumerate(_paths(grads)):
-        g = _get(grads, path)
-        ef = None if ef_state is None else _get(ef_state, path)
+    for i, path in enumerate(tree_paths(grads)):
+        g = tree_get(grads, path)
+        ef = None if ef_state is None else tree_get(ef_state, path)
         if g.numel() < cfg.min_size:
             out[path] = sharding.psum(g, group) / n_dev
             out_ef[path] = ef
@@ -134,5 +107,5 @@ def sketched_psum_grads(cfg: CompressionConfig, grads, ef_state, group=None, ste
             out_ef[path] = ef
         out[path] = recon.reshape(g.shape).to(g.dtype)
 
-    new_ef = _rebuild(grads, out_ef) if ef_state is not None else None
-    return _rebuild(grads, out), new_ef
+    new_ef = tree_rebuild(grads, out_ef, torch.is_tensor) if ef_state is not None else None
+    return tree_rebuild(grads, out, torch.is_tensor), new_ef

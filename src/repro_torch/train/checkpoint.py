@@ -1,7 +1,6 @@
 """Atomic checkpoint store.
 
-Port of ``repro/train/checkpoint.py`` (the store only; the rest of
-``repro.train`` is ROADMAP A14).  The on-disk layout is the reference's, so
+Port of ``repro/train/checkpoint.py``.  The on-disk layout is the reference's, so
 a checkpoint written by either package restores in the other:
 
 - ``<dir>/step_<n>/arrays.npz`` holds one array per leaf, named as
@@ -22,9 +21,9 @@ a checkpoint written by either package restores in the other:
   file) and writes it in a background thread with keep-n garbage
   collection.
 
-``shardings=`` (elastic placement on another mesh) has no counterpart
-before the distributed slices and raises ``NotImplementedError`` naming
-ROADMAP A14.
+``shardings=`` (elastic placement on another mesh) belongs to the second
+half of the ML stack and raises ``NotImplementedError`` naming ROADMAP
+A14b.
 """
 from __future__ import annotations
 
@@ -180,7 +179,7 @@ def restore(ckpt_dir: str, target, step: int | None = None, shardings=None, *, d
     """
     if shardings is not None:
         raise NotImplementedError(
-            "restore(shardings=...) (elastic placement on a mesh) arrives with ROADMAP A14"
+            "restore(shardings=...) (elastic placement on a mesh) arrives with ROADMAP A14b"
         )
     if step is None:
         step = latest_step(ckpt_dir)

@@ -28,6 +28,7 @@ import torch.distributed as dist  # noqa: E402
 
 from repro.optim import compression as jcomp  # noqa: E402
 from repro_torch.optim import CompressionConfig, compress_state_init, sketched_psum_grads  # noqa: E402
+from repro_torch.models.common import tree_paths  # noqa: E402
 from repro_torch.optim import compression as tcomp  # noqa: E402
 
 from test_torch_distributed import run_reference, run_world  # noqa: E402
@@ -173,7 +174,7 @@ def test_the_draws_follow_the_references_flatten_order(world):
     order = [str(ref[f"order/{i}"]) for i in range(len([k for k in ref if k.startswith("order/")]))]
     grads = _tree(SHAPES, lambda s: torch.zeros(s))
     assert ["".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]" for k in p)
-            for p in tcomp._paths(grads)] == order
+            for p in tree_paths(grads)] == order
 
 
 def test_the_reference_tests_gates_on_the_ports_own_draws(world):

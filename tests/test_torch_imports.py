@@ -57,7 +57,7 @@ def test_every_module_imports_without_jax():
 def test_the_scan_covers_every_package():
     mods = _port_modules()
     for pkg in ("core", "kernels", "obs", "streaming", "serve", "analysis", "cluster", "train",
-                "sharding", "optim"):
+                "sharding", "optim", "configs", "models", "data", "launch"):
         assert f"repro_torch.{pkg}" in mods, pkg
     assert {"repro_torch.streaming.sources", "repro_torch.streaming.accumulate",
             "repro_torch.streaming.solve"} <= set(mods)
@@ -67,6 +67,33 @@ def test_the_scan_covers_every_package():
     assert {"repro_torch.cluster.shard", "repro_torch.cluster.faults", "repro_torch.cluster.checkpoint",
             "repro_torch.cluster.coordinator", "repro_torch.train.checkpoint"} <= set(mods)
     assert {"repro_torch.core.distributed", "repro_torch.optim.compression"} <= set(mods)
+    assert {"repro_torch.models.common", "repro_torch.models.attention", "repro_torch.models.mlp",
+            "repro_torch.models.transformer", "repro_torch.optim.adamw", "repro_torch.data.synthetic",
+            "repro_torch.train.step", "repro_torch.train.loop", "repro_torch.train.serve",
+            "repro_torch.train.elastic", "repro_torch.launch.train", "repro_torch.launch.serve",
+            "repro_torch.configs.registry", "repro_torch.configs.llama3_2_1b"} <= set(mods)
+
+
+def test_the_lm_stack_imports_neither_jax_nor_the_reference():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.models, repro_torch.train, repro_torch.data, repro_torch.configs\n"
+        "import repro_torch.launch.train, repro_torch.launch.serve\n"
+        "from repro_torch.train import generate, make_dp_train_step, make_train_step, train_loop\n"
+        "from repro_torch.configs import get_config\n"
+        "get_config('llama3.2-1b')\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'jaxlib', 'repro.'))\n"
+        "               for k in sys.modules if sys.modules[k] is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_the_distributed_slice_imports_neither_jax_nor_the_reference():
@@ -182,7 +209,12 @@ def _entry_points():
         saa_sas,
         sketched_lstsq,
     )
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticConfig, batch_at
     from repro_torch.kernels import sketch_qr, tsqr
+    from repro_torch.models import Transformer, init_cache, init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, train_loop
     from repro_torch.serve import SolveService
     from repro_torch.streaming import ArraySource, StreamingSolver, stream_lstsq, stream_sketch
 
@@ -190,6 +222,8 @@ def _entry_points():
     b = A[:, 0].copy()
     A_cpu = torch.as_tensor(A)  # a CPU tensor is moved to CUDA all the same
     op = CountSketch.sample(0, 20, 200, device="cpu")
+    lm = smoke_config("llama3.2-1b")
+    data = SyntheticConfig(vocab=lm.vocab, seq_len=8, global_batch=2)
     return {
         "generate_problem": lambda: generate_problem(0, 200, 5),
         "lstsq": lambda: lstsq(A, b, 0, method="saa"),
@@ -252,6 +286,14 @@ def _entry_points():
         "source_from_reference": lambda: convert.source_from_reference(ArraySource(A)),
         "SolveService": lambda: SolveService(0),
         "sketched_lstsq": lambda: sketched_lstsq(A_cpu, b, 0),
+        "init_params": lambda: init_params(lm, 0),
+        "Transformer": lambda: Transformer(lm),
+        "init_cache": lambda: init_cache(lm, 1, 8),
+        "init_train_state": lambda: init_train_state(lm, 0),
+        "train_loop": lambda: train_loop(lm, data, AdamWConfig(), steps=1),
+        "batch_at": lambda: batch_at(data, 0),
+        "params_from_reference": lambda: convert.params_from_reference(lm, {}),
+        "batch_from_reference": lambda: convert.batch_from_reference({"tokens": np.zeros((1, 2), np.int32)}),
     }
 
 
