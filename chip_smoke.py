@@ -171,6 +171,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    sketch bitwise its CPU plain version) and not.  ``lm_dp_gloo_p4``: four
    gloo ranks on the card at depth 2, parameters bitwise on every rank
    after every step.  The `countsketch_apply` row gains `lm_launches`.
+18. the LM families (class ``_Phase18``, last): mixtral-8x7b (MoE, 4 of 32
+   periods), deepseek-v2-236b (MLA + MoE with shared experts, its dense
+   prefix + 2 of 59 periods), mamba2-2.7b (SSD, all 64 layers),
+   recurrentgemma-9b (RG-LRU + local MQA, all 38 layers) and
+   llama-3.2-vision-11b (cross-attention, all 40 layers) at their
+   published widths from ``configs.get_config``, one at a time, seeded bf16
+   weights.  Each serves 8 prompts of 2048 tokens and 32 new tokens
+   (``generate``; the vision model through ``prefill`` +
+   ``decode_step(img=)`` with 1600 patch embeddings a prompt), prefill and
+   decode timed apart, the MoE models at capacity factor 1.25 with the
+   dropped share printed and two prefills bitwise equal; the greedy tokens
+   against a teacher-forced ``forward`` (phase 17's bf16 rule at positions
+   routed alike, its ceiling raised to twice the bf16 forward's distance
+   from the f32 forward where that is larger; MoE at the drop-free 8.0); in
+   f32 at one period, 16 cached ``decode_step``s
+   against ``forward`` to 2e-3; 5 steps of ``train_loop`` (deepseek: one
+   ``loss_fn`` forward and backward), the loss falling.  No port kernel is
+   launched on any of these paths, which is held.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -219,6 +237,7 @@ kernels as JSON.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -1369,6 +1388,11 @@ def main() -> int:
     phase17 = _Phase17(torch, dev, smi, root)
     _, t17 = _sync_time(torch, phase17.run)
     _p(f"phase 17: {t17:.1f} s")
+
+    # ---- phase 18: the LM families at their published widths, last -----------
+    phase18 = _Phase18(torch, dev, smi)
+    _, t18 = _sync_time(torch, phase18.run)
+    _p(f"phase 18: {t18:.1f} s")
 
     # Every kernel of KERNELS: its source, the TPU kernel it replaces, the
     # path whose launches it reports, and its times.
@@ -4244,7 +4268,7 @@ class _Phase17:
         # teacher-forced forward over the prompts and every generated token
         # (S + N = 2112 = 6 · 352 keeps the reference's blocks)
         with torch.no_grad():
-            h, _ = backbone(cfg, params, _embed_inputs(cfg, params, {"tokens": torch.cat([prompts, out], 1)}))
+            h, _ = backbone(cfg, params, *_embed_inputs(cfg, params, {"tokens": torch.cat([prompts, out], 1)}))
             tf = (h[:, S - 1:S - 1 + N] @ _head_weight(cfg, params)).float()  # (P, N, V)
         dec = torch.stack(dec, 1)
         gap = float((dec - tf).abs().max())
@@ -4277,7 +4301,7 @@ class _Phase17:
 
         pre, cache = prefill(cfg32, p32, {"tokens": pr[:, : S - K]}, S_cache=S)
         with torch.no_grad():  # forward's logits at the K + 1 positions read
-            h, _ = backbone(cfg32, p32, _embed_inputs(cfg32, p32, {"tokens": pr}))
+            h, _ = backbone(cfg32, p32, *_embed_inputs(cfg32, p32, {"tokens": pr}))
             want = (h[:, S - K - 1:] @ _head_weight(cfg32, p32)).float()  # (GATE_PROMPTS, K + 1, V)
         del h
         e_pre, e_dec = share(pre, want[:, 0]), []
@@ -4516,6 +4540,458 @@ class _Phase17:
         _p(f"phase 17: lm_dp_gloo_p4 ({cfg.name} full width, depth {self.SHALLOW}, {self.WORLD} gloo ranks on one "
            f"card, {self.BATCH // self.WORLD} rows a rank, {self.DP_STEPS} steps each; the slowest rank's walls; "
            f"world {t_world:.1f} s with start-up; card: {self.smi}): {json.dumps(table)}")
+
+
+class _MoEWatch:
+    """Watches the MoE dispatch of a run: wraps ``models.moe._capacity``,
+    ``_rank_in_expert`` and ``_route`` (the dispatch calls them by module
+    name), keeps each dispatch's dropped count on the device and, with
+    ``routes=True``, each routing call's (probabilities, expert ids) in
+    call order."""
+
+    def __init__(self, torch, routes=False):
+        self.torch, self.keep_routes = torch, routes
+        self.dropped, self.total, self.capacity, self.routes = [], 0, None, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe = moe
+        self.real = (moe._capacity, moe._rank_in_expert, moe._route)
+
+        def capacity(T, m):
+            self.capacity = self.real[0](T, m)
+            return self.capacity
+
+        def rank(flat_e, E):
+            r = self.real[1](flat_e, E)
+            self.dropped.append((r >= self.capacity).sum())
+            self.total += r.numel()
+            return r
+
+        def route(p_router, h, m):
+            out = self.real[2](p_router, h, m)
+            if self.keep_routes:
+                self.routes.append((out[0], out[2]))
+            return out
+
+        moe._capacity, moe._rank_in_expert, moe._route = capacity, rank, route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._capacity, self.moe._rank_in_expert, self.moe._route = self.real
+
+    def share(self):
+        """The dropped share of the assignments the dispatches saw."""
+        return float(self.torch.stack(self.dropped).sum()) / self.total if self.total else 0.0
+
+
+class _Phase18:
+    """Phase 18: the LM families (``repro_torch.models`` MoE, MLA, SSD,
+    RG-LRU and cross-attention) at their published widths from the port's
+    own ``configs.get_config``, last, one family at a time on the card, each
+    freed before the next; only the depth is cut, keeping at least one
+    whole period of the layer pattern.  Weights are bf16 from
+    ``init_params`` on a seeded generator; the vision model's tanh gates
+    (zero at init, where cross-attention adds nothing) are set to seeded
+    values in [0.3, 0.7].
+
+    For each family: (1) serve 8 prompts of 2048 tokens and 32 new tokens:
+    ``generate`` (the vision model: ``prefill`` + ``decode_step(img=)``
+    with 1600 seeded patch embeddings a prompt, as the reference's serving
+    test drives it), then prefill and the decode loop timed apart (their
+    tokens bitwise ``generate``'s); the MoE models at their published
+    capacity factor 1.25 print the share of assignments dropped in prefill,
+    and two prefills give bitwise-equal logits.  (2) The bf16
+    teacher-forced gate: the greedy tokens against a ``forward`` over the
+    prompts and the generated tokens.  Phase 17's rule (the largest
+    |decode − forward| logit gap ≤ 0.2, and where the tokens differ,
+    forward's top logit exceeds its logit at the generated token by at most
+    twice that gap) is read at the positions whose top-k routing agrees in
+    every MoE layer between decode and forward, and its 0.2 becomes
+    max(0.2, 2e), e the bf16 forward's own largest distance from the f32
+    forward of the same weights there (decode and forward are both bf16
+    roundings of one function; at 38–64 layers e passes 0.1); each other
+    position's first routing difference must be a near-tie (TIE_MARGIN).
+    The MoE models run it at capacity factor 8.0, the drop-free regime of
+    the reference's serving test (capacity drops depend on the batch), with
+    the drops counted.  (3) The f32 gate at one period
+    (deepseek: its dense prefix + one period): 2 prompts of 512 tokens,
+    ``prefill`` of the first 496, then 16 cached ``decode_step``s, each
+    within phase 17's 2e-3 of ``forward`` over all 512 (MoE at 8.0).  (4)
+    ``train_loop``, 5 steps (bf16 parameters, f32 master, the bigram stream
+    at seq 512, global batch 8, ``n_micro`` 2; the vision model with
+    seeded image embeddings in each batch): the loss finite and falling;
+    deepseek, whose one full-width MoE period needs more AdamW state than
+    the card holds, gets one ``loss_fn`` forward and backward at its prefix
+    + one period instead.  None of these paths launches a port kernel (the
+    families' products are torch matmuls, as the reference's are outside
+    Pallas), which is held.  Walls, rates, cache bytes and peaks print
+    beside the card's name and power limit."""
+
+    # (cell, arch, serve depth, gate depth, train depth or None: one loss_fn)
+    FAMILIES = (
+        ("moe_serve", "mixtral-8x7b", dict(n_periods=4), dict(n_periods=1), dict(n_periods=1)),
+        ("mla_moe_serve", "deepseek-v2-236b", dict(n_periods=2), dict(n_periods=1), None),
+        ("ssd_serve", "mamba2-2.7b", {}, dict(n_periods=1), {}),
+        ("rglru_serve", "recurrentgemma-9b", {}, dict(n_periods=1), dict(n_periods=1)),
+        ("xattn_serve", "llama-3.2-vision-11b", {}, dict(n_periods=1), dict(n_periods=1)),
+    )
+    CFGS = None  # {arch: config} in place of get_config(arch) (CPU rehearsals)
+    SEED = 1802
+    PROMPTS, PROMPT_LEN, NEW = 8, 2048, 32
+    GATE_PROMPTS, GATE_LEN, GATE_DECODE_STEPS = 2, 512, 16
+    SERVE_TOL = 2e-3  # tests/test_serving_consistency.py
+    TF_GAP_MAX = 0.2  # phase 17's bf16 ceiling: the floor of the bound
+    # a routing difference between decode and forward must be a near-tie: the
+    # forward's probability of an expert only it chose exceeds that of one only
+    # the decode chose by at most this share of it
+    TIE_MARGIN = 0.1
+    DROP_FREE = 8.0  # the reference serving test's capacity factor
+    TF_GROUP = 2  # prompts a teacher-forced forward takes at once (bounds its MoE buffers)
+    SEQ, BATCH, MICRO, STEPS = 512, 8, 2, 5
+    OPT = dict(lr=1e-3, warmup_steps=1)  # full rate from the second step; 3e-3 overshot at step 5
+
+    def __init__(self, torch, dev, smi):
+        self.torch, self.dev, self.smi = torch, dev, smi
+        self.launches, self.walls, self.rows = {}, {}, {}
+
+    def config(self, arch, **kw):
+        from repro_torch.configs import get_config
+
+        return ((self.CFGS or {}).get(arch) or get_config(arch)).replace(**kw)
+
+    def drop_free(self, cfg):
+        if cfg.moe is None:
+            return cfg
+        return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=self.DROP_FREE))
+
+    def counted(self, name, fn):
+        """``fn()`` with every kernel's launch count set to 0 just before and
+        read just after; the counts are kept under ``name``."""
+        from repro_torch.kernels import KERNELS, reset_launches
+
+        _sync(self.torch, self.dev)
+        reset_launches()
+        out = fn()
+        _sync(self.torch, self.dev)
+        self.launches[name] = {f.__name__: f.launches for f in KERNELS if f.launches}
+        return out
+
+    def free(self):
+        import gc
+
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def run(self):
+        torch = self.torch
+        self.free()
+        free, total = torch.cuda.mem_get_info()
+        _p(f"phase 18: {free / 2**30:.1f} of {total / 2**30:.1f} GiB free on the card as the families start")
+        for cell, arch, serve_kw, gate_kw, train_kw in self.FAMILIES:
+            t0 = time.perf_counter()
+            self.serve(cell, arch, serve_kw)
+            self.free()
+            self.gates(cell, arch, gate_kw)
+            self.free()
+            if train_kw is None:
+                self.loss_once(cell, arch, gate_kw)
+            else:
+                self.train(cell, arch, train_kw)
+            self.free()
+            self.walls[cell] = time.perf_counter() - t0
+        _p(f"phase 18: families' walls (s; card: {self.smi}) {json.dumps(self.walls)}; launches by part "
+           f"{json.dumps(self.launches)}")
+        if any(self.launches.values()):
+            raise AssertionError(f"phase 18: a family's path launched a port kernel: {self.launches}")
+
+    # ---- inputs ----------------------------------------------------------------
+
+    def weights(self, cfg, gen):
+        from repro_torch.models import init_params
+
+        params = init_params(cfg, gen, device=self.dev)
+        for i, spec in enumerate(cfg.pattern):
+            if spec.mixer == "cross_attn":
+                gate = params["pattern"][i]["mixer"]["gate"]
+                u = self.torch.rand(gate.shape, generator=gen, device=gate.device)
+                gate.copy_(0.3 + 0.4 * u)
+        return params
+
+    def image(self, cfg, n, gen):
+        """{"image_embeds": (n, n_patches, D) seeded f32} for the vision model."""
+        if cfg.frontend != "vision":
+            return {}
+        return {"image_embeds": self.torch.randn((n, cfg.n_patches, cfg.d_model), generator=gen, device=self.dev)}
+
+    # ---- serving ---------------------------------------------------------------
+
+    def decode_loop(self, cfg, params, batch, N):
+        """prefill + N − 1 greedy ``decode_step``s, timed apart: (tokens (P, N),
+        logits (P, N, V), cache bytes, prefill s, decode s)."""
+        from repro_torch.models import decode_step, prefill
+        from repro_torch.models.common import tree_leaves
+
+        torch = self.torch
+        S = batch["tokens"].shape[1]
+        img = batch.get("image_embeds")
+        (logits, cache), t_pre = _sync_time(torch, lambda: prefill(cfg, params, batch, S_cache=S + N))
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+        toks, dec = [torch.argmax(logits, -1).to(torch.int32)], [logits]
+
+        def loop():
+            nonlocal cache
+            for i in range(N - 1):
+                lg, cache = decode_step(cfg, params, cache, toks[-1], S + i, img=img)
+                toks.append(torch.argmax(lg, -1).to(torch.int32))
+                dec.append(lg)
+
+        _, t_dec = _sync_time(torch, loop)
+        return torch.stack(toks, 1), torch.stack(dec, 1), nbytes, t_pre, t_dec
+
+    def teacher_forced(self, cfg, params, batch, out):
+        """forward's logits at the positions whose next tokens are ``out``:
+        (P, N, V), TF_GROUP prompts at a time."""
+        from repro_torch.models.transformer import _embed_inputs, _head_weight, backbone
+
+        torch = self.torch
+        S, N = batch["tokens"].shape[1], out.shape[1]
+        seq = torch.cat([batch["tokens"], out], 1)
+        tf = []
+        with torch.no_grad():
+            for g in range(0, seq.shape[0], self.TF_GROUP):
+                part = {k: v[g:g + self.TF_GROUP] for k, v in batch.items()}
+                part["tokens"] = seq[g:g + self.TF_GROUP]
+                h, _ = backbone(cfg, params, *_embed_inputs(cfg, params, part))
+                tf.append((h[:, S - 1:S - 1 + N] @ _head_weight(cfg, params)).float())
+                del h
+        return torch.cat(tf)
+
+    def serve(self, cell, arch, kw):
+        from repro_torch.models import prefill
+        from repro_torch.models.common import tree_leaves, tree_map
+        from repro_torch.train import generate
+
+        torch, dev = self.torch, self.dev
+        cfg = self.config(arch, **kw)
+        gen = torch.Generator(device=dev).manual_seed(self.SEED)
+        params = self.weights(cfg, gen)
+        P, S, N = self.PROMPTS, self.PROMPT_LEN, self.NEW
+        batch = {"tokens": torch.randint(0, cfg.vocab, (P, S), generator=gen, dtype=torch.int32, device=dev),
+                 **self.image(cfg, P, gen)}
+        token = cfg.frontend == "token"
+        short = dict(batch, tokens=batch["tokens"][:, : S // 16])
+        self.decode_loop(cfg, params, short, 2)  # warm-up: the library's handles
+        torch.cuda.reset_peak_memory_stats()
+        if token:  # the user's entry point
+            out, t_gen = _sync_time(torch, lambda: self.counted(cell, lambda: generate(cfg, params, batch["tokens"],
+                                                                                        max_new=N)))
+        with _MoEWatch(torch) as drops:
+            toks, dec, cache_bytes, t_pre, t_dec = self.counted(f"{cell}_parts", lambda: self.decode_loop(
+                cfg, params, batch, N))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if token and not torch.equal(toks, out):
+            raise AssertionError(f"phase 18 {cell}: prefill + decode_step gave other tokens than generate")
+        row = dict(arch=cfg.name, n_layers=cfg.n_layers, params=sum(t.numel() for t in tree_leaves(params)),
+                   prompts=P, prompt_len=S, new=N, prefill_ms=1e3 * t_pre, prefill_tok_s=P * S / t_pre,
+                   decode_ms_per_token=1e3 * t_dec / (N - 1), generated_tok_s=P * (N - 1) / t_dec,
+                   cache_bytes=cache_bytes, peak_gib=peak)
+        if token:
+            row["generate_s"] = t_gen
+        if cfg.moe is not None:
+            row["capacity_factor"] = cfg.moe.capacity_factor
+            row["dropped_share_prefill"] = drops.share()
+            again, _ = prefill(cfg, params, batch, S_cache=S + N)
+            row["prefill_bitwise_repeat"] = bool(torch.equal(again, dec[:, 0]))
+            del again
+        # the teacher-forced gate; the MoE models drop-free (capacity drops
+        # depend on the batch), their routing recorded on both sides
+        cfg = self.drop_free(cfg)
+        w_dec, w_tf = _MoEWatch(torch, routes=True), _MoEWatch(torch, routes=True)
+        if cfg.moe is not None:
+            with w_dec:
+                toks, dec, _, _, _ = self.counted(f"{cell}_drop_free", lambda: self.decode_loop(cfg, params, batch, N))
+        with w_tf:
+            tf = self.teacher_forced(cfg, params, batch, toks)
+        agree, flips, margin = self.routing_agreement(cfg, w_dec.routes, w_tf.routes, P, S, N)
+        drop_free_share = max(w_dec.share(), w_tf.share())
+        del w_dec, w_tf
+        # the bf16 model's own rounding error at these positions: the
+        # distance of its forward from the f32 forward of the same weights
+        cfg32 = cfg.replace(dtype="float32")
+        params = tree_map(lambda t: t.float(), params)
+        self.free()
+        tf32 = self.teacher_forced(cfg32, params, batch, toks)
+        del params
+        gaps, errs = (dec - tf).abs().amax(-1), (tf - tf32).abs().amax(-1)  # (P, N)
+        gap = float(gaps[agree].max())
+        bf16_err = float(errs[agree].max())
+        excess = tf.amax(-1) - tf.gather(-1, toks.long()[..., None])[..., 0]
+        differ = (torch.argmax(tf, -1) != toks) & agree
+        worst = float(excess[differ].max()) if bool(differ.any()) else 0.0
+        bound = max(self.TF_GAP_MAX, 2 * bf16_err)
+        row.update(tf_gap=gap, tf_gap_all=float(gaps.max()), bf16_forward_err=bf16_err, tf_bound=bound,
+                   tf_mismatches=int(differ.sum()), tf_worst_excess=worst, launches=self.launches.get(cell, {}))
+        if cfg.moe is not None:
+            row.update(dropped_share_drop_free=drop_free_share, routing_differences=flips,
+                       positions_rerouted=int((~agree).sum()), worst_tie_margin=margin)
+        self.rows[cell] = row
+        _p(f"phase 18: {cell} ({cfg.name} bf16 at published widths, {cfg.n_layers} layers; card: {self.smi}): "
+           f"{json.dumps(row)}")
+        ok = gap <= bound and worst <= 2 * gap
+        if cfg.moe is not None:
+            ok = ok and row["prefill_bitwise_repeat"] and row["dropped_share_drop_free"] == 0.0 \
+                and margin <= self.TIE_MARGIN
+        if not ok:
+            raise AssertionError(f"phase 18 {cell}: {row}")
+
+    def routing_agreement(self, cfg, dec_routes, tf_routes, P, S, N):
+        """Which compared positions every MoE layer routed alike in decode and
+        in the teacher-forced forward: ((P, N) bool, the count of differing
+        (position, layer) decisions, the largest relative margin in the
+        forward's probabilities between an expert only it chose and one only
+        the decode chose, at each position's first differing layer: past it
+        the two hidden states differ by an expert's output, and the later
+        layers' choices with them).  Decode's calls run prefill (row
+        p·S + S − 1 for position 0), then a step a position (row p); the
+        forward's run TF_GROUP prompts a call (row (p mod G)·(S + N) + S − 1
+        + j)."""
+        torch = self.torch
+        agree = torch.ones((P, N), dtype=torch.bool)
+        if cfg.moe is None:
+            return agree.to(self.dev), 0, 0.0
+        n_moe = len(dec_routes) // N
+        G, flips, margin = self.TF_GROUP, 0, 0.0
+        for p in range(P):
+            for j in range(N):
+                for layer in range(n_moe):
+                    _, idx_d = dec_routes[j * n_moe + layer]
+                    probs_f, idx_f = tf_routes[(p // G) * n_moe + layer]
+                    d = idx_d[p * S + S - 1 if j == 0 else p]
+                    row_f = (p % G) * (S + N) + S - 1 + j
+                    f, pf = idx_f[row_f], probs_f[row_f]
+                    only_f = sorted(set(f.tolist()) - set(d.tolist()))
+                    if not only_f:
+                        continue
+                    flips += 1
+                    if bool(agree[p, j]):  # the first differing layer
+                        agree[p, j] = False
+                        only_d = sorted(set(d.tolist()) - set(f.tolist()))
+                        low = float(pf[only_f].min())
+                        margin = max(margin, (low - float(pf[only_d].max())) / low)
+        return agree.to(self.dev), flips, margin
+
+    # ---- the f32 gate --------------------------------------------------------
+
+    def gates(self, cell, arch, kw):
+        from repro_torch.models import decode_step, prefill
+        from repro_torch.models.transformer import _embed_inputs, _head_weight, backbone
+
+        torch, dev = self.torch, self.dev
+        cfg = self.drop_free(self.config(arch, dtype="float32", **kw))
+        gen = torch.Generator(device=dev).manual_seed(self.SEED + 1)
+        params = self.weights(cfg, gen)
+        L, K = self.GATE_LEN, self.GATE_DECODE_STEPS
+        pr = torch.randint(0, cfg.vocab, (self.GATE_PROMPTS, L), generator=gen, dtype=torch.int32, device=dev)
+        img = self.image(cfg, self.GATE_PROMPTS, gen)
+
+        def share(got, want):
+            return float(((got - want).abs() / (self.SERVE_TOL + self.SERVE_TOL * want.abs())).max())
+
+        def run():
+            pre, cache = prefill(cfg, params, {"tokens": pr[:, : L - K], **img}, S_cache=L)
+            with torch.no_grad():
+                h, _ = backbone(cfg, params, *_embed_inputs(cfg, params, {"tokens": pr, **img}))
+                want = (h[:, L - K - 1:] @ _head_weight(cfg, params)).float()  # (GATE_PROMPTS, K + 1, V)
+            del h
+            shares = [share(pre, want[:, 0])]
+            for i in range(K):
+                dlg, cache = decode_step(cfg, params, cache, pr[:, L - K + i], L - K + i,
+                                         img=img.get("image_embeds"))
+                shares.append(share(dlg, want[:, 1 + i]))
+            return shares
+
+        with _MoEWatch(torch) as drops:
+            shares = self.counted(f"{cell}_f32_gate", run)
+        row = dict(n_layers=cfg.n_layers, prompts=self.GATE_PROMPTS, prompt_len=L - K, decode_steps=K,
+                   prefill_share=shares[0], decode_share_max=max(shares[1:]), dropped_share=drops.share())
+        _p(f"phase 18: {cell} f32 gate (|Δ| as a share of {self.SERVE_TOL}·(1 + |forward|), allclose's bound; "
+           f"card: {self.smi}): {json.dumps(row)}")
+        if not (max(shares) <= 1 and drops.share() == 0.0):
+            raise AssertionError(f"phase 18 {cell} f32 gate: {row}")
+
+    # ---- training --------------------------------------------------------------
+
+    def train(self, cell, arch, kw):
+        from repro_torch.data import SyntheticConfig
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.train import loop as loop_mod
+
+        torch, dev = self.torch, self.dev
+        cfg = self.config(arch, **kw)
+        dcfg = SyntheticConfig(vocab=cfg.vocab, seq_len=self.SEQ, global_batch=self.BATCH)
+        real_batch_at = loop_mod.batch_at
+
+        def with_image(dcfg, step, *, device=None):  # the vision model's batches carry seeded image embeddings
+            batch = real_batch_at(dcfg, step, device=device)
+            gen = torch.Generator(device=dev).manual_seed(self.SEED + 100 + step)
+            return {**batch, **self.image(cfg, self.BATCH, gen)}
+
+        stamps = []
+        torch.cuda.reset_peak_memory_stats()
+        loop_mod.batch_at = with_image
+        try:
+            state, losses = self.counted(f"{cell}_train", lambda: loop_mod.train_loop(
+                cfg, dcfg, AdamWConfig(**self.OPT), steps=self.STEPS, n_micro=self.MICRO, log_every=1,
+                seed=self.SEED, log=lambda line: stamps.append(time.perf_counter()), device=dev))
+        finally:
+            loop_mod.batch_at = real_batch_at
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(t.numel() for t in tree_leaves(state.params))
+        del state
+        gaps = sorted(b - a for a, b in zip(stamps[1:], stamps[2:]))  # warm steps (each log reads the loss)
+        step_s = gaps[len(gaps) // 2]
+        first, last = losses[0][1], losses[-1][1]
+        row = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params, steps=self.STEPS, seq=self.SEQ,
+                   global_batch=self.BATCH, n_micro=self.MICRO, losses=[v for _, v in losses], step_ms=1e3 * step_s,
+                   tok_s=self.SEQ * self.BATCH / step_s, peak_gib=peak, launches=self.launches[f"{cell}_train"])
+        _p(f"phase 18: {cell} train ({cfg.name} bf16 parameters, f32 master, {cfg.n_layers} layers; median warm "
+           f"step; card: {self.smi}): {json.dumps(row)}")
+        if not (all(math.isfinite(v) for _, v in losses) and last < first):
+            raise AssertionError(f"phase 18 {cell} train: {row}")
+
+    def loss_once(self, cell, arch, kw):
+        """One ``loss_fn`` forward and backward at ``kw``'s depth, bf16, no
+        optimizer."""
+        from repro_torch.data import SyntheticConfig, batch_at
+        from repro_torch.models import loss_fn
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.optim import global_norm
+
+        torch, dev = self.torch, self.dev
+        cfg = self.config(arch, **kw)
+        params = self.weights(cfg, torch.Generator(device=dev).manual_seed(self.SEED + 2))
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_()
+        batch = batch_at(SyntheticConfig(vocab=cfg.vocab, seq_len=self.SEQ, global_batch=self.BATCH), 0, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+
+        def step():
+            loss, metrics = loss_fn(cfg, params, batch)
+            return loss.detach(), metrics["aux"].detach(), torch.autograd.grad(loss, leaves)
+
+        (loss, aux, grads), t = _sync_time(torch, lambda: self.counted(f"{cell}_loss", step))
+        row = dict(arch=cfg.name, n_layers=cfg.n_layers, params=sum(t.numel() for t in leaves), seq=self.SEQ,
+                   batch=self.BATCH, loss=float(loss), aux=float(aux), grad_norm=float(global_norm(grads)),
+                   forward_backward_ms=1e3 * t, tok_s=self.SEQ * self.BATCH / t,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=self.launches[f"{cell}_loss"])
+        _p(f"phase 18: {cell} loss_fn forward + backward ({cfg.name} bf16, {cfg.n_layers} layers, no optimizer; "
+           f"card: {self.smi}): {json.dumps(row)}")
+        if not (math.isfinite(row["loss"]) and row["aux"] > 0 and math.isfinite(row["grad_norm"])):
+            raise AssertionError(f"phase 18 {cell} loss: {row}")
 
 
 class _Phase14:

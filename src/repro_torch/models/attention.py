@@ -12,9 +12,13 @@ result: a causal kv block that lies wholly above the diagonal of a q block
 is skipped, since it adds exactly zero (its probabilities are exp(-1e30 - m)
 = 0 and its correction exp(m - m) = 1).
 
+Cross-attention (``cross_*``: text queries over image patch embeddings,
+scaled by tanh(gate)) and DeepSeek-V2's multi-head latent attention
+(``mla_*``: a latent KV cache and the weight-absorbed decode) are the
+reference's too.
+
 No Pallas kernel runs here in the reference, so none is owed; the products
-are ``torch.einsum``.  Cross-attention and MLA (``cross_*``, ``mla_*``)
-belong to the second half of the ML stack (ROADMAP A14b) and raise.
+are ``torch.einsum``.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import math
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import MLAConfig, ModelConfig
 from .common import PSpec, apply_rope, make_rope, rms_norm
 
 NEG_INF = -1e30
@@ -36,7 +40,14 @@ __all__ = [
     "gqa_cache_axes",
     "gqa_decode",
     "cross_specs",
+    "cross_apply",
+    "cross_decode",
     "mla_specs",
+    "mla_latent",
+    "mla_apply",
+    "mla_init_cache",
+    "mla_cache_axes",
+    "mla_decode",
 ]
 
 
@@ -223,19 +234,172 @@ def gqa_decode(p, x, cache, step: int, cfg: ModelConfig, *, window=None):
 
 
 # ===========================================================================
-# Cross-attention and MLA: the second half of the ML stack
+# Cross-attention block (VLM): text queries attend to image patch embeddings
 # ===========================================================================
 
 
-def _a14b(what: str):
-    raise NotImplementedError(
-        f"{what} arrives with the second half of the ML stack (ROADMAP A14b)"
-    )
-
-
 def cross_specs(cfg: ModelConfig) -> dict:
-    _a14b("cross-attention (the vision front end's mixer)")
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "ln": PSpec((D,), ("embed",), "zeros"),
+        "wq": PSpec((D, H * hd), ("embed", "heads")),
+        "wk": PSpec((D, KV * hd), ("embed", "kv_heads")),
+        "wv": PSpec((D, KV * hd), ("embed", "kv_heads")),
+        "wo": PSpec((H * hd, D), ("heads", "embed")),
+        "gate": PSpec((1,), (None,), "zeros"),  # tanh gate (llama-vision)
+        "k_norm": PSpec((hd,), ("head_dim",), "zeros"),
+        "q_norm": PSpec((hd,), ("head_dim",), "zeros"),
+    }
+
+
+def _image_kv(p, img, cfg: ModelConfig):
+    """The image's keys (qk-normed) and values, (B, KV, P, hd) each."""
+    if img is None:
+        raise ValueError("a cross-attention layer needs the image embeddings (batch['image_embeds'] or img=)")
+    B, P_img, _ = img.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    k = rms_norm((img @ p["wk"]).reshape(B, P_img, KV, hd).transpose(1, 2), p["k_norm"], cfg.norm_eps)
+    v = (img @ p["wv"]).reshape(B, P_img, KV, hd).transpose(1, 2)
+    return k, v
+
+
+def cross_apply(p, x, img, cfg: ModelConfig):
+    """x (B,S,D) text; img (B,P,D) precomputed patch embeddings (a stub of
+    the vision tower).  The output is scaled by tanh(gate)."""
+    B, S, D = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = rms_norm((h @ p["wq"]).reshape(B, S, H, hd).transpose(1, 2), p["q_norm"], cfg.norm_eps)
+    k, v = _image_kv(p, img, cfg)
+    o = flash_attention(q, k, v, causal=False, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
+    o = o.transpose(1, 2).reshape(B, S, H * hd)
+    return x + torch.tanh(p["gate"]).to(x.dtype) * (o @ p["wo"])
+
+
+def cross_decode(p, x, img, cfg: ModelConfig):
+    """One-token cross-attention; the image acts as a fixed KV cache,
+    projected again at every step as in the reference."""
+    B, D = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = rms_norm((h @ p["wq"]).reshape(B, H, hd), p["q_norm"], cfg.norm_eps)
+    k, v = _image_kv(p, img, cfg)
+    valid = torch.ones((B, k.shape[2]), dtype=torch.bool, device=x.device)
+    o = decode_attention(q, k, v, valid).reshape(B, H * hd)
+    return x + torch.tanh(p["gate"]).to(x.dtype) * (o @ p["wo"])
+
+
+# ===========================================================================
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ===========================================================================
 
 
 def mla_specs(cfg: ModelConfig) -> dict:
-    _a14b("MLA (multi-head latent attention)")
+    D, H = cfg.d_model, cfg.n_heads
+    m: MLAConfig = cfg.mla
+    dq = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "ln": PSpec((D,), ("embed",), "zeros"),
+        "wq_a": PSpec((D, m.q_lora), ("embed", "lora")),
+        "q_ln": PSpec((m.q_lora,), ("lora",), "zeros"),
+        "wq_b": PSpec((m.q_lora, H * dq), ("lora", "heads")),
+        "wkv_a": PSpec((D, m.kv_lora + m.qk_rope_dim), ("embed", "lora")),
+        "kv_ln": PSpec((m.kv_lora,), ("lora",), "zeros"),
+        "wkv_b": PSpec((m.kv_lora, H * (m.qk_nope_dim + m.v_dim)), ("lora", "heads")),
+        "wo": PSpec((H * m.v_dim, D), ("heads", "embed")),
+    }
+
+
+def mla_latent(p, h, cfg: ModelConfig, positions):
+    """The normed latent (..., S, kv_lora) and the roped key half shared by
+    every head (..., S, dr): what the decode cache holds."""
+    m: MLAConfig = cfg.mla
+    kv_a = h @ p["wkv_a"]  # (..., S, kv_lora + dr)
+    latent = rms_norm(kv_a[..., : m.kv_lora], p["kv_ln"], cfg.norm_eps)
+    cos, sin = make_rope(positions, m.qk_rope_dim, cfg.rope_theta)
+    return latent, apply_rope(kv_a[..., m.kv_lora:], cos, sin)
+
+
+def _mla_qkv(p, h, cfg: ModelConfig, positions):
+    B, S, D = h.shape
+    H = cfg.n_heads
+    m: MLAConfig = cfg.mla
+    dn, dr = m.qk_nope_dim, m.qk_rope_dim
+
+    q = rms_norm(h @ p["wq_a"], p["q_ln"], cfg.norm_eps) @ p["wq_b"]
+    q = q.reshape(B, S, H, dn + dr).transpose(1, 2)
+    cos, sin = make_rope(positions, dr, cfg.rope_theta)
+    latent, k_rope = mla_latent(p, h, cfg, positions)
+    return q[..., :dn], apply_rope(q[..., dn:], cos, sin), latent, k_rope[:, None]  # k_rope (B, 1, S, dr)
+
+
+def mla_apply(p, x, cfg: ModelConfig, *, pos_offset=0):
+    """Full-sequence MLA block (pre-norm, residual): the latent is expanded
+    to per-head keys and values (the train/prefill path)."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    m: MLAConfig = cfg.mla
+    dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_dim
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    positions = pos_offset + torch.arange(S, device=x.device)
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, h, cfg, positions)
+
+    kv = (latent @ p["wkv_b"]).reshape(B, S, H, dn + dv).transpose(1, 2)
+    k = torch.cat([kv[..., :dn], k_rope.expand(B, H, S, dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = flash_attention(q, k, kv[..., dn:], causal=True, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
+    o = o.transpose(1, 2).reshape(B, S, H * dv)
+    return x + o @ p["wo"]
+
+
+def mla_init_cache(cfg: ModelConfig, B: int, S: int, dtype, device=None):
+    m: MLAConfig = cfg.mla
+    return {
+        "latent": torch.zeros((B, S, m.kv_lora), dtype=dtype, device=device),
+        "k_rope": torch.zeros((B, S, m.qk_rope_dim), dtype=dtype, device=device),
+    }
+
+
+def mla_cache_axes():
+    return {
+        "latent": ("batch", "cache_seq", "lora"),
+        "k_rope": ("batch", "cache_seq", "head_dim"),
+    }
+
+
+def mla_decode(p, x, cache, step: int, cfg: ModelConfig):
+    """Weight-absorbed MLA decode: attention runs in latent space.
+
+    q̃ = q_nopeᵀ W_uk (B,H,kv_lora); scores = q̃·latentᵀ + q_rope·k_ropeᵀ;
+    ctx = attn·latent; out_h = ctx·W_uv, with W_uk and W_uv slices of
+    ``wkv_b``: no key or value is expanded per head.  Writes the token's
+    latent and k_rope into ``cache`` in place (slot ``min(step, S − 1)``)
+    and returns ``(x, cache)``.
+    """
+    B, D = x.shape
+    H = cfg.n_heads
+    m: MLAConfig = cfg.mla
+    dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_dim
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+
+    q = (rms_norm(h @ p["wq_a"], p["q_ln"], cfg.norm_eps) @ p["wq_b"]).reshape(B, H, dn + dr)
+    pos = torch.full((1,), step, device=x.device)
+    cos, sin = make_rope(pos, dr, cfg.rope_theta)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+    latent_new, k_rope_new = mla_latent(p, h[None], cfg, pos)
+
+    S = cache["latent"].shape[1]
+    slot = min(step, S - 1)
+    cache["latent"][:, slot] = latent_new[0].to(cache["latent"].dtype)
+    cache["k_rope"][:, slot] = k_rope_new[0].to(cache["k_rope"].dtype)
+    latent, k_rope = cache["latent"], cache["k_rope"]
+
+    wkv_b = p["wkv_b"].reshape(m.kv_lora, H, dn + dv)
+    q_abs = torch.einsum("bhd,lhd->bhl", q_nope, wkv_b[..., :dn])  # (B, H, kv_lora)
+    s = (torch.einsum("bhl,bsl->bhs", q_abs.float(), latent.float())
+         + torch.einsum("bhr,bsr->bhs", q_rope.float(), k_rope.float())) / math.sqrt(dn + dr)
+    valid = torch.arange(S, device=x.device) <= step
+    probs = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhs,bsl->bhl", probs.to(latent.dtype), latent)
+    o = torch.einsum("bhl,lhd->bhd", ctx, wkv_b[..., dn:]).reshape(B, H * dv)
+    return x + o @ p["wo"], cache

@@ -39,6 +39,8 @@ __all__ = [
     "make_rope",
     "apply_rope",
     "activation",
+    "causal_conv",
+    "conv_step",
     "DTYPES",
 ]
 
@@ -54,7 +56,7 @@ class PSpec(NamedTuple):
 
     shape: tuple
     axes: tuple
-    init: str = "fan_in"  # 'fan_in' | 'zeros' | 'ones' | 'normal' | 'embed'
+    init: str = "fan_in"  # 'fan_in' | 'zeros' | 'ones' | 'normal' | 'embed' | a key of _UNIFORM
     dtype: Any = None  # None -> model dtype
 
 
@@ -112,6 +114,18 @@ def _leaf_generator(base: int, i: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int.from_bytes(digest, "little") >> 1)
 
 
+# The recurrent and SSM initializers: a uniform draw in [lo, hi), mapped to
+# the parameter in f32.
+_UNIFORM = {
+    # Griffin: a = sigmoid(Λ) uniform in [0.9, 0.999] -> Λ = logit(a)
+    "rglru_lambda": (0.9, 0.999, lambda u: torch.log(u / (1 - u))),
+    # Mamba2: A in [1, 16] -> log
+    "ssm_a_log": (1.0, 16.0, torch.log),
+    # softplus^-1 of dt in [1e-3, 1e-1]
+    "ssm_dt_bias": (1e-3, 1e-1, lambda u: u + torch.log(-torch.expm1(-u))),
+}
+
+
 def init_tree(specs, generator: torch.Generator, default_dtype, device):
     """Materialize a PSpec tree into tensors on ``device``.
 
@@ -140,11 +154,11 @@ def init_tree(specs, generator: torch.Generator, default_dtype, device):
                 std = 0.02
             g = _leaf_generator(base, i, device)
             arr = (torch.randn(spec.shape, generator=g, dtype=torch.float32, device=device) * std).to(dtype)
-        elif spec.init in ("rglru_lambda", "ssm_a_log", "ssm_dt_bias"):
-            raise NotImplementedError(
-                f"init {spec.init!r} belongs to the recurrent and SSM mixers, which arrive "
-                "with the second half of the ML stack (ROADMAP A14b)"
-            )
+        elif spec.init in _UNIFORM:
+            lo, hi, to_param = _UNIFORM[spec.init]
+            g = _leaf_generator(base, i, device)
+            u = torch.rand(spec.shape, generator=g, dtype=torch.float32, device=device) * (hi - lo) + lo
+            arr = to_param(u).to(torch.float32)
         else:
             raise ValueError(f"unknown init {spec.init!r}")
         leaves[path] = arr
@@ -210,3 +224,27 @@ def activation(kind: str, h, g=None):
     if kind == "gelu":
         return F.gelu(h, approximate="tanh")
     raise ValueError(f"unknown activation {kind!r}")
+
+
+def causal_conv(x, w, b):
+    """Depthwise causal convolution along the sequence, plus the bias:
+    x (B, S, C), w (W, C).  The taps are added one by one in the reference's
+    order, in f32, and the sum is cast to x's dtype once (XLA fuses the
+    reference's loop and keeps its bf16 intermediates in f32, as
+    ``conv_step``'s einsum does at decode)."""
+    W, S = w.shape[0], x.shape[1]
+    x32, w32 = x.float(), w.float()
+    out = torch.zeros_like(x32)
+    for i in range(W):
+        out = out + F.pad(x32, (0, 0, W - 1 - i, 0))[:, :S] * w32[i]
+    return (out + b.float()).to(x.dtype)
+
+
+def conv_step(tail, new, w, b):
+    """``causal_conv`` at one new position: ``tail`` (B, W-1, C) holds the
+    previous inputs, ``new`` (B, C).  The taps' products and the bias are
+    summed in f32 and cast back once, as ``causal_conv`` does.  Returns
+    (out, new tail)."""
+    buf = torch.cat([tail, new[:, None]], dim=1)
+    out = torch.einsum("bwc,wc->bc", buf.float(), w.float()) + b.float()
+    return out.to(buf.dtype), buf[:, 1:]

@@ -1,0 +1,154 @@
+"""Mixture-of-Experts FFN: top-k routing with capacity-based dispatch.
+
+Port of ``repro/models/moe.py``'s global-dispatch path (``_moe_gspmd``):
+flatten the (token, choice) assignments, rank each within its expert in
+the order of a stable sort, drop the ranks beyond the capacity, gather into
+a dense (E, C, D) buffer for the batched expert products, and combine each
+token's K outputs weighted by their gates.  Shared experts (DeepSeek-V2)
+and top-k renormalization (Mixtral); the router in f32; the Switch-style
+load-balance aux loss.
+
+Three places where torch would silently differ from the reference:
+
+- *top-k ties*: ``jax.lax.top_k`` puts the lower expert first among equal
+  probabilities, ``torch.topk`` does not promise to; the choice here is a
+  stable descending sort's first K;
+- *the rank within an expert* decides which assignments a full expert
+  drops, so it comes from a stable argsort, as in the reference;
+- *the combine*: every token has exactly K assignments, so its outputs are
+  gathered as (T, K, D) and added in choice order (the reference's
+  ``segment_sum`` over ``token_of``), with no atomic scatter: two calls on
+  the same input give the same bits on the card.
+
+The expert-parallel path over a mesh (``moe_impl="shard_map"``) belongs to
+the mesh half of the ML stack (ROADMAP A14b) and raises.  No Pallas kernel
+runs here in the reference; the products are ``torch.bmm`` and matmuls.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig, MoEConfig
+from .common import PSpec, activation, rms_norm
+from .mlp import GATED
+
+__all__ = ["moe_specs", "moe_apply"]
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    m: MoEConfig = cfg.moe
+    E, F = m.n_experts, m.d_expert
+    specs = {
+        "ln": PSpec((D,), ("embed",), "zeros"),
+        "router": PSpec((D, E), ("embed", None), dtype=torch.float32),
+        "w_in": PSpec((E, D, F), ("experts", "embed", "expert_mlp")),
+        "w_out": PSpec((E, F, D), ("experts", "expert_mlp", "embed")),
+    }
+    if cfg.act in GATED:
+        specs["w_gate"] = PSpec((E, D, F), ("experts", "embed", "expert_mlp"))
+    if m.n_shared:
+        Fs = m.n_shared * m.d_expert
+        specs["shared_in"] = PSpec((D, Fs), ("embed", "mlp"))
+        specs["shared_out"] = PSpec((Fs, D), ("mlp", "embed"))
+        if cfg.act in GATED:
+            specs["shared_gate"] = PSpec((D, Fs), ("embed", "mlp"))
+    return specs
+
+
+def _capacity(T: int, m: MoEConfig) -> int:
+    c = int(m.capacity_factor * T * m.top_k / m.n_experts)
+    return max(8, -(-c // 8) * 8)  # multiple of 8 for tiling
+
+
+def _route(p_router, h, m: MoEConfig):
+    """(probs (T, E), gate values (T, K), expert ids (T, K)); among equal
+    probabilities the lower expert comes first (``lax.top_k``'s order)."""
+    probs = torch.softmax(h.float() @ p_router, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[..., : m.top_k], idx[..., : m.top_k]
+    if m.norm_topk:
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _rank_in_expert(flat_e, E: int):
+    """Stable rank of each assignment within its target expert."""
+    A = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(A, device=flat_e.device) - starts[flat_e[order]]
+    return rank
+
+
+def _expert_ffn(xe, p, cfg: ModelConfig):
+    """xe (E, C, D) -> (E, C, D) through each expert's FFN."""
+    up = torch.bmm(xe, p["w_in"])
+    act = activation(cfg.act, up, torch.bmm(xe, p["w_gate"])) if cfg.act in GATED else activation(cfg.act, up)
+    return torch.bmm(act, p["w_out"])
+
+
+def _shared_ffn(h, p, cfg: ModelConfig):
+    s_up = h @ p["shared_in"]
+    s_act = activation(cfg.act, s_up, h @ p["shared_gate"]) if cfg.act in GATED else activation(cfg.act, s_up)
+    return s_act @ p["shared_out"]
+
+
+def _aux_loss(probs, flat_e, m: MoEConfig):
+    frac = torch.bincount(flat_e, minlength=m.n_experts).float() / flat_e.shape[0]
+    return m.aux_weight * m.n_experts * torch.sum(frac * probs.mean(0))
+
+
+def _moe_gspmd(p, x, cfg: ModelConfig, return_aux: bool):
+    """One global sort-based dispatch (the reference's name kept: under XLA it
+    is the GSPMD-partitioned path)."""
+    m: MoEConfig = cfg.moe
+    D = x.shape[-1]
+    h = rms_norm(x, p["ln"], cfg.norm_eps).reshape(-1, D)
+    T = h.shape[0]
+    E, K = m.n_experts, m.top_k
+    C = _capacity(T, m)
+
+    probs, gate_vals, gate_idx = _route(p["router"], h, m)
+
+    A = T * K
+    flat_e = gate_idx.reshape(A)
+    token_of = torch.arange(A, device=x.device) // K
+    rank = _rank_in_expert(flat_e, E)
+    keep = rank < C
+    dest = torch.where(keep, flat_e * C + rank, E * C)  # the dropped share slot E·C
+
+    # each kept assignment owns its slot; only the dropped ones meet at E·C,
+    # which is cut off, so the write order does not matter
+    slot_src = torch.full((E * C + 1,), T, dtype=torch.long, device=x.device)
+    slot_src[dest] = token_of
+    h_pad = torch.cat([h, h.new_zeros(1, D)])
+    xe = h_pad[slot_src[:-1]].reshape(E, C, D)
+
+    ye = _expert_ffn(xe, p, cfg)
+
+    ye_flat = torch.cat([ye.reshape(E * C, D), ye.new_zeros(1, D)])
+    y_assign = (ye_flat[dest] * (gate_vals.reshape(A, 1).to(ye.dtype) * keep[:, None])).reshape(T, K, D)
+    y = y_assign[:, 0]
+    for k in range(1, K):  # the token's choices in order, as segment_sum adds them
+        y = y + y_assign[:, k]
+
+    if m.n_shared:
+        y = y + _shared_ffn(h, p, cfg)
+
+    out = x + y.reshape(x.shape).to(x.dtype)
+    if not return_aux:
+        return out
+    return out, _aux_loss(probs, flat_e, m)
+
+
+def moe_apply(p, x, cfg: ModelConfig, return_aux: bool = False):
+    """x (B, S, D) or (T, D).  Returns y (+ the aux loss if requested)."""
+    if cfg.moe_impl == "shard_map":
+        raise NotImplementedError(
+            "moe_impl='shard_map' (the expert-parallel path over a mesh) arrives with the mesh half "
+            "of the ML stack (ROADMAP A14b); 'auto' and 'gspmd' run the global dispatch"
+        )
+    return _moe_gspmd(p, x, cfg, return_aux)

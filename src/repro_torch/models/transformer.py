@@ -32,11 +32,11 @@ saves the outputs of the 2-D matrix products (``aten.mm``/``addmm``: the
 weight products, the reference's ``checkpoint_dots_with_no_batch_dims``)
 and recomputes the rest.  The serving paths run without autograd.
 
-The families this slice runs are the attention-only patterns with a dense
-FFN (``dense``, ``audio``).  The ``mla``, ``ssd``, ``rglru`` and
-``cross_attn`` mixers, ``moe=True`` and the ``vision`` front end belong to
-the second half of the ML stack (ROADMAP A14b): ``init_params`` (through
-``model_specs``) raises ``NotImplementedError`` for them.
+Every family of the reference runs: the mixers ``attn`` (GQA, sliding
+window), ``mla``, ``cross_attn``, ``ssd`` and ``rglru``; a dense or MoE FFN
+(``moe=True``: the MoE's aux loss reaches ``loss_fn``); the ``token``,
+``frames`` and ``vision`` front ends (``vision`` takes precomputed image
+embeddings as ``batch["image_embeds"]``, and ``decode_step(img=)``).
 """
 from __future__ import annotations
 
@@ -51,6 +51,9 @@ from ..configs.base import LayerSpec, ModelConfig
 from ..core.backend import as_generator, resolve_device
 from . import attention as attn
 from . import mlp as mlp_mod
+from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .common import DTYPES, PSpec, axes_tree, init_tree, rms_norm, shape_tree, tree_map
 
 __all__ = [
@@ -64,25 +67,21 @@ __all__ = [
 # ===========================================================================
 
 
-def _a14b(what: str):
-    raise NotImplementedError(f"{what} arrives with the second half of the ML stack (ROADMAP A14b)")
+_MIXER_SPECS = {
+    "attn": attn.gqa_specs,
+    "mla": attn.mla_specs,
+    "cross_attn": attn.cross_specs,
+    "ssd": ssm_mod.ssd_specs,
+    "rglru": rglru_mod.rglru_specs,
+}
 
 
 def layer_specs(cfg: ModelConfig, spec: LayerSpec) -> dict:
-    if spec.mixer == "attn":
-        d = {"mixer": attn.gqa_specs(cfg)}
-    elif spec.mixer == "mla":
-        d = {"mixer": attn.mla_specs(cfg)}
-    elif spec.mixer == "cross_attn":
-        d = {"mixer": attn.cross_specs(cfg)}
-    elif spec.mixer in ("ssd", "rglru"):
-        _a14b(f"the {spec.mixer!r} mixer")
-    else:
+    if spec.mixer not in _MIXER_SPECS:
         raise ValueError(f"unknown mixer {spec.mixer!r}")
+    d = {"mixer": _MIXER_SPECS[spec.mixer](cfg)}
     if spec.ffn:
-        if spec.moe:
-            _a14b("the MoE FFN")
-        d["ffn"] = mlp_mod.mlp_specs(cfg)
+        d["ffn"] = moe_mod.moe_specs(cfg) if spec.moe else mlp_mod.mlp_specs(cfg)
     return d
 
 
@@ -96,10 +95,8 @@ def _stack_specs(specs, n: int):
 
 def model_specs(cfg: ModelConfig) -> dict:
     D, V = cfg.d_model, cfg.vocab
-    if cfg.frontend == "vision":
-        _a14b("the 'vision' front end")
     specs: dict[str, Any] = {}
-    if cfg.frontend == "token":
+    if cfg.frontend in ("token", "vision"):
         specs["embed"] = PSpec((V, D), ("vocab", "embed"), "embed")
     # 'frames' front end: inputs arrive as precomputed (B,S,D) embeddings
     specs["prefix"] = [layer_specs(cfg, s) for s in cfg.prefix]
@@ -132,13 +129,29 @@ def params_shapes(cfg: ModelConfig):
 # ===========================================================================
 
 
-def apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec):
-    """Returns (x, aux); aux is 0 without an MoE FFN."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = attn.gqa_apply(p["mixer"], x, cfg, window=spec.window)
+def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
+    """The layer's FFN: returns (x, aux); aux is 0 without an MoE FFN."""
+    if spec.ffn and spec.moe:
+        return moe_mod.moe_apply(p["ffn"], x, cfg, return_aux=True)
     if spec.ffn:
         x = mlp_mod.mlp_apply(p["ffn"], x, cfg)
-    return x, aux
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, img=None, pos_offset=0):
+    """Returns (x, aux); aux is 0 without an MoE FFN."""
+    mp = p["mixer"]
+    if spec.mixer == "attn":
+        x = attn.gqa_apply(mp, x, cfg, window=spec.window, pos_offset=pos_offset)
+    elif spec.mixer == "mla":
+        x = attn.mla_apply(mp, x, cfg, pos_offset=pos_offset)
+    elif spec.mixer == "cross_attn":
+        x = attn.cross_apply(mp, x, img, cfg)
+    elif spec.mixer == "ssd":
+        x = ssm_mod.ssd_apply(mp, x, cfg)
+    elif spec.mixer == "rglru":
+        x = rglru_mod.rglru_apply(mp, x, cfg)
+    return _ffn(p, x, cfg, spec)
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -171,23 +184,28 @@ def _period(tree, l: int):
 
 
 def _embed_inputs(cfg: ModelConfig, params, batch):
+    """(the input embeddings (B, S, D), the image embeddings or None), in
+    the model's dtype."""
     dtype = DTYPES[cfg.dtype]
     if cfg.frontend == "frames":
-        return batch["embeds"].to(dtype)
-    return params["embed"][batch["tokens"].long()].to(dtype)
+        x = batch["embeds"].to(dtype)
+    else:
+        x = params["embed"][batch["tokens"].long()].to(dtype)
+    img = batch.get("image_embeds")
+    return x, None if img is None else img.to(dtype)
 
 
-def backbone(cfg: ModelConfig, params, x):
+def backbone(cfg: ModelConfig, params, x, img=None):
     """Embeddings -> final hidden states.  Returns (x, total_aux)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in zip(cfg.prefix, params["prefix"]):
-        x, aux = apply_layer(p, x, cfg, spec)
+        x, aux = apply_layer(p, x, cfg, spec, img=img)
         aux_total = aux_total + aux
 
     def period_body(h, period_params):
         aux_acc = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, spec in enumerate(cfg.pattern):
-            h, aux = apply_layer(period_params[i], h, cfg, spec)
+            h, aux = apply_layer(period_params[i], h, cfg, spec, img=img)
             aux_acc = aux_acc + aux
         return h, aux_acc
 
@@ -197,7 +215,7 @@ def backbone(cfg: ModelConfig, params, x):
         aux_total = aux_total + aux
 
     for spec, p in zip(cfg.suffix, params["suffix"]):
-        x, aux = apply_layer(p, x, cfg, spec)
+        x, aux = apply_layer(p, x, cfg, spec, img=img)
         aux_total = aux_total + aux
     return rms_norm(x, params["final_ln"], cfg.norm_eps), aux_total
 
@@ -208,7 +226,7 @@ def _head_weight(cfg: ModelConfig, params):
 
 def forward(cfg: ModelConfig, params, batch):
     """Full logits, f32 (careful: (B,S,V) — use loss_fn for training)."""
-    x, _ = backbone(cfg, params, _embed_inputs(cfg, params, batch))
+    x, _ = backbone(cfg, params, *_embed_inputs(cfg, params, batch))
     return (x @ _head_weight(cfg, params)).float()
 
 
@@ -221,8 +239,9 @@ def _chunk_ce(xs, ls, w):
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Seq-chunked softmax cross-entropy.  Returns (loss, metrics)."""
-    x, aux = backbone(cfg, params, _embed_inputs(cfg, params, batch))
+    """Seq-chunked softmax cross-entropy plus the MoE aux loss.  Returns
+    (loss, metrics)."""
+    x, aux = backbone(cfg, params, *_embed_inputs(cfg, params, batch))
     w = _head_weight(cfg, params)
     labels = batch["labels"].long()
     B, S = labels.shape
@@ -248,17 +267,35 @@ def loss_fn(cfg: ModelConfig, params, batch):
 def _layer_cache(cfg: ModelConfig, spec: LayerSpec, B: int, S: int, dtype, device):
     if spec.mixer == "attn":
         return attn.gqa_init_cache(cfg, B, S, spec.window, dtype, device)
+    if spec.mixer == "mla":
+        return attn.mla_init_cache(cfg, B, S, dtype, device)
+    if spec.mixer == "ssd":
+        return ssm_mod.ssd_init_cache(cfg, B, dtype, device)
+    if spec.mixer == "rglru":
+        return rglru_mod.rglru_init_cache(cfg, B, dtype, device)
+    if spec.mixer == "cross_attn":
+        return {}  # the image embeddings act as the (static) cache
     raise ValueError(spec.mixer)
+
+
+_CACHE_AXES = {
+    "attn": attn.gqa_cache_axes,
+    "mla": attn.mla_cache_axes,
+    "ssd": ssm_mod.ssd_cache_axes,
+    "rglru": rglru_mod.rglru_cache_axes,
+    "cross_attn": dict,
+}
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, *, device=None):
     """Zero caches for ``B`` sequences of up to ``S`` positions; the pattern's
-    stacked ``(n_periods, …)``."""
+    stacked ``(n_periods, …)``.  The recurrent states are f32, the rest in
+    the model's dtype."""
     dtype, dev = DTYPES[cfg.dtype], resolve_device(device)
 
     def stacked(spec):
         one = _layer_cache(cfg, spec, B, S, dtype, "meta")
-        return {k: torch.zeros((cfg.n_periods,) + tuple(a.shape), dtype=dtype, device=dev) for k, a in one.items()}
+        return {k: torch.zeros((cfg.n_periods,) + tuple(a.shape), dtype=a.dtype, device=dev) for k, a in one.items()}
 
     return {
         "prefix": [_layer_cache(cfg, s, B, S, dtype, dev) for s in cfg.prefix],
@@ -268,79 +305,109 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, device=None):
 
 
 def cache_axes(cfg: ModelConfig):
-    def stacked():
-        return {k: ("layers",) + v for k, v in attn.gqa_cache_axes().items()}
+    def stacked(spec):
+        return {k: ("layers",) + v for k, v in _CACHE_AXES[spec.mixer]().items()}
 
     return {
-        "prefix": [attn.gqa_cache_axes() for _ in cfg.prefix],
-        "pattern": [stacked() for _ in cfg.pattern],
-        "suffix": [attn.gqa_cache_axes() for _ in cfg.suffix],
+        "prefix": [_CACHE_AXES[s.mixer]() for s in cfg.prefix],
+        "pattern": [stacked(s) for s in cfg.pattern],
+        "suffix": [_CACHE_AXES[s.mixer]() for s in cfg.suffix],
     }
 
 
-def _decode_layer(p, x, c, step: int, cfg: ModelConfig, spec: LayerSpec):
-    x, c = attn.gqa_decode(p["mixer"], x, c, step, cfg, window=spec.window)
-    if spec.ffn:
-        x = mlp_mod.mlp_apply(p["ffn"], x, cfg)
-    return x, c
+def _decode_layer(p, x, c, step: int, cfg: ModelConfig, spec: LayerSpec, img=None):
+    mp = p["mixer"]
+    if spec.mixer == "attn":
+        x, c = attn.gqa_decode(mp, x, c, step, cfg, window=spec.window)
+    elif spec.mixer == "mla":
+        x, c = attn.mla_decode(mp, x, c, step, cfg)
+    elif spec.mixer == "ssd":
+        x, c = ssm_mod.ssd_decode(mp, x, c, step, cfg)
+    elif spec.mixer == "rglru":
+        x, c = rglru_mod.rglru_decode(mp, x, c, step, cfg)
+    elif spec.mixer == "cross_attn":
+        x = attn.cross_decode(mp, x, img, cfg)
+    return _ffn(p, x, cfg, spec)[0], c
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params, cache, tokens, step, embeds=None):
+def decode_step(cfg: ModelConfig, params, cache, tokens, step, embeds=None, img=None):
     """One decoding step.
 
     ``tokens`` (B,) (or ``embeds`` (B, D) for the frames front end);
-    ``step`` = the absolute position being written (an int).  Writes into
-    ``cache`` in place (the reference's functional update, donated) and
+    ``step`` = the absolute position being written (an int); ``img`` the
+    (B, P, D) image embeddings a cross-attention layer attends to.  Writes
+    into ``cache`` in place (the reference's functional update, donated) and
     returns ``(logits (B, V) f32, cache)``.
     """
     step = int(step)
     dtype = DTYPES[cfg.dtype]
     x = embeds.to(dtype) if cfg.frontend == "frames" else params["embed"][tokens.long()].to(dtype)
+    img = None if img is None else img.to(dtype)
     for spec, p, c in zip(cfg.prefix, params["prefix"], cache["prefix"]):
-        x, _ = _decode_layer(p, x, c, step, cfg, spec)
+        x, _ = _decode_layer(p, x, c, step, cfg, spec, img)
     for l in range(cfg.n_periods):
         period_params, period_cache = _period(params["pattern"], l), _period(cache["pattern"], l)
         for i, spec in enumerate(cfg.pattern):
-            x, _ = _decode_layer(period_params[i], x, period_cache[i], step, cfg, spec)
+            x, _ = _decode_layer(period_params[i], x, period_cache[i], step, cfg, spec, img)
     for spec, p, c in zip(cfg.suffix, params["suffix"], cache["suffix"]):
-        x, _ = _decode_layer(p, x, c, step, cfg, spec)
+        x, _ = _decode_layer(p, x, c, step, cfg, spec, img)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return (x @ _head_weight(cfg, params)).float(), cache
 
 
-def _prefill_layer(p, x, c, cfg: ModelConfig, spec: LayerSpec):
-    """Apply the layer over the whole prompt, writing its cache entry ``c``
-    (the prompt's last ``L`` positions, position t at slot t % L)."""
+def _prefill_layer(p, x, c, cfg: ModelConfig, spec: LayerSpec, img=None):
+    """Apply the layer over the whole prompt, writing its cache entry ``c``:
+    a GQA layer's keys and values of the prompt's last ``L`` positions
+    (position t at slot t % L), MLA's latent and k_rope of its first
+    ``S_cache`` positions, the recurrent mixers' final state and tails."""
     B, S, D = x.shape
-    # the reference recomputes the cache projections beside the layer
-    h = rms_norm(x, p["mixer"]["ln"], cfg.norm_eps)
-    _, k, v = attn._project_qkv(p["mixer"], h, cfg, torch.arange(S, device=x.device))
-    L = c["k"].shape[2]
-    take = min(S, L)
-    idx = torch.arange(S - take, S, device=x.device) % L
-    c["k"][:, :, idx] = k[:, :, S - take:].to(c["k"].dtype)
-    c["v"][:, :, idx] = v[:, :, S - take:].to(c["v"].dtype)
-    x = attn.gqa_apply(p["mixer"], x, cfg, window=spec.window)
-    if spec.ffn:
-        x = mlp_mod.mlp_apply(p["ffn"], x, cfg)
-    return x
+    mp = p["mixer"]
+    positions = torch.arange(S, device=x.device)
+    if spec.mixer == "attn":
+        # the reference recomputes the cache projections beside the layer
+        h = rms_norm(x, mp["ln"], cfg.norm_eps)
+        _, k, v = attn._project_qkv(mp, h, cfg, positions)
+        L = c["k"].shape[2]
+        take = min(S, L)
+        idx = torch.arange(S - take, S, device=x.device) % L
+        c["k"][:, :, idx] = k[:, :, S - take:].to(c["k"].dtype)
+        c["v"][:, :, idx] = v[:, :, S - take:].to(c["v"].dtype)
+        x = attn.gqa_apply(mp, x, cfg, window=spec.window)
+    elif spec.mixer == "mla":
+        latent, k_rope = attn.mla_latent(mp, rms_norm(x, mp["ln"], cfg.norm_eps), cfg, positions)
+        take = min(S, c["latent"].shape[1])
+        c["latent"][:, :take] = latent[:, :take].to(c["latent"].dtype)
+        c["k_rope"][:, :take] = k_rope[:, :take].to(c["k_rope"].dtype)
+        x = attn.mla_apply(mp, x, cfg)
+    elif spec.mixer == "ssd":
+        x, (state, tails) = ssm_mod.ssd_apply(mp, x, cfg, return_state=True)
+        c["state"].copy_(state)
+        for n, t in tails.items():
+            c[f"conv_{n}"].copy_(t)
+    elif spec.mixer == "rglru":
+        x, (state, tail) = rglru_mod.rglru_apply(mp, x, cfg, return_state=True)
+        c["h"].copy_(state)
+        c["conv"].copy_(tail)
+    elif spec.mixer == "cross_attn":
+        x = attn.cross_apply(mp, x, img, cfg)
+    return _ffn(p, x, cfg, spec)[0]
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, batch, S_cache: int | None = None):
     """Process the prompt; returns (last-token logits (B, V) f32, cache)."""
-    x = _embed_inputs(cfg, params, batch)
+    x, img = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, S_cache or S, device=x.device)
     for spec, p, c in zip(cfg.prefix, params["prefix"], cache["prefix"]):
-        x = _prefill_layer(p, x, c, cfg, spec)
+        x = _prefill_layer(p, x, c, cfg, spec, img)
     for l in range(cfg.n_periods):
         period_params, period_cache = _period(params["pattern"], l), _period(cache["pattern"], l)
         for i, spec in enumerate(cfg.pattern):
-            x = _prefill_layer(period_params[i], x, period_cache[i], cfg, spec)
+            x = _prefill_layer(period_params[i], x, period_cache[i], cfg, spec, img)
     for spec, p, c in zip(cfg.suffix, params["suffix"], cache["suffix"]):
-        x = _prefill_layer(p, x, c, cfg, spec)
+        x = _prefill_layer(p, x, c, cfg, spec, img)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return (x[:, -1] @ _head_weight(cfg, params)).float(), cache
 

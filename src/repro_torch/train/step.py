@@ -133,7 +133,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, n_micro: int = 1)
                 else:
                     tree_map(lambda a, b: a.add_(b.to(a.dtype)), grads, g)
                     loss = loss + l
-            grads = tree_map(lambda g: g / n_micro, grads)
+            tree_map(lambda g: g.div_(n_micro), grads)  # in place: the accumulator is the step's own
             loss = loss / n_micro
         return _apply_update(opt_cfg, state, grads, loss)
 

@@ -150,10 +150,3 @@ def test_init_cache_shapes_follow_the_window():
     assert tattn.gqa_init_cache(cfg, 2, 64, None, torch.float32)["k"].shape == (2, 2, 64, 32)
     assert tattn.gqa_init_cache(cfg, 2, 64, 16, torch.float32)["v"].shape == (2, 2, 16, 32)
     assert tattn.gqa_cache_axes() == jattn.gqa_cache_axes()
-
-
-@pytest.mark.parametrize("fn", ["cross_specs", "mla_specs"])
-def test_the_second_half_raises_by_name(fn):
-    cfg = smoke_config("deepseek-v2-236b" if fn == "mla_specs" else "llama-3.2-vision-11b")
-    with pytest.raises(NotImplementedError, match="A14b"):
-        getattr(tattn, fn)(cfg)

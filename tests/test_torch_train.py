@@ -2,7 +2,10 @@
 loop, serve, elastic), ``repro_torch.data`` and the launchers against
 ``repro.optim``, ``repro.train`` and ``tests/test_train.py``'s contracts.
 
-Everything runs on the CPU at llama3.2-1b's smoke size (2 periods, f32).
+Everything runs on the CPU at llama3.2-1b's smoke size (2 periods, f32);
+one train step also at mixtral-8x7b's (MoE, its aux loss in the gradient)
+and mamba2-2.7b's (SSD, the f32 ``A_log``/``dt_bias`` leaves), and the
+launchers on mixtral's and deepseek-v2-236b's.
 The reference's state and batches cross through
 ``convert.train_state_from_reference`` / ``batch_from_reference``: the
 port's synthetic stream is deterministic per step but not JAX's bits.
@@ -10,8 +13,8 @@ port's synthetic stream is deterministic per step but not JAX's bits.
 Tolerances:
 - ``adamw_update`` and ``lr_at``: 1e-6 relative (the reference's learning
   rate is f64 under the tests' x64 mode, the port's a host float);
-- one ``make_train_step`` at ``n_micro`` 1 and 4 from the reference's
-  state and batch: loss 1e-5 relative; parameters 1e-5 absolute (the bound
+- one ``make_train_step`` at ``n_micro`` 1 and 4 (mixtral and mamba2: 2)
+  from the reference's state and batch: loss 1e-5 relative; parameters 1e-5 absolute (the bound
   of the reference's ``test_microbatch_equivalence``); the moments m and
   v, which carry the step's gradient (a first step's learning rate is 0 in
   the warmup schedule), 1e-4 relative + 1e-5 of each leaf's largest entry;
@@ -154,6 +157,30 @@ def test_train_step_matches_the_reference(reference_step, n_micro):
     for path in tree_paths(new.params):
         np.testing.assert_allclose(tree_get(new.params, path).numpy(), np.asarray(tree_get(want.params, path)),
                                    rtol=0, atol=1e-5, err_msg=_keystr(path))
+        for name in ("m", "v"):
+            ref = np.asarray(tree_get(want.opt[name], path))
+            np.testing.assert_allclose(tree_get(new.opt[name], path).numpy(), ref, rtol=1e-4,
+                                       atol=1e-5 * float(np.abs(ref).max()), err_msg=f"{name}{_keystr(path)}")
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-2.7b"])
+def test_a_family_train_step_matches_the_reference(arch):
+    """The moments m and v after one micro-batched step from the
+    reference's state, leaf by leaf (the f32 router, ``A_log`` and
+    ``dt_bias`` leaves included), and the loss with its aux term."""
+    cfg = smoke_config(arch)
+    jcfg = jconfigs.smoke_config(arch)
+    dcfg = JSyntheticConfig(vocab=jcfg.vocab, seq_len=32, global_batch=4, kind="bigram")
+    batch = _np_tree(jbatch_at(dcfg, 0))
+    state0 = _np_tree(jtrain.init_train_state(jcfg, jax.random.key(0)))
+    want, jm = jax.jit(jtrain.make_train_step(jcfg, joptim.AdamWConfig(**OCFG), n_micro=2))(
+        jax.tree.map(jnp.asarray, state0), batch)
+    state = convert.train_state_from_reference(cfg, state0, device="cpu")
+    new, metrics = make_train_step(cfg, AdamWConfig(**OCFG), n_micro=2)(
+        state, convert.batch_from_reference(batch, device="cpu"))
+    np.testing.assert_allclose(float(metrics["loss"]), float(jm["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+    for path in tree_paths(new.params):
         for name in ("m", "v"):
             ref = np.asarray(tree_get(want.opt[name], path))
             np.testing.assert_allclose(tree_get(new.opt[name], path).numpy(), ref, rtol=1e-4,
@@ -320,6 +347,22 @@ def test_launch_train_runs_and_resumes(tmp_path):
 def test_launch_train_refuses_a_sharded_mesh():
     out = _run("repro_torch.launch.train", "--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--mesh", "2x2")
     assert out.returncode != 0 and "A14b" in out.stderr
+
+
+def test_launch_train_runs_a_family():
+    out = _run("repro_torch.launch.train", "--arch", "mixtral-8x7b", "--smoke", "--device", "cpu", "--steps", "3",
+               "--seq", "32", "--batch", "4", "--micro", "2")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("loss ") == 1 and "done" in out.stdout
+
+
+def test_launch_serve_runs_a_family_and_refuses_vision():
+    out = _run("repro_torch.launch.serve", "--arch", "deepseek-v2-236b", "--smoke", "--device", "cpu", "--batch",
+               "2", "--max-new", "5")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("\n[") + out.stdout.startswith("[") == 2 and "served batch=2" in out.stdout
+    out = _run("repro_torch.launch.serve", "--arch", "llama-3.2-vision-11b", "--smoke", "--device", "cpu")
+    assert out.returncode != 0 and "stub frontend" in out.stderr
 
 
 def test_launch_serve_runs_and_refuses_frames():
