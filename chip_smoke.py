@@ -184,11 +184,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    dropped share printed and two prefills bitwise equal; the greedy tokens
    against a teacher-forced ``forward`` (phase 17's bf16 rule at positions
    routed alike, its ceiling raised to twice the bf16 forward's distance
-   from the f32 forward where that is larger; MoE at the drop-free 8.0); in
+   from the f32 forward where that is larger, both read where decode and
+   the bf16 and f32 forwards all route alike; MoE at the drop-free 8.0); in
    f32 at one period, 16 cached ``decode_step``s
    against ``forward`` to 2e-3; 5 steps of ``train_loop`` (deepseek: one
    ``loss_fn`` forward and backward), the loss falling.  No port kernel is
    launched on any of these paths, which is held.
+19. the mesh (class ``_Phase19``, last): eight gloo ranks sharing the card
+   on a (2, 4) ``("data", "model")`` mesh, each drawing the weights a leaf
+   at a time and keeping its blocks.  ``lm_mesh_2x4``: llama3.2-1b at full
+   width and depth, 3 steps of ``jit_train_step`` (FSDP × TP), each rank's
+   state at most 1/8 of the whole plus what the rules leave unsplit over
+   ``model``, step 1 against the one-process
+   step; ``lm_mesh_gates``: depth 2 in f32 against it (m, v, parameters
+   after 3 steps); ``moe_mesh_2x4``: mixtral's expert-parallel MoE at its
+   published widths (f32 forward within 1e-4 of the global dispatch, 3
+   train steps at 1.25); ``elastic_2x4_to_2x2``: the state saved from 2×4
+   and restored by a world of 4 onto (2, 2), bitwise, and the next step.
+   No port kernel is launched on the mesh path, which is held.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -1393,6 +1406,11 @@ def main() -> int:
     phase18 = _Phase18(torch, dev, smi)
     _, t18 = _sync_time(torch, phase18.run)
     _p(f"phase 18: {t18:.1f} s")
+
+    # ---- phase 19: the mesh, last ----------------------------------------------
+    phase19 = _Phase19(torch, dev, smi, root)
+    _, t19 = _sync_time(torch, phase19.run)
+    _p(f"phase 19: {t19:.1f} s")
 
     # Every kernel of KERNELS: its source, the TPU kernel it replaces, the
     # path whose launches it reports, and its times.
@@ -4608,11 +4626,12 @@ class _Phase18:
     |decode − forward| logit gap ≤ 0.2, and where the tokens differ,
     forward's top logit exceeds its logit at the generated token by at most
     twice that gap) is read at the positions whose top-k routing agrees in
-    every MoE layer between decode and forward, and its 0.2 becomes
-    max(0.2, 2e), e the bf16 forward's own largest distance from the f32
-    forward of the same weights there (decode and forward are both bf16
-    roundings of one function; at 38–64 layers e passes 0.1); each other
-    position's first routing difference must be a near-tie (TIE_MARGIN).
+    every MoE layer between decode and forward and between the bf16 and
+    the f32 forward (the count printed), and its 0.2 becomes max(0.2, 2e),
+    e the bf16 forward's own largest distance from the f32 forward of the
+    same weights there (decode and forward are both bf16 roundings of one
+    function; at 38–64 layers e passes 0.1); each position's first routing
+    difference between decode and forward must be a near-tie (TIE_MARGIN).
     The MoE models run it at capacity factor 8.0, the drop-free regime of
     the reference's serving test (capacity drops depend on the batch), with
     the drops counted.  (3) The f32 gate at one period
@@ -4806,24 +4825,32 @@ class _Phase18:
             row["prefill_bitwise_repeat"] = bool(torch.equal(again, dec[:, 0]))
             del again
         # the teacher-forced gate; the MoE models drop-free (capacity drops
-        # depend on the batch), their routing recorded on both sides
+        # depend on the batch), their routing recorded on all three sides
         cfg = self.drop_free(cfg)
-        w_dec, w_tf = _MoEWatch(torch, routes=True), _MoEWatch(torch, routes=True)
+        w_dec, w_tf, w_32 = (_MoEWatch(torch, routes=True) for _ in range(3))
         if cfg.moe is not None:
             with w_dec:
                 toks, dec, _, _, _ = self.counted(f"{cell}_drop_free", lambda: self.decode_loop(cfg, params, batch, N))
         with w_tf:
             tf = self.teacher_forced(cfg, params, batch, toks)
         agree, flips, margin = self.routing_agreement(cfg, w_dec.routes, w_tf.routes, P, S, N)
-        drop_free_share = max(w_dec.share(), w_tf.share())
-        del w_dec, w_tf
         # the bf16 model's own rounding error at these positions: the
-        # distance of its forward from the f32 forward of the same weights
+        # distance of its forward from the f32 forward of the same weights,
+        # read only where the f32 forward routes alike too (the bf16 forward
+        # itself can flip a near-tie the f32 forward does not)
         cfg32 = cfg.replace(dtype="float32")
         params = tree_map(lambda t: t.float(), params)
         self.free()
-        tf32 = self.teacher_forced(cfg32, params, batch, toks)
+        with w_32:
+            tf32 = self.teacher_forced(cfg32, params, batch, toks)
         del params
+        alike_f32 = self.forward_agreement(cfg, w_tf.routes, w_32.routes, P, S, N)
+        agree_decode = int(agree.sum())
+        agree = agree & alike_f32
+        drop_free_share = max(w_dec.share(), w_tf.share(), w_32.share())
+        del w_dec, w_tf, w_32
+        if not bool(agree.any()):
+            raise AssertionError(f"phase 18 {cell}: no position routed alike by decode and both forwards")
         gaps, errs = (dec - tf).abs().amax(-1), (tf - tf32).abs().amax(-1)  # (P, N)
         gap = float(gaps[agree].max())
         bf16_err = float(errs[agree].max())
@@ -4835,7 +4862,8 @@ class _Phase18:
                    tf_mismatches=int(differ.sum()), tf_worst_excess=worst, launches=self.launches.get(cell, {}))
         if cfg.moe is not None:
             row.update(dropped_share_drop_free=drop_free_share, routing_differences=flips,
-                       positions_rerouted=int((~agree).sum()), worst_tie_margin=margin)
+                       positions=P * N, positions_alike_decode=agree_decode,
+                       positions_alike_all_three=int(agree.sum()), worst_tie_margin=margin)
         self.rows[cell] = row
         _p(f"phase 18: {cell} ({cfg.name} bf16 at published widths, {cfg.n_layers} layers; card: {self.smi}): "
            f"{json.dumps(row)}")
@@ -4881,6 +4909,26 @@ class _Phase18:
                         low = float(pf[only_f].min())
                         margin = max(margin, (low - float(pf[only_d].max())) / low)
         return agree.to(self.dev), flips, margin
+
+    def forward_agreement(self, cfg, routes_a, routes_b, P, S, N):
+        """Which compared positions every MoE layer routed alike in two
+        teacher-forced forwards of the same tokens (the bf16 and the f32
+        one): (P, N) bool.  Both run TF_GROUP prompts a call, each call's
+        layers in order (row (p mod G)·(S + N) + S − 1 + j)."""
+        torch = self.torch
+        agree = torch.ones((P, N), dtype=torch.bool, device=self.dev)
+        if cfg.moe is None:
+            return agree
+        G = self.TF_GROUP
+        n_moe = len(routes_a) // -(-P // G)
+        cols = S - 1 + torch.arange(N, device=self.dev)
+        for c, ((_, ia), (_, ib)) in enumerate(zip(routes_a, routes_b)):
+            same = (ia.sort(-1).values == ib.sort(-1).values).all(-1)
+            for pl in range(G):
+                p = (c // n_moe) * G + pl
+                if p < P:
+                    agree[p] &= same[pl * (S + N) + cols]
+        return agree
 
     # ---- the f32 gate --------------------------------------------------------
 
@@ -4992,6 +5040,678 @@ class _Phase18:
            f"card: {self.smi}): {json.dumps(row)}")
         if not (math.isfinite(row["loss"]) and row["aux"] > 0 and math.isfinite(row["grad_norm"])):
             raise AssertionError(f"phase 18 {cell} loss: {row}")
+
+
+def _phase19_rank(rank, world, init, plan, refs, queue):
+    """One rank of phase 19's gloo world, a process of its own on the card:
+    its results (numbers only), or its traceback, go to ``queue``.
+    ``refs``: the one-process references on the card (CUDA IPC), held by
+    the parent until the world ends."""
+    import traceback
+
+    try:
+        queue.put((rank, _Phase19Rank(rank, world, init, plan, refs).run(), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+class _Phase19Rank:
+    """One gloo rank of phase 19: the parts ``plan["parts"]`` in order, each
+    on a mesh made over the world, every state this rank's blocks only."""
+
+    def __init__(self, rank, world, init, plan, refs):
+        import datetime
+        import os
+
+        import torch
+        import torch.distributed as dist
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the host's cores, shared out
+        self.torch, self.dist, self.rank, self.world, self.plan, self.refs = torch, dist, rank, world, plan, refs
+        self.dev = torch.device(plan["device"])
+        self.cuda = self.dev.type == "cuda"
+        if self.cuda:
+            # the ranks share the card: each caps its caching allocator at its share
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+            torch.cuda.set_device(self.dev)
+            torch.cuda.set_per_process_memory_fraction(plan["mem_fraction"], self.dev)
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=plan["timeout_s"]))
+
+    def run(self):
+        import gc
+
+        from repro_torch.launch.mesh import make_mesh
+
+        out = {}
+        try:
+            self.meshes = {tuple(s): make_mesh(s, ("data", "model")) for s in self.plan["meshes"]}
+            for part in self.plan["parts"]:
+                t0 = time.perf_counter()
+                out[part] = getattr(self, part)()
+                gc.collect()
+                if self.cuda:
+                    self.torch.cuda.empty_cache()
+                out[part]["part_s"] = time.perf_counter() - t0
+        finally:
+            self.dist.destroy_process_group()
+        return out
+
+    # ---- helpers ---------------------------------------------------------------
+
+    def sync(self):
+        if self.cuda:
+            self.torch.cuda.synchronize()
+
+    def gib(self, fn_name):
+        return getattr(self.torch.cuda, fn_name)() / 2**30 if self.cuda else None
+
+    def reset_peak(self):
+        if self.cuda:
+            self.torch.cuda.reset_peak_memory_stats()
+
+    def data(self, cfg):
+        from repro_torch.data import SyntheticConfig
+
+        return SyntheticConfig(vocab=cfg.vocab, seq_len=self.plan["seq"], global_batch=self.plan["batch"])
+
+    def steps(self, cfg, mesh, state, step_fn, first, n, watch=None):
+        """Steps ``first`` … ``first + n − 1`` on this rank's rows of each
+        global batch: per step the metrics, the wall (after a barrier), the
+        bytes handed to ``all_reduce`` and ``broadcast`` by kind, and the
+        kernels launched."""
+        from repro_torch.data import batch_at
+        from repro_torch.kernels import KERNELS, reset_launches
+        from repro_torch.sharding import collectives as col
+        from repro_torch.train import batch_pspec
+
+        dcfg, recs = self.data(cfg), []
+        for i in range(first, first + n):
+            batch = {k: col.shard_block(v, batch_pspec(mesh), mesh) for k, v in batch_at(dcfg, i, device=self.dev).items()}
+            self.dist.barrier()
+            self.sync()
+            reset_launches()
+            col.reset_bytes()
+            t0 = time.perf_counter()
+            with _Collectives() as coll:
+                state, m = step_fn(state, batch)
+                self.sync()
+            wall = time.perf_counter() - t0
+            rec = {k: float(v) for k, v in m.items()}
+            rec.update(wall=wall, bytes=dict(col.BYTES), collective_bytes=coll.bytes["all_reduce"] + coll.bytes["broadcast"],
+                       launches={f.__name__: f.launches for f in KERNELS if f.launches})
+            if watch is not None:
+                rec["dropped_share"] = watch.share()
+                watch.reset()
+            recs.append(rec)
+        return state, recs
+
+    def state_bytes(self, state):
+        from repro_torch.models.common import tree_leaves
+
+        return sum(t.numel() * t.element_size() for t in tree_leaves(state.params) + tree_leaves(state.opt))
+
+    # ---- lm_mesh_2x4 -----------------------------------------------------------
+
+    def lm_mesh_2x4(self):
+        """llama3.2-1b at full width and depth, bf16 with an f32 master,
+        sharded 8 ways: this rank's resident state, then STEPS steps."""
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.train import init_sharded_state, jit_train_step
+
+        plan, mesh = self.plan, self.meshes[tuple(self.plan["mesh"])]
+        cfg = plan["llama"]
+        self.reset_peak()
+        base = self.gib("memory_allocated")
+        state = init_sharded_state(cfg, plan["seed"], mesh, device=self.dev)
+        self.sync()
+        resident = None if base is None else self.gib("memory_allocated") - base
+        init_peak = self.gib("max_memory_allocated")
+        step_fn = jit_train_step(cfg, AdamWConfig(**plan["opt"]), mesh, n_micro=plan["micro"])
+        self.reset_peak()
+        state, recs = self.steps(cfg, mesh, state, step_fn, 0, plan["steps"])
+        return dict(resident_gib=resident, state_bytes=self.state_bytes(state), init_peak_gib=init_peak,
+                    peak_gib=self.gib("max_memory_allocated"), steps=recs)
+
+    # ---- lm_mesh_gates ---------------------------------------------------------
+
+    def lm_mesh_gates(self):
+        """Depth 2 in f32 against the one-process step: m and v after step 1
+        on this rank's blocks, the parameters after STEPS steps reassembled
+        (rank 0 compares them), then the state saved sharded and one more
+        step (elastic_2x4_to_2x2 compares its loss)."""
+        from repro_torch.models.common import tree_leaves, tree_map
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.sharding import NamedSharding, PartitionSpec
+        from repro_torch.sharding import collectives as col
+        from repro_torch.train import checkpoint as ckpt, init_sharded_state, jit_train_step, state_pspecs
+
+        torch, plan, mesh, refs = self.torch, self.plan, self.meshes[tuple(self.plan["mesh"])], self.refs
+        cfg = plan["gates_cfg"]
+        is_spec = lambda x: isinstance(x, PartitionSpec)  # noqa: E731
+        specs = state_pspecs(cfg, mesh)
+        pspecs = tree_leaves(specs.params, is_leaf=is_spec)
+        state = init_sharded_state(cfg, plan["gates_seed"], mesh, device=self.dev)
+        step_fn = jit_train_step(cfg, AdamWConfig(**plan["gates_opt"]), mesh, n_micro=plan["micro"])
+        state, recs = self.steps(cfg, mesh, state, step_fn, 0, 1)
+        share = {}
+        for tag in ("m", "v"):  # |Δ| as a share of 1e-4·|want| + 1e-5·max|want| (the CPU tests' rule)
+            worst = 0.0
+            for got, want, spec in zip(tree_leaves(state.opt[tag]), refs[tag], pspecs):
+                w = want[col.block_slices(want.shape, spec, mesh)]
+                bound = 1e-4 * w.abs() + 1e-5 * float(want.abs().max())
+                worst = max(worst, float(((got - w).abs() / bound).max()))
+            share[tag] = worst
+        state, more = self.steps(cfg, mesh, state, step_fn, 1, plan["steps"] - 1)
+        recs += more
+        diff_sq, diff_max = 0.0, 0.0
+        for got, want, spec in zip(tree_leaves(state.params), refs["params"], pspecs):
+            whole = col.unshard(got, spec, mesh)  # every rank takes part; rank 0 compares
+            if self.rank == 0:
+                d = (whole - want).double()
+                diff_sq += float((d * d).sum())
+                diff_max = max(diff_max, float(d.abs().max()))
+            del whole
+        shardings = tree_map(lambda s: NamedSharding(mesh, s), specs, is_leaf=is_spec)
+        self.sync()
+        t0 = time.perf_counter()
+        ckpt.save(plan["ckpt"], plan["steps"], state, shardings=shardings)
+        save_s = time.perf_counter() - t0
+        state, last = self.steps(cfg, mesh, state, step_fn, plan["steps"], 1)
+        return dict(steps=recs, moment_share=share, param_diff_norm=math.sqrt(diff_sq), param_diff_max=diff_max,
+                    save_s=save_s, next_step=last[0])
+
+    # ---- moe_mesh_2x4 ----------------------------------------------------------
+
+    def moe_mesh_2x4(self):
+        """mixtral-8x7b at its published widths, one period, 2 experts a rank:
+        the shard_map forward in f32 at the drop-free 4.0 against the
+        parent's global dispatch, then STEPS train steps at 1.25."""
+        from repro_torch.models import init_params
+        from repro_torch.models import moe
+        from repro_torch.models.common import tree_map
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.sharding import PartitionSpec, use_mesh
+        from repro_torch.sharding import collectives as col
+        from repro_torch.train import init_sharded_state, jit_train_step, state_pspecs
+
+        torch, plan, mesh = self.torch, self.plan, self.meshes[tuple(self.plan["mesh"])]
+        cfg32 = plan["moe_fwd_cfg"]
+        specs = dict(_tree_items(state_pspecs(cfg32, mesh).params))
+
+        def keep(path, t):  # only the first MoE layer's blocks
+            if path[:3] == ("pattern", 0, "ffn"):
+                return col.shard_block(t, specs[path], mesh)
+            return t.new_empty(0)
+
+        params = init_params(cfg32, plan["moe_seed"], device=self.dev, keep=keep)
+        p = tree_map(lambda a: a[0], params["pattern"][0]["ffn"])
+        del params
+        x = col.shard_block(plan["moe_x"].to(self.dev), PartitionSpec("data", None, None), mesh)
+        want = col.shard_block(plan["moe_y"].to(self.dev), PartitionSpec("data", None, None), mesh)
+        with torch.no_grad(), use_mesh(mesh):
+            y = moe.moe_apply(p, x, cfg32)
+        fwd_err = float((y - want).abs().max())
+        experts_here = p["w_in"].shape[0]
+        del p, x, y, want
+
+        cfg = plan["moe_cfg"]
+        state = init_sharded_state(cfg, plan["moe_seed"] + 1, mesh, device=self.dev)
+        step_fn = jit_train_step(cfg, AdamWConfig(**plan["moe_opt"]), mesh, n_micro=plan["micro"])
+        self.reset_peak()
+        with _MoEDrops(torch) as watch:
+            state, recs = self.steps(cfg, mesh, state, step_fn, 0, plan["steps"], watch=watch)
+        return dict(fwd_err=fwd_err, experts_here=experts_here, state_bytes=self.state_bytes(state),
+                    peak_gib=self.gib("max_memory_allocated"), steps=recs)
+
+    # ---- elastic_2x4_to_2x2 (a world of 4) --------------------------------------
+
+    def elastic_restore(self):
+        """The 2×4 checkpoint restored onto (2, 2): every block bitwise its
+        slice of the saved array, then the next step."""
+        import numpy as np
+
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.sharding import NamedSharding, PartitionSpec
+        from repro_torch.sharding import collectives as col
+        from repro_torch.train import checkpoint as ckpt, jit_train_step, restore_elastic, state_pspecs
+        from repro_torch.models.common import tree_map
+
+        plan, mesh = self.plan, self.meshes[tuple(self.plan["small_mesh"])]
+        cfg = plan["gates_cfg"]
+        self.sync()
+        t0 = time.perf_counter()
+        state, step = restore_elastic(plan["ckpt"], cfg, mesh, device=self.dev)
+        self.sync()
+        restore_s = time.perf_counter() - t0
+        places = ckpt._flatten(tree_map(lambda s: NamedSharding(mesh, s), state_pspecs(cfg, mesh),
+                                        is_leaf=lambda x: isinstance(x, PartitionSpec)))
+        bitwise, n_leaves = True, 0
+        with np.load(f"{plan['ckpt']}/step_{step}/arrays.npz") as saved:
+            for key, block in ckpt._flatten(state).items():
+                arr = saved[key]
+                want = arr[col.block_slices(arr.shape, places[key].spec, mesh)]
+                got = block.detach().cpu().numpy() if hasattr(block, "detach") else np.asarray(block)
+                bitwise = bitwise and got.dtype == want.dtype and got.tobytes() == np.ascontiguousarray(want).tobytes()
+                n_leaves += 1
+                del arr, want, got
+        step_fn = jit_train_step(cfg, AdamWConfig(**plan["gates_opt"]), mesh, n_micro=plan["micro"])
+        state, recs = self.steps(cfg, mesh, state, step_fn, step, 1)
+        return dict(step=int(step), restore_s=restore_s, bitwise=bitwise, leaves=n_leaves,
+                    state_bytes=self.state_bytes(state), next_step=recs[0])
+
+
+def _tree_items(tree):
+    """(path, spec) pairs of a tree of ``PartitionSpec``s."""
+    from repro_torch.models.common import tree_get, tree_paths
+    from repro_torch.sharding import PartitionSpec
+
+    is_spec = lambda x: isinstance(x, PartitionSpec)  # noqa: E731
+    return [(p, tree_get(tree, p)) for p in tree_paths(tree, is_leaf=is_spec)]
+
+
+class _MoEDrops:
+    """Counts the assignments the MoE dispatch drops on this rank (wraps
+    ``models.moe._capacity`` and ``_rank_in_expert``, which the dispatch
+    calls by module name)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.reset()
+
+    def reset(self):
+        self.dropped, self.total, self.capacity = [], 0, None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, (moe._capacity, moe._rank_in_expert)
+
+        def capacity(T, m):
+            self.capacity = self.real[0](T, m)
+            return self.capacity
+
+        def rank(flat_e, E):
+            r = self.real[1](flat_e, E)
+            self.dropped.append((r >= self.capacity).sum())
+            self.total += r.numel()
+            return r
+
+        moe._capacity, moe._rank_in_expert = capacity, rank
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._capacity, self.moe._rank_in_expert = self.real
+
+    def share(self):
+        return float(self.torch.stack(self.dropped).sum()) / self.total if self.total else 0.0
+
+
+class _Phase19:
+    """Phase 19: the mesh (``repro_torch.sharding``, ``launch.mesh``,
+    ``train.jit_train_step``, ``restore_elastic``), last, after every other
+    phase's buffers and processes are freed.  Eight gloo ranks share the
+    card (NCCL refuses two ranks on one device), started as phase 17's are,
+    on a (2, 4) ``("data", "model")`` mesh; every rank draws each weight
+    whole, one leaf at a time, and keeps only its block
+    (``init_sharded_state``), so no rank ever holds the whole state.
+
+    (1) ``lm_mesh_2x4``: llama3.2-1b at full width and depth (16 layers),
+    bf16 parameters with an f32 master, 3 steps at seq 512, global batch 8,
+    ``n_micro`` 2: each rank's state and resident bytes at most
+    STATE_SHARE_MAX of the full state's (1/8 and a fixed margin); the loss
+    finite and the same on every rank; at step 1 (learning rate 0) the loss
+    and ``grad_norm`` within one bf16 ulp of a one-process
+    ``make_train_step`` on the same weights and batch, run here first, where
+    ``wk`` and ``wv``'s gradients taken ``tp`` times (a doubled sum over
+    ``model``) would move ``grad_norm`` further, which is held too.  (2) ``lm_mesh_gates``: the same at depth 2 in f32 against the
+    one-process step (whose m, v and parameters the ranks read from this
+    process by CUDA IPC): loss and ``grad_norm`` within 1e-5 relative, every
+    leaf of m and v within 1e-4 relative + 1e-5 of the leaf's largest
+    entry, and after 3 steps the parameters reassembled from the blocks
+    within PARAM_REL of the one-process run, as a share of how far that
+    run moved them, below ``wk`` and ``wv``'s own share of that distance
+    (the order of a dropped sum over ``model``'s effect), which is held too.  (3) ``moe_mesh_2x4``: mixtral-8x7b at its published
+    widths, one period (phase 18's cut), 8 experts over tp 4: its first MoE
+    layer's shard_map forward in f32 at the drop-free 4.0 within 1e-4 of
+    the global dispatch run here (the reference test's tolerance), then 3
+    train steps at 1.25, the loss finite and falling, the dropped share
+    printed.  (4) ``elastic_2x4_to_2x2``: the depth-2 state saved from the
+    2×4 mesh (assembled leaf by leaf, written by the first rank), restored
+    by a world of 4 onto (2, 2): every block bitwise its slice of the saved
+    array, and the next step's loss within 1e-5 relative of the same step
+    on 2×4.  Per rank the resident and peak GiB, step walls (median and
+    spread), the bytes handed to ``all_reduce`` and ``broadcast`` a step by
+    kind (FSDP gathers, gradient reduce-scatters, TP sums), the phase's
+    time; no port
+    kernel is launched on the mesh path, which is held."""
+
+    ARCH, MOE_ARCH = "llama3.2-1b", "mixtral-8x7b"
+    CFGS = None  # {arch: config} in place of get_config(arch) (CPU rehearsals)
+    SEED, GATES_SEED, MOE_SEED = 1901, 1902, 1903
+    MESH, SMALL_MESH = (2, 4), (2, 2)
+    SEQ, BATCH, MICRO, STEPS, SHALLOW = 512, 8, 2, 3, 2
+    OPT = dict(lr=3e-3, warmup_steps=5)  # step 1 at learning rate 0
+    GATES_OPT = dict(lr=3e-3, warmup_steps=2)
+    MOE_OPT = dict(lr=1e-3, warmup_steps=1)  # phase 18's
+    MOE_X = (8, 64)  # rows and tokens of the forward check's input
+    # a rank's share of the state's bytes: 1/8, plus 0.0102 for wk and wv,
+    # which the rules replicate over 'model' ('kv_heads'; 0.13520 in all on an
+    # H100 80GB HBM3 at 700 W), plus 0.0018 of slack; a fixed limit, so that
+    # rules which split less fail here
+    STATE_SHARE_MAX = 0.137
+    # against the one-process step in bf16: the loss and the gradient norm
+    # within one bf16 ulp (3.8e-5 and 5.1e-4 read on an H100 80GB HBM3 at
+    # 700 W)
+    BF16_LOSS_REL = BF16_NORM_REL = 2.0**-8
+    PARAM_REL = 1e-4  # 2.83e-5 read on an H100 80GB HBM3 at 700 W
+    FAULT_LEAVES = ("wk", "wv")  # replicated over 'model' and used inside its region
+    FWD_TOL = 1e-4  # tests/test_multidevice.py::test_moe_shard_map_matches_gspmd
+    RANK_MEM_FRACTION = 0.115  # of the card, a gloo rank's cap (eight ranks and this process share it)
+    TIMEOUT_S = 300
+    DEADLINE_S = 900
+    TARGET = staticmethod(_phase19_rank)
+
+    def __init__(self, torch, dev, smi, root):
+        self.torch, self.dev, self.smi, self.root = torch, dev, smi, root
+        self.rows = {}
+
+    def config(self, arch, **kw):
+        from repro_torch.configs import get_config
+
+        return ((self.CFGS or {}).get(arch) or get_config(arch)).replace(**kw)
+
+    def free(self):
+        import gc
+
+        gc.collect()
+        if self.dev.type == "cuda":
+            self.torch.cuda.empty_cache()
+
+    def run(self):
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        self.free()
+        (self.root / "build").mkdir(exist_ok=True)
+        self.tmp = tempfile.mkdtemp(prefix="phase19-", dir=self.root / "build")
+        t0 = time.perf_counter()
+        try:
+            plan, refs = self.references()
+            world8 = self.world(8, dict(plan, parts=["lm_mesh_2x4", "lm_mesh_gates", "moe_mesh_2x4"],
+                                        meshes=[self.MESH]), refs)
+            del refs
+            self.free()
+            world4 = self.world(4, dict(plan, parts=["elastic_restore"], meshes=[self.SMALL_MESH]), {})
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        self.judge(plan, world8, world4, time.perf_counter() - t0)
+
+    # ---- the one-process references, on the card before the world -----------
+
+    def references(self):
+        from repro_torch.data import SyntheticConfig, batch_at
+        from repro_torch.models import init_params
+        from repro_torch.models import moe
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.train import init_train_state, make_train_step
+
+        torch, dev = self.torch, self.dev
+        llama = self.config(self.ARCH)
+        dcfg = SyntheticConfig(vocab=llama.vocab, seq_len=self.SEQ, global_batch=self.BATCH)
+        state = init_train_state(llama, self.SEED, device=dev)
+        full_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state.params) + tree_leaves(state.opt))
+        (state, m), wall = _sync_time(torch, lambda: make_train_step(llama, AdamWConfig(**self.OPT),
+                                                                     n_micro=self.MICRO)(state, batch_at(dcfg, 0, device=dev)))
+        one = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), wall=wall, state_bytes=full_bytes,
+                   params=sum(t.numel() for t in tree_leaves(state.params)), rules_share=self.rules_share(llama, state),
+                   fault_grad_share=self.fault_share(state.opt["m"]))  # at lr 0, m is (1 − β1)·the clipped gradient
+        del state, m
+        self.free()
+
+        gates = llama.replace(n_periods=self.SHALLOW, dtype="float32")
+        state = init_train_state(gates, self.GATES_SEED, device=dev)
+        p0 = [t.detach().clone() for t in tree_leaves(state.params)]
+        step = make_train_step(gates, AdamWConfig(**self.GATES_OPT), n_micro=self.MICRO)
+        refs, gates_losses = {}, []
+        for i in range(self.STEPS + 1):  # the last for elastic_2x4_to_2x2's next step
+            state, m = step(state, batch_at(dcfg, i, device=dev))
+            gates_losses.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+            if i == 0:
+                refs["m"] = [t.clone() for t in tree_leaves(state.opt["m"])]
+                refs["v"] = [t.clone() for t in tree_leaves(state.opt["v"])]
+            if i == self.STEPS - 1:
+                refs["params"] = [t.detach().clone() for t in tree_leaves(state.params)]
+        moved = math.sqrt(sum(float(((a - b).double() ** 2).sum()) for a, b in zip(refs["params"], p0)))
+        fault_moved = math.sqrt(self.fault_share(state.params, [a - b for a, b in zip(refs["params"], p0)]))
+        del state, m, p0, step
+        self.free()
+
+        cfg32 = self.drop_free(self.config(self.MOE_ARCH, n_periods=1, dtype="float32"))
+        params = init_params(cfg32, self.MOE_SEED, device=dev)
+        p = {k: v[0] for k, v in params["pattern"][0]["ffn"].items()}
+        gen = torch.Generator(device=dev).manual_seed(self.MOE_SEED + 7)
+        x = torch.randn(self.MOE_X + (cfg32.d_model,), generator=gen, device=dev)
+        with torch.no_grad():
+            y = moe.moe_apply(p, x, cfg32.replace(moe_impl="gspmd"))
+        moe_x, moe_y = x.cpu(), y.cpu()
+        del params, p, x, y
+        self.free()
+
+        plan = dict(llama=llama, seed=self.SEED, opt=self.OPT, seq=self.SEQ, batch=self.BATCH, micro=self.MICRO,
+                    steps=self.STEPS, gates_cfg=gates, gates_seed=self.GATES_SEED, gates_opt=self.GATES_OPT,
+                    moe_fwd_cfg=cfg32.replace(moe_impl="shard_map"),
+                    moe_cfg=self.config(self.MOE_ARCH, n_periods=1), moe_seed=self.MOE_SEED, moe_opt=self.MOE_OPT,
+                    moe_x=moe_x, moe_y=moe_y, mesh=self.MESH, small_mesh=self.SMALL_MESH,
+                    ckpt=f"{self.tmp}/ckpt", timeout_s=self.TIMEOUT_S, mem_fraction=self.RANK_MEM_FRACTION,
+                    device=f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else str(dev),
+                    one=one, gates_one=gates_losses, gates_moved=moved, gates_fault_moved=fault_moved)
+        return plan, refs
+
+    def drop_free(self, cfg):
+        return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+
+    def fault_share(self, tree, leaves=None):
+        """The share of Σ|x|² over the leaves of ``tree`` (or ``leaves``, in
+        its order) held by those named FAULT_LEAVES."""
+        from repro_torch.models.common import tree_leaves, tree_paths
+
+        leaves = tree_leaves(tree) if leaves is None else leaves
+        sq = [float((t.detach().double() ** 2).sum()) for t in leaves]
+        named = [v for v, path in zip(sq, tree_paths(tree)) if path[-1] in self.FAULT_LEAVES]
+        if not named:
+            raise AssertionError(f"phase 19: no leaf named {self.FAULT_LEAVES}")
+        return sum(named) / sum(sq)
+
+    def rules_share(self, cfg, state):
+        """The share of ``state``'s bytes one rank of MESH holds under the
+        rules: each leaf's bytes (parameter, master, m, v) over the ranks its
+        spec splits it across."""
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.sharding import Mesh, PartitionSpec
+        from repro_torch.train import state_pspecs
+
+        mesh = Mesh(self.MESH, ("data", "model"))
+        specs = tree_leaves(state_pspecs(cfg, mesh).params, is_leaf=lambda x: isinstance(x, PartitionSpec))
+        held = total = 0
+        for i, spec in enumerate(specs):
+            nbytes = sum(t.numel() * t.element_size() for t in
+                         [tree_leaves(state.params)[i]] + [tree_leaves(state.opt[k])[i] for k in ("master", "m", "v")])
+            split = math.prod(mesh.axis_size(spec.axes(d)) for d in range(len(spec)))
+            held, total = held + nbytes / split, total + nbytes
+        return held / total
+
+    # ---- a gloo world on the card ------------------------------------------------
+
+    def world(self, n, plan, refs):
+        import queue as queue_lib
+
+        import torch.multiprocessing as mp
+
+        torch = self.torch
+        if self.dev.type == "cuda":
+            free, total = torch.cuda.mem_get_info()
+            _p(f"phase 19: a world of {n} starts with {free / 2**30:.1f} of {total / 2**30:.1f} GiB free; this "
+               f"process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB (the references)")
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        procs = [ctx.Process(target=self.TARGET, name=f"phase19-rank{r}",
+                             args=(r, n, f"file://{self.tmp}/world{n}", plan, refs, results))
+                 for r in range(n)]
+        ranks = {}
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.start()
+            while len(ranks) < n:
+                left = self.DEADLINE_S - (time.perf_counter() - t0)
+                try:
+                    rank, out, err = results.get(timeout=min(max(left, 1.0), 10.0))
+                except queue_lib.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                    if dead or left <= 0:  # a rank that died before it reported, or the deadline
+                        raise AssertionError(f"phase 19: the world of {n} gave {len(ranks)} results in "
+                                             f"{time.perf_counter() - t0:.0f} s; exit codes {dead}") from None
+                    continue
+                if err is not None:
+                    raise AssertionError(f"phase 19: gloo rank {rank} of {n} failed:\n{err}")
+                ranks[rank] = out
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * n:
+            raise AssertionError(f"phase 19: gloo ranks of the world of {n} exited {codes}")
+        out = [ranks[r] for r in range(n)]
+        out.append(dict(world_s=time.perf_counter() - t0))
+        return out
+
+    # ---- the gates -----------------------------------------------------------------
+
+    @staticmethod
+    def walls(ranks, part):
+        """Each step's wall, the slowest rank's; the median and spread of the
+        warm steps (after the first)."""
+        steps = [max(r[part]["steps"][i]["wall"] for r in ranks) for i in range(len(ranks[0][part]["steps"]))]
+        warm = sorted(steps[1:]) or steps
+        return dict(step_s=steps, median_warm_s=warm[len(warm) // 2], spread_warm_s=warm[-1] - warm[0])
+
+    def judge(self, plan, world8, world4, t_phase):
+        ranks, t8 = world8[:-1], world8[-1]["world_s"]
+        small, t4 = world4[:-1], world4[-1]["world_s"]
+        fails = []
+
+        def common(part, rows):
+            losses = [[s["loss"] for s in r[part]["steps"]] for r in rows]
+            if any(l != losses[0] for l in losses):
+                fails.append(f"{part}: the loss differs between ranks")
+            if not all(math.isfinite(v) for v in losses[0]):
+                fails.append(f"{part}: a loss is not finite")
+            launched = [s["launches"] for r in rows for s in r[part]["steps"] if s["launches"]]
+            if launched:
+                fails.append(f"{part}: the mesh path launched a port kernel: {launched[0]}")
+            split = [s for r in rows for s in r[part]["steps"] if sum(s["bytes"].values()) != s["collective_bytes"]]
+            if split:
+                fails.append(f"{part}: the bytes by kind do not add up to all_reduce's and broadcast's")
+            return losses[0]
+
+        # (1) lm_mesh_2x4
+        one, full = plan["one"], plan["one"]["state_bytes"]
+        part = "lm_mesh_2x4"
+        losses = common(part, ranks)
+        first = ranks[0][part]["steps"][0]
+        state_share = [r[part]["state_bytes"] / full for r in ranks]
+        resident_share = [None if r[part]["resident_gib"] is None else r[part]["resident_gib"] * 2**30 / full
+                          for r in ranks]
+        row = dict(arch=plan["llama"].name, n_layers=plan["llama"].n_layers, params=one["params"], mesh=self.MESH,
+                   full_state_bytes=full, state_share=state_share, resident_share=resident_share,
+                   resident_gib=[r[part]["resident_gib"] for r in ranks],
+                   init_peak_gib=[r[part]["init_peak_gib"] for r in ranks],
+                   peak_gib=[r[part]["peak_gib"] for r in ranks], losses=losses,
+                   grad_norms=[s["grad_norm"] for s in ranks[0][part]["steps"]],
+                   one_process=dict(loss=one["loss"], grad_norm=one["grad_norm"], wall_s=one["wall"]),
+                   loss_rel=abs(first["loss"] - one["loss"]) / abs(one["loss"]),
+                   grad_norm_rel=abs(first["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"]),
+                   bytes_per_step=first["bytes"], **self.walls(ranks, part), part_s=ranks[0][part]["part_s"])
+        tp = self.MESH[1]
+        row.update(rules_share=one["rules_share"], state_share_max=self.STATE_SHARE_MAX,
+                   fault_grad_norm_rel=math.sqrt(1 + (tp**2 - 1) * one["fault_grad_share"]) - 1)
+        self.rows[part] = row
+        _p(f"phase 19: {part} (bf16 parameters, f32 master; 8 gloo ranks sharing the card; fault_grad_norm_rel: "
+           f"grad_norm's distance were {'/'.join(self.FAULT_LEAVES)}'s gradients taken {tp} times; card: {self.smi}): "
+           f"{json.dumps(row)}")
+        if max(state_share) > self.STATE_SHARE_MAX or (resident_share[0] is not None
+                                                       and max(resident_share) > self.STATE_SHARE_MAX):
+            fails.append(f"{part}: a rank holds more than {self.STATE_SHARE_MAX} of the state")
+        if not (row["loss_rel"] <= self.BF16_LOSS_REL and row["grad_norm_rel"] <= self.BF16_NORM_REL):
+            fails.append(f"{part}: step 1 differs from the one-process step by more than its bound")
+        if not self.BF16_NORM_REL < row["fault_grad_norm_rel"]:
+            fails.append(f"{part}: BF16_NORM_REL would pass a doubled sum over model ({row['fault_grad_norm_rel']})")
+
+        # (2) lm_mesh_gates
+        part = "lm_mesh_gates"
+        losses = common(part, ranks)
+        g1, want = ranks[0][part]["steps"][0], plan["gates_one"]
+        shares = {tag: max(r[part]["moment_share"][tag] for r in ranks) for tag in ("m", "v")}
+        diff = ranks[0][part]["param_diff_norm"] / plan["gates_moved"]
+        row = dict(n_layers=plan["gates_cfg"].n_layers, losses=losses, one_process_losses=[w["loss"] for w in want],
+                   loss_rel=abs(g1["loss"] - want[0]["loss"]) / abs(want[0]["loss"]),
+                   grad_norm_rel=abs(g1["grad_norm"] - want[0]["grad_norm"]) / abs(want[0]["grad_norm"]),
+                   moment_share=shares, param_diff_share=diff, param_diff_max=ranks[0][part]["param_diff_max"],
+                   fault_moved_share=plan["gates_fault_moved"],
+                   save_s=max(r[part]["save_s"] for r in ranks), **self.walls(ranks, part))
+        self.rows[part] = row
+        _p(f"phase 19: {part} (f32, {plan['gates_cfg'].n_layers} layers; m and v as shares of 1e-4·|want| + "
+           f"1e-5·max|want|; fault_moved_share: {'/'.join(self.FAULT_LEAVES)}'s share of the distance the "
+           f"one-process run moved the parameters; card: {self.smi}): {json.dumps(row)}")
+        if not (row["loss_rel"] <= 1e-5 and row["grad_norm_rel"] <= 1e-5 and max(shares.values()) <= 1
+                and diff <= self.PARAM_REL < row["fault_moved_share"]):
+            fails.append(f"{part}: {row}")
+
+        # (3) moe_mesh_2x4
+        part = "moe_mesh_2x4"
+        losses = common(part, ranks)
+        row = dict(arch=plan["moe_cfg"].name, n_layers=plan["moe_cfg"].n_layers,
+                   experts_a_rank=ranks[0][part]["experts_here"],
+                   fwd_err=max(r[part]["fwd_err"] for r in ranks), losses=losses,
+                   dropped_share=[sum(r[part]["steps"][i]["dropped_share"] for r in ranks) / len(ranks)
+                                  for i in range(self.STEPS)],
+                   state_bytes=[r[part]["state_bytes"] for r in ranks], peak_gib=[r[part]["peak_gib"] for r in ranks],
+                   bytes_per_step=ranks[0][part]["steps"][0]["bytes"], **self.walls(ranks, part))
+        self.rows[part] = row
+        _p(f"phase 19: {part} (bf16 train at capacity 1.25, the forward check in f32 at 4.0; card: {self.smi}): "
+           f"{json.dumps(row)}")
+        if not (row["fwd_err"] < self.FWD_TOL and losses[-1] < losses[0]):
+            fails.append(f"{part}: {row}")
+
+        # (4) elastic_2x4_to_2x2
+        part = "elastic_2x4_to_2x2"
+        before = ranks[0]["lm_mesh_gates"]["next_step"]
+        after = [r["elastic_restore"]["next_step"] for r in small]
+        launched = [s["launches"] for s in after if s["launches"]]
+        row = dict(step=small[0]["elastic_restore"]["step"], bitwise=all(r["elastic_restore"]["bitwise"] for r in small),
+                   leaves=small[0]["elastic_restore"]["leaves"],
+                   restore_s=max(r["elastic_restore"]["restore_s"] for r in small),
+                   state_bytes=[r["elastic_restore"]["state_bytes"] for r in small],
+                   loss_2x4=before["loss"], loss_2x2=after[0]["loss"], one_process=plan["gates_one"][-1]["loss"],
+                   loss_rel=abs(after[0]["loss"] - before["loss"]) / abs(before["loss"]))
+        self.rows[part] = row
+        _p(f"phase 19: {part} (the depth-2 f32 state saved from 2x4, restored by a world of 4 onto (2, 2); "
+           f"card: {self.smi}): {json.dumps(row)}")
+        if not (row["bitwise"] and row["loss_rel"] <= 1e-5 and len({s["loss"] for s in after}) == 1) or launched:
+            fails.append(f"{part}: {row}")
+
+        _p(f"phase 19: worlds' walls (s, start-up included; card: {self.smi}) 8 ranks {t8:.1f}, 4 ranks {t4:.1f}; "
+           f"phase {t_phase:.1f}")
+        if fails:
+            raise AssertionError("phase 19: " + "; ".join(fails))
 
 
 class _Phase14:

@@ -17,6 +17,17 @@ scaled by tanh(gate)) and DeepSeek-V2's multi-head latent attention
 (``mla_*``: a latent KV cache and the weight-absorbed decode) are the
 reference's too.
 
+Under a mesh (``sharding.use_mesh``) ``gqa_apply`` takes each rank's
+blocks and its rows and runs tensor-parallel over ``model`` (the
+reference's ``act_heads`` constraints): each model rank projects its own
+slice of the query heads (``wq`` column-parallel), the KV heads those
+query heads use (head h uses KV head h // (H/KV); ``kv_heads`` is
+replicated by the rules), attends, and multiplies by its rows of ``wo``
+(row-parallel), followed by one sum over ``model``.  The weights arrive
+through the FSDP gather over ``data``.  Where the heads do not split over
+``model`` every model rank computes the whole block on its rows, with the
+weights gathered whole.
+
 No Pallas kernel runs here in the reference, so none is owed; the products
 are ``torch.einsum``.
 """
@@ -26,8 +37,10 @@ import math
 
 import torch
 
+from .. import sharding
 from ..configs.base import MLAConfig, ModelConfig
-from .common import PSpec, apply_rope, make_rope, rms_norm
+from ..sharding import collectives as col
+from .common import PSpec, apply_rope, gather_tree, make_rope, mesh_specs, rms_norm
 
 NEG_INF = -1e30
 
@@ -158,32 +171,76 @@ def gqa_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions):
-    B, S, D = x.shape
+def _project_qkv(p, h, cfg: ModelConfig, positions, *, heads=None, mesh=None):
+    """The roped queries, keys and values of the normed input ``h``:
+    (B, Hl, S, hd), (B, n_kv, S, hd) and (B, n_kv, S, hd).
+
+    ``heads`` = (h0, Hl): only query heads h0 … h0 + Hl − 1 (``p["wq"]`` holds
+    their columns) and, repeated so head i of them reads its own, the KV
+    heads they use (head h uses KV head h // (H/KV)); default every head.
+    The weights used whole here (``wk``, ``wv``, the qk norms) enter through
+    ``collectives.copy_to`` over ``mesh``'s ``model`` axis, so their
+    gradients are summed over ``model`` exactly once (with no mesh, as
+    themselves)."""
+    B, S, D = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd).transpose(1, 2)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd).transpose(1, 2)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd).transpose(1, 2)
+    h0, Hl = heads or (0, H)
+    G = H // KV
+    if Hl % G == 0:  # whole groups: KV heads h0/G … (h0 + Hl)/G − 1, in order
+        cols, n_kv, expand = slice(h0 // G * hd, (h0 + Hl) // G * hd), Hl // G, None
+    else:  # a group split between ranks: the KV head of each query head
+        kv_of = [(h0 + i) // G for i in range(Hl)]
+        cols, n_kv = slice(kv_of[0] * hd, (kv_of[-1] + 1) * hd), kv_of[-1] - kv_of[0] + 1
+        expand = [j - kv_of[0] for j in kv_of]
+    q = (h @ p["wq"]).reshape(B, S, Hl, hd).transpose(1, 2)
+    k = (h @ col.copy_to(p["wk"], mesh)[:, cols]).reshape(B, S, n_kv, hd).transpose(1, 2)
+    v = (h @ col.copy_to(p["wv"], mesh)[:, cols]).reshape(B, S, n_kv, hd).transpose(1, 2)
+    if expand is not None:
+        k, v = k[:, expand], v[:, expand]
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, col.copy_to(p["q_norm"], mesh), cfg.norm_eps)
+        k = rms_norm(k, col.copy_to(p["k_norm"], mesh), cfg.norm_eps)
     cos, sin = make_rope(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _gqa_weights(p, cfg: ModelConfig):
+    """The weights this rank uses, the mesh its tensor-parallel sums run
+    over (``None`` where every rank computes every head) and its query heads
+    (h0, Hl).  With no mesh, ``p`` and every head.  Under a mesh whose
+    ``model`` axis splits the heads, ``wq`` and ``wo`` are this rank's
+    columns and rows (gathered over ``data``), the rest gathered whole;
+    where it does not split them, every weight gathered whole."""
+    H = cfg.n_heads
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return p, None, (0, H)
+    specs = mesh_specs(gqa_specs(cfg), mesh)
+    tp = mesh.shape.get("model", 1)
+    if tp == 1 or H % tp or specs["wq"].axes(1) != ("model",) or specs["wo"].axes(0) != ("model",):
+        return gather_tree(p, gqa_specs(cfg), mesh), None, (0, H)
+    w = {k: col.gather_param(t, specs[k], mesh, whole=k not in ("wq", "wo")) for k, t in p.items()}
+    return w, mesh, (mesh.axis_index("model") * (H // tp), H // tp)
+
+
 def gqa_apply(p, x, cfg: ModelConfig, *, window=None, pos_offset=0):
-    """Full-sequence self-attention block (pre-norm, residual)."""
+    """Full-sequence self-attention block (pre-norm, residual).  Under a
+    mesh, ``p`` is this rank's blocks and ``x`` its rows; over ``model`` each
+    rank attends with its own query heads and multiplies by its rows of
+    ``wo``, followed by one sum over ``model`` (``ln`` acts before that
+    region, so its gradient is whole on every rank already)."""
     B, S, D = x.shape
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    p, mesh, heads = _gqa_weights(p, cfg)
+    h = col.copy_to(rms_norm(x, p["ln"], cfg.norm_eps), mesh)
     positions = pos_offset + torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(p, h, cfg, positions)
+    q, k, v = _project_qkv(p, h, cfg, positions, heads=heads, mesh=mesh)
     o = flash_attention(
         q, k, v,
         causal=True, window=window, q_offset=0,
         q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
     )
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return x + o @ p["wo"]
+    o = o.transpose(1, 2).reshape(B, S, heads[1] * cfg.head_dim)
+    return x + col.reduce_from(o @ p["wo"], mesh)
 
 
 def gqa_init_cache(cfg: ModelConfig, B: int, S: int, window, dtype, device=None):

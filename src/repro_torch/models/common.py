@@ -9,7 +9,10 @@ index only.
 
 The reference's ``maybe_scan``/``unrolled_scans`` steer XLA's cost analysis;
 here the layer loops are plain Python loops and they have no counterpart.
-``constrain`` (a sharding annotation) has none either.
+``constrain`` (a sharding annotation) is ``sharding.constrain``, the
+identity.  Under a mesh (``sharding.use_mesh``) the model functions take
+each rank's blocks: ``mesh_specs`` gives a module's blocks' specs and
+``gather_tree`` brings a module's blocks whole for replicated use.
 
 Tree helpers (``tree_paths``, ``tree_leaves``, ``tree_map``) visit dict keys
 in sorted order and lists in order, as JAX flattens a pytree; ``None`` holds
@@ -42,6 +45,8 @@ __all__ = [
     "causal_conv",
     "conv_step",
     "DTYPES",
+    "mesh_specs",
+    "gather_tree",
 ]
 
 DTYPES = {
@@ -101,8 +106,8 @@ def tree_map(fn, tree, *rest, is_leaf=None):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)) and not _is_pspec(tree):
-        return type(tree)(tree_map(fn, v, *(r[j] for r in rest), is_leaf=is_leaf)
-                          for j, v in enumerate(tree))
+        mapped = [tree_map(fn, v, *(r[j] for r in rest), is_leaf=is_leaf) for j, v in enumerate(tree)]
+        return type(tree)(*mapped) if hasattr(tree, "_fields") else type(tree)(mapped)
     if tree is None:
         return None
     return fn(tree, *rest)
@@ -126,13 +131,15 @@ _UNIFORM = {
 }
 
 
-def init_tree(specs, generator: torch.Generator, default_dtype, device):
+def init_tree(specs, generator: torch.Generator, default_dtype, device, keep=None):
     """Materialize a PSpec tree into tensors on ``device``.
 
     One draw from ``generator`` gives the base seed; leaf ``i`` (in flatten
     order) draws from a generator of its own seeded by (base, i).  The
     Gaussians are drawn in f32 and scaled there, then cast, as the
-    reference's are.
+    reference's are.  ``keep(path, leaf)``, if given, replaces each leaf as
+    soon as it is drawn (a rank's block of it), so only one whole leaf is
+    ever held.
     """
     base = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
     paths = list(tree_paths(specs, is_leaf=_is_pspec))
@@ -161,7 +168,8 @@ def init_tree(specs, generator: torch.Generator, default_dtype, device):
             arr = to_param(u).to(torch.float32)
         else:
             raise ValueError(f"unknown init {spec.init!r}")
-        leaves[path] = arr
+        leaves[path] = arr if keep is None else keep(path, arr)
+        del arr
     return tree_rebuild(specs, leaves)
 
 
@@ -248,3 +256,21 @@ def conv_step(tail, new, w, b):
     buf = torch.cat([tail, new[:, None]], dim=1)
     out = torch.einsum("bwc,wc->bc", buf.float(), w.float()) + b.float()
     return out.to(buf.dtype), buf[:, 1:]
+
+
+def mesh_specs(specs, mesh):
+    """The ``PartitionSpec`` of each leaf of a ``PSpec`` tree on ``mesh``
+    under the current rules (``sharding.use_mesh``'s, else the defaults)."""
+    from ..sharding import current_rules, logical_to_spec
+
+    rules = current_rules()
+    return tree_map(lambda s: logical_to_spec(s.axes, mesh, rules, shape=s.shape), specs, is_leaf=_is_pspec)
+
+
+def gather_tree(p, specs, mesh):
+    """Every block of the parameter tree ``p`` gathered whole
+    (``collectives.gather_param(whole=True)``): a module that every model
+    rank computes entirely on its rows."""
+    from ..sharding.collectives import gather_param
+
+    return tree_map(lambda w, s: gather_param(w, s, mesh, whole=True), p, mesh_specs(specs, mesh))

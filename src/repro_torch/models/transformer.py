@@ -37,6 +37,17 @@ window), ``mla``, ``cross_attn``, ``ssd`` and ``rglru``; a dense or MoE FFN
 (``moe=True``: the MoE's aux loss reaches ``loss_fn``); the ``token``,
 ``frames`` and ``vision`` front ends (``vision`` takes precomputed image
 embeddings as ``batch["image_embeds"]``, and ``decode_step(img=)``).
+
+Under a mesh (``sharding.use_mesh``; the train step ``jit_train_step``)
+``forward``, ``loss_fn`` and ``backbone`` take each rank's blocks and its
+rows of the batch.  Each layer gathers its own weights over ``data`` as it
+runs (ZeRO-3: one layer's weights at a time, again in the backward pass's
+recomputation under ``remat``).  GQA attention, the dense FFN and the MoE
+run tensor-parallel over ``model``; MLA, SSD, RG-LRU and cross-attention
+run on every model rank with their weights gathered whole (their state
+stays sharded by the rules).  The embedding table and the head are
+gathered whole before use, once a call (with tied embeddings the lookup
+and the head share the table); the final norm over ``data``.
 """
 from __future__ import annotations
 
@@ -47,14 +58,16 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from .. import sharding
 from ..configs.base import LayerSpec, ModelConfig
 from ..core.backend import as_generator, resolve_device
+from ..sharding import collectives as col
 from . import attention as attn
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .common import DTYPES, PSpec, axes_tree, init_tree, rms_norm, shape_tree, tree_map
+from .common import DTYPES, PSpec, axes_tree, gather_tree, init_tree, mesh_specs, rms_norm, shape_tree, tree_map
 
 __all__ = [
     "layer_specs", "model_specs", "init_params", "params_axes", "params_shapes",
@@ -108,12 +121,13 @@ def model_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def init_params(cfg: ModelConfig, key, *, device=None):
+def init_params(cfg: ModelConfig, key, *, device=None, keep=None):
     """The parameter tree, drawn from ``key`` (a ``torch.Generator`` on
     ``device``, or an int seed) in ``cfg.dtype`` on ``device`` (``None``:
-    the card)."""
+    the card).  ``keep(path, leaf)``: what to keep of each leaf as it is
+    drawn (``models.common.init_tree``)."""
     dev = resolve_device(device)
-    return init_tree(model_specs(cfg), as_generator(key, dev), DTYPES[cfg.dtype], dev)
+    return init_tree(model_specs(cfg), as_generator(key, dev), DTYPES[cfg.dtype], dev, keep=keep)
 
 
 def params_axes(cfg: ModelConfig):
@@ -138,9 +152,16 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+# the mixers that run whole on every model rank under a mesh
+_REPLICATED_MIXERS = ("mla", "cross_attn", "ssd", "rglru")
+
+
 def apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, img=None, pos_offset=0):
     """Returns (x, aux); aux is 0 without an MoE FFN."""
     mp = p["mixer"]
+    mesh = sharding.current_mesh()
+    if mesh is not None and spec.mixer in _REPLICATED_MIXERS:
+        mp = gather_tree(mp, _MIXER_SPECS[spec.mixer](cfg), mesh)
     if spec.mixer == "attn":
         x = attn.gqa_apply(mp, x, cfg, window=spec.window, pos_offset=pos_offset)
     elif spec.mixer == "mla":
@@ -217,15 +238,36 @@ def backbone(cfg: ModelConfig, params, x, img=None):
     for spec, p in zip(cfg.suffix, params["suffix"]):
         x, aux = apply_layer(p, x, cfg, spec, img=img)
         aux_total = aux_total + aux
-    return rms_norm(x, params["final_ln"], cfg.norm_eps), aux_total
+    final_ln = params["final_ln"]
+    mesh = sharding.current_mesh()
+    if mesh is not None:
+        final_ln = col.gather_param(final_ln, mesh_specs(model_specs(cfg), mesh)["final_ln"], mesh, whole=True)
+    return rms_norm(x, final_ln, cfg.norm_eps), aux_total
 
 
 def _head_weight(cfg: ModelConfig, params):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
+def _whole_tables(cfg: ModelConfig, params):
+    """Under a mesh: ``params`` with the embedding table and the head
+    gathered whole (a vocab-parallel lookup and cross-entropy would keep
+    them split; they are gathered once a call here, 0.5 GB in bf16 at
+    llama3.2-1b)."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return params
+    specs = mesh_specs(model_specs(cfg), mesh)
+    out = dict(params)
+    for k in ("embed", "head"):
+        if k in params:
+            out[k] = col.gather_param(params[k], specs[k], mesh, whole=True)
+    return out
+
+
 def forward(cfg: ModelConfig, params, batch):
     """Full logits, f32 (careful: (B,S,V) — use loss_fn for training)."""
+    params = _whole_tables(cfg, params)
     x, _ = backbone(cfg, params, *_embed_inputs(cfg, params, batch))
     return (x @ _head_weight(cfg, params)).float()
 
@@ -241,6 +283,7 @@ def _chunk_ce(xs, ls, w):
 def loss_fn(cfg: ModelConfig, params, batch):
     """Seq-chunked softmax cross-entropy plus the MoE aux loss.  Returns
     (loss, metrics)."""
+    params = _whole_tables(cfg, params)
     x, aux = backbone(cfg, params, *_embed_inputs(cfg, params, batch))
     w = _head_weight(cfg, params)
     labels = batch["labels"].long()

@@ -12,6 +12,11 @@ counterpart.
 The learning rate is a host float (f64 arithmetic); the bias corrections
 1 − β^t are f32, as the reference computes them; the clipping scale stays on
 the gradients' device, so an update never waits for the device.
+
+On a mesh (``specs=``, ``mesh=``: each rank holds blocks of the gradients
+and of the state) the update is the same, block by block; only the global
+norm needs the other ranks: each leaf's squared norm is summed over the
+axes its spec splits it on, so a replicated leaf counts once.
 """
 from __future__ import annotations
 
@@ -57,25 +62,46 @@ def adamw_init(params, moments_dtype=torch.float32) -> dict:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    """√Σ g² over the tree's leaves in flatten order, in f32."""
-    total = None
-    for g in tree_leaves(tree):
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """√Σ g² over the tree's leaves in flatten order, in f32.
+
+    With ``specs`` (a matching tree of ``PartitionSpec``s) and ``mesh``, the
+    leaves are this rank's blocks: the squared norms of the leaves split
+    over the same axes are added, then summed over those axes (one
+    ``all_reduce`` a set of axes, in mesh order); a leaf replicated on an
+    axis is counted once, not once a rank."""
+    if mesh is None:
+        total = None
+        for g in tree_leaves(tree):
+            sq = g.float().square().sum()
+            total = sq if total is None else total + sq
+        return total.sqrt()
+    from ..sharding import PartitionSpec
+    from ..sharding.collectives import psum_over
+
+    by_axes = {}
+    for g, spec in zip(tree_leaves(tree), tree_leaves(specs, is_leaf=lambda s: isinstance(s, PartitionSpec))):
+        axes = tuple(a for a in mesh.axis_names if any(a in spec.axes(i) for i in range(g.ndim)))
         sq = g.float().square().sum()
-        total = sq if total is None else total + sq
+        by_axes[axes] = sq if axes not in by_axes else by_axes[axes] + sq
+    total = None
+    for axes in sorted(by_axes, key=lambda ax: [mesh.axis_names.index(a) for a in ax]):
+        part = psum_over(by_axes[axes], axes, mesh, kind="norm")
+        total = part if total is None else total + part
     return total.sqrt()
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, opt_state, step):
+def adamw_update(cfg: AdamWConfig, grads, opt_state, step, *, specs=None, mesh=None):
     """One AdamW update at ``step`` (the count of updates before it).
 
     Writes the new master, m and v into ``opt_state`` and returns
     ``(opt_state, {"grad_norm", "lr"})``; ``grad_norm`` is a 0-d tensor on
-    the gradients' device.
+    the gradients' device.  ``specs``/``mesh``: the gradients and the state
+    are this rank's blocks (``global_norm``).
     """
     step = int(step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(cfg, step)
     t = np.float32(step + 1)

@@ -21,9 +21,16 @@ a checkpoint written by either package restores in the other:
   file) and writes it in a background thread with keep-n garbage
   collection.
 
-``shardings=`` (elastic placement on another mesh) belongs to the second
-half of the ML stack and raises ``NotImplementedError`` naming ROADMAP
-A14b.
+On a mesh (``shardings=``: a matching tree of ``sharding.NamedSharding``s,
+as ``train.elastic.restore_elastic`` builds them from ``state_pspecs``):
+
+- ``save`` and ``AsyncCheckpointer.submit`` take each rank's blocks; every
+  rank calls them (a collective), each leaf is assembled in full one leaf
+  at a time (``collectives.unshard``, exact) and the mesh's first rank
+  writes it, so the file holds the same arrays as the unsharded state's;
+- ``restore`` gives each rank its own block of every leaf, reading the
+  ``.npz`` leaf by leaf (a whole state loaded by every rank at once would
+  not fit the host).
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ import torch
 from ..core import backend as backend_lib
 from ..core.linop import _torch_dtype
 from ..obs.lockcheck import make_lock
+from ..sharding import NamedSharding, PartitionSpec
 
 __all__ = ["save", "restore", "latest_step", "gc_checkpoints", "AsyncCheckpointer"]
 
@@ -65,11 +73,14 @@ def _is_namedtuple(x) -> bool:
 
 
 def _flatten(tree, prefix: str = "", out=None) -> dict:
-    """``{keystr path: leaf}`` in the reference's flatten order."""
+    """``{keystr path: leaf}`` in the reference's flatten order (a
+    ``NamedSharding`` or a ``PartitionSpec`` is a leaf)."""
     out = {} if out is None else out
     if tree is None:
         return out
-    if isinstance(tree, dict):
+    if isinstance(tree, (NamedSharding, PartitionSpec)):
+        out[prefix] = tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             _flatten(tree[k], f"{prefix}[{k!r}]", out)
     elif _is_namedtuple(tree):
@@ -149,12 +160,45 @@ def _write(ckpt_dir: str, step: int, host: dict) -> str:
     return final
 
 
-def save(ckpt_dir: str, step: int, tree) -> str:
+def _host_leaves(tree, shardings) -> tuple[dict | None, bool]:
+    """(the host copies of ``tree``'s leaves, or ``None`` on a rank that
+    does not write; whether this rank writes).  With ``shardings`` every
+    leaf is assembled in full from the ranks' blocks, one at a time."""
+    if shardings is None:
+        return {k: _to_host(v) for k, v in _flatten(tree).items()}, True
+    from ..sharding.collectives import unshard
+
+    named, places = _flatten(tree), _flatten(shardings)
+    if set(named) != set(places):
+        raise ValueError("shardings= does not match the tree's leaves")
+    writer = next(iter(places.values())).mesh.rank == 0
+    host = {}
+    for key, v in named.items():
+        full = unshard(v, places[key].spec, places[key].mesh) if isinstance(v, torch.Tensor) else v
+        if writer:
+            host[key] = _to_host(full)
+        del full
+    return (host if writer else None), writer
+
+
+def _barrier(shardings):
+    if shardings is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def save(ckpt_dir: str, step: int, tree, shardings=None) -> str:
     """Blocking atomic save of a tree of tensors, arrays and scalars;
     returns the checkpoint's path.  Also sweeps staging dirs orphaned by
-    crashed writers (the save after a crash is the safe point for it)."""
-    host = {k: _to_host(v) for k, v in _flatten(tree).items()}
-    return _write(ckpt_dir, int(step), host)
+    crashed writers (the save after a crash is the safe point for it).
+    ``shardings``: ``tree`` holds this rank's blocks; every rank calls
+    ``save``, the mesh's first rank writes, and all return once the
+    checkpoint is in place."""
+    host, writer = _host_leaves(tree, shardings)
+    path = _write(ckpt_dir, int(step), host) if writer else os.path.join(ckpt_dir, f"step_{int(step)}")
+    _barrier(shardings)
+    return path
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -172,15 +216,13 @@ def restore(ckpt_dir: str, target, step: int | None = None, shardings=None, *, d
     """Restore into the structure of ``target`` → ``(tree, step)``.
 
     ``target``'s leaves are tensors or ``(shape, dtype)`` pairs (a torch or
-    numpy dtype); each restored
+    numpy dtype) of the full leaves; each restored
     leaf is a tensor of that shape and dtype on ``device`` (``None``: a
     tensor leaf's own device, else ``"cuda"``).  ``step=None`` takes the
-    newest checkpoint.
+    newest checkpoint.  ``shardings`` (a matching tree of
+    ``NamedSharding``s): each leaf is this rank's block of it instead.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) (elastic placement on a mesh) arrives with ROADMAP A14b"
-        )
+    places = None if shardings is None else _flatten(shardings)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -189,6 +231,8 @@ def restore(ckpt_dir: str, target, step: int | None = None, shardings=None, *, d
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     named_target = _flatten(target)
+    if places is not None and set(places) != set(named_target):
+        raise ValueError("shardings= does not match the target's leaves")
     missing = set(named_target) - set(manifest["keys"])
     if missing:
         raise ValueError(f"checkpoint at step {step} missing keys: {sorted(missing)[:5]}")
@@ -206,7 +250,12 @@ def restore(ckpt_dir: str, target, step: int | None = None, shardings=None, *, d
                 dev = tgt.device
             else:
                 dev = backend_lib.resolve_device(None)
+            if places is not None:
+                from ..sharding.collectives import block_slices
+
+                arr = arr[block_slices(arr.shape, places[key].spec, places[key].mesh)]
             leaves[key] = torch.from_numpy(np.array(arr)).to(device=dev, dtype=_torch_dtype(dtype))
+            del arr
     return _unflatten(target, leaves), step
 
 
@@ -265,10 +314,15 @@ class AsyncCheckpointer:
         if err is not None:
             raise err
 
-    def submit(self, step: int, tree):
+    def submit(self, step: int, tree, shardings=None):
+        """Snapshot ``tree`` to the host and queue its write.  ``shardings``:
+        ``tree`` holds this rank's blocks; every rank calls ``submit`` (the
+        leaves are assembled in full, a collective) and the mesh's first
+        rank writes."""
         self._raise_pending()
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}  # the sync snapshot
-        self._q.put((int(step), host))
+        host, writer = _host_leaves(tree, shardings)  # the sync snapshot
+        if writer:
+            self._q.put((int(step), host))
 
     def finalize(self):
         self._q.put(None)

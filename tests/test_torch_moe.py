@@ -162,12 +162,26 @@ def test_moe_apply_on_decode_shaped_input():
 
 
 def test_the_expert_parallel_path_raises_by_name():
+    """``"shard_map"`` with no mesh raises the reference's error; ``"auto"``
+    and ``"gspmd"`` take the global dispatch.  On a mesh of one rank the
+    expert-parallel path is the global dispatch, bit for bit (the path
+    over real worlds: ``tests/test_torch_moe_mesh.py``)."""
+    from repro_torch.sharding import Mesh, use_mesh
+
     cfg, _, p = _moe("mixtral-8x7b", 1.25)
     tp = {k: torch.as_tensor(v) for k, v in p.items()}
-    with pytest.raises(NotImplementedError, match="A14b"):
-        tmoe.moe_apply(tp, torch.zeros(1, 4, cfg.d_model), cfg.replace(moe_impl="shard_map"))
+    x = torch.as_tensor(_x(cfg)[:, :8])
+    with pytest.raises(RuntimeError, match="moe_impl='shard_map' requires a mesh with a 'model' axis"):
+        tmoe.moe_apply(tp, x, cfg.replace(moe_impl="shard_map"))
+    want = tmoe.moe_apply(tp, x, cfg.replace(moe_impl="gspmd"), return_aux=True)
     for impl in ("auto", "gspmd"):  # no mesh: the global dispatch
-        tmoe.moe_apply(tp, torch.zeros(1, 4, cfg.d_model), cfg.replace(moe_impl=impl))
+        got = tmoe.moe_apply(tp, x, cfg.replace(moe_impl=impl), return_aux=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with use_mesh(Mesh((1, 1), ("data", "model"), rank=0, groups={})):
+        got = tmoe.moe_apply(tp, x, cfg.replace(moe_impl="shard_map"), return_aux=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        with pytest.raises(NotImplementedError, match="global dispatch over the ranks"):
+            tmoe.moe_apply(tp, x, cfg.replace(moe_impl="gspmd"))
 
 
 def test_moe_specs_are_the_references():

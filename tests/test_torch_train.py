@@ -345,8 +345,21 @@ def test_launch_train_runs_and_resumes(tmp_path):
 
 
 def test_launch_train_refuses_a_sharded_mesh():
-    out = _run("repro_torch.launch.train", "--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--mesh", "2x2")
-    assert out.returncode != 0 and "A14b" in out.stderr
+    """A mesh other than 1x1 runs one process a rank under ``torchrun``
+    (``tests/test_torch_elastic.py`` trains on 2x2): started alone, as a
+    world of one, the launcher refuses a 2x2 mesh it cannot hold."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+         "--mesh", "2x2", "--backend", "gloo"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    assert out.returncode != 0 and "need 4 ranks for mesh (2, 2), the world has 1" in out.stderr
 
 
 def test_launch_train_runs_a_family():

@@ -195,8 +195,15 @@ def test_restore_refusals(tmp_path):
         ckpt.restore(d, {"b": torch.zeros(2)})
     with pytest.raises(ValueError, match="shape mismatch"):
         ckpt.restore(d, {"a": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="shardings= does not match"):
         ckpt.restore(d, {"a": torch.zeros(2)}, shardings={"a": None})
+    # a block a rank on a mesh (here of one rank: the whole leaf; worlds of
+    # several ranks in tests/test_torch_elastic.py)
+    from repro_torch.sharding import Mesh, NamedSharding, PartitionSpec
+
+    one = Mesh((1,), ("data",), rank=0, groups={})
+    got, _ = ckpt.restore(d, {"a": torch.ones(2)}, shardings={"a": NamedSharding(one, PartitionSpec("data"))})
+    assert torch.equal(got["a"], torch.zeros(2))
     if not torch.cuda.is_available():  # a spec target goes to the card unless told otherwise
         with pytest.raises(RuntimeError, match="CUDA"):
             ckpt.restore(d, {"a": ((2,), torch.float32)})
