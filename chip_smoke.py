@@ -200,8 +200,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    after 3 steps); ``moe_mesh_2x4``: mixtral's expert-parallel MoE at its
    published widths (f32 forward within 1e-4 of the global dispatch, 3
    train steps at 1.25); ``elastic_2x4_to_2x2``: the state saved from 2×4
-   and restored by a world of 4 onto (2, 2), bitwise, and the next step.
-   No port kernel is launched on the mesh path, which is held.
+   and restored by a world of 4 onto (2, 2), bitwise, and the next step;
+   ``lm_mesh_serve_2x4``: llama3.2-1b at full depth served on the same
+   mesh (8 prompts of 2048 tokens, 4 new), each rank 1/8 of the KV cache
+   exactly, the logits teacher-forced on the one-process greedy tokens
+   (phase 17's bf16 rule), depth 2 in f32 against the one-process run
+   under a fixed limit that the fault (one model rank's positions left
+   out of the combine) exceeds, and ``launch.dryrun`` run beside it on the
+   CPU: its bytes by kind equal to the ranks' counts for this cell and for
+   ``lm_mesh_2x4``, its peaks within 25%.  No port kernel is launched on
+   the mesh path, which is held.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -288,6 +296,11 @@ def _p(*args):
 
 def _rel(x, y):
     return float((x - y).norm() / y.norm())
+
+
+def _max_rel(x, y):
+    """max|x − y| / max|y|."""
+    return float((x - y).abs().max() / y.abs().max())
 
 
 def _sync_time(torch, fn):
@@ -5265,6 +5278,88 @@ class _Phase19Rank:
         return dict(fwd_err=fwd_err, experts_here=experts_here, state_bytes=self.state_bytes(state),
                     peak_gib=self.gib("max_memory_allocated"), steps=recs)
 
+    # ---- lm_mesh_serve_2x4 -------------------------------------------------------
+
+    def serve_blocks(self, cfg, seed, mesh):
+        """This rank's blocks of ``init_params(cfg, seed)``, drawn a leaf at a
+        time on the card."""
+        from repro_torch.models import init_params
+        from repro_torch.sharding import collectives as col
+        from repro_torch.train import state_pspecs
+
+        spec_of = dict(_tree_items(state_pspecs(cfg, mesh).params))
+        return init_params(cfg, seed, device=self.dev, keep=lambda path, t: col.shard_block(t, spec_of[path], mesh))
+
+    def lm_mesh_serve_2x4(self):
+        """llama3.2-1b at full width and depth in bf16 served on the mesh:
+        prefill of this rank's rows of the prompts into its blocks of the
+        caches, then decode steps fed the one-process greedy tokens (teacher
+        forcing); per call the wall, the peak, the bytes by kind.  Then the
+        depth-2 f32 gate: prefill and decode steps fed the prompts' next
+        tokens.  The logits come back from the ranks of model coordinate 0
+        (the others hold the same)."""
+        from repro_torch.kernels import KERNELS, reset_launches
+        from repro_torch.models import decode_step, prefill
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.sharding import PartitionSpec, use_mesh
+        from repro_torch.sharding import collectives as col
+
+        torch, plan, mesh = self.torch, self.plan, self.meshes[tuple(self.plan["mesh"])]
+        first = mesh.coords["model"] == 0
+        rows = lambda t: col.shard_block(t, PartitionSpec("data"), mesh).to(self.dev)  # noqa: E731
+        cfg, S, N = plan["llama"], plan["serve_len"], plan["serve_new"]
+        self.sync()
+        base = self.gib("memory_allocated")
+        params = self.serve_blocks(cfg, plan["serve_seed"], mesh)
+        prompts, fed = rows(plan["serve_prompts"]), rows(plan["serve_tokens"])
+        self.sync()
+        resident = None if base is None else self.gib("memory_allocated") - base
+
+        def call(fn):
+            """(fn's output, {its wall, the peak GiB, the bytes by kind, the
+            kernels launched})."""
+            self.dist.barrier()
+            self.sync()
+            self.reset_peak()
+            reset_launches()
+            col.reset_bytes()
+            t0 = time.perf_counter()
+            with _Collectives() as coll, use_mesh(mesh):
+                out = fn()
+                self.sync()
+            wall = time.perf_counter() - t0
+            counted = dict(col.BYTES)
+            if sum(counted.values()) != coll.bytes["all_reduce"] + coll.bytes["broadcast"]:
+                raise AssertionError("the bytes by kind do not add up to all_reduce's and broadcast's")
+            return out, dict(wall=wall, peak_gib=self.gib("max_memory_allocated"), bytes=counted,
+                             launches={f.__name__: f.launches for f in KERNELS if f.launches})
+
+        (logits, cache), pre = call(lambda: prefill(cfg, params, {"tokens": prompts}, S_cache=S + N))
+        cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+        out, steps, greedy = [logits.float().cpu().numpy()], [], [torch.argmax(logits, -1).cpu()]
+        for i in range(N - 1):
+            (logits, cache), rec = call(lambda: decode_step(cfg, params, cache, fed[:, i], S + i))
+            steps.append(rec)
+            out.append(logits.float().cpu().numpy())
+            greedy.append(torch.argmax(logits, -1).cpu())
+        del params, cache, logits
+        if self.cuda:
+            torch.cuda.empty_cache()
+
+        # the depth-2 f32 gate
+        cfg32, S2, K = plan["serve_gate_cfg"], plan["serve_gate_len"], plan["serve_gate_steps"]
+        params = self.serve_blocks(cfg32, plan["serve_gate_seed"], mesh)
+        toks = rows(plan["serve_gate_tokens"])
+        with torch.no_grad(), use_mesh(mesh):
+            logits, cache = prefill(cfg32, params, {"tokens": toks[:, :S2]}, S_cache=S2 + plan["serve_gate_extra"])
+            gate = [logits.cpu().numpy()]
+            for i in range(K):
+                logits, cache = decode_step(cfg32, params, cache, toks[:, S2 + i], S2 + i)
+                gate.append(logits.cpu().numpy())
+        return dict(resident_gib=resident, cache_bytes=cache_bytes, prefill=pre, decode=steps,
+                    logits=out if first else None, greedy=torch.stack(greedy, 1).numpy() if first else None,
+                    gate_logits=gate if first else None, coords=dict(mesh.coords))
+
     # ---- elastic_2x4_to_2x2 (a world of 4) --------------------------------------
 
     def elastic_restore(self):
@@ -5381,11 +5476,23 @@ class _Phase19:
     2×4 mesh (assembled leaf by leaf, written by the first rank), restored
     by a world of 4 onto (2, 2): every block bitwise its slice of the saved
     array, and the next step's loss within 1e-5 relative of the same step
-    on 2×4.  Per rank the resident and peak GiB, step walls (median and
-    spread), the bytes handed to ``all_reduce`` and ``broadcast`` a step by
-    kind (FSDP gathers, gradient reduce-scatters, TP sums), the phase's
-    time; no port
-    kernel is launched on the mesh path, which is held."""
+    on 2×4.  (5) ``lm_mesh_serve_2x4``, last in the world of 8: llama3.2-1b
+    at full depth in bf16 served on the mesh (``prefill`` and 3
+    ``decode_step``s under ``use_mesh``, fed the one-process greedy tokens),
+    each rank's caches exactly 1/8 of the one-process cache's, the logits
+    against the one-process logits by phase 17's bf16 rule; at depth 2 in
+    f32, the prefill's and 2 decode steps' logits within SERVE_F32_REL of
+    the one-process run, below the fault's reading (model rank
+    FAULT_MODEL_RANK's positions left out of every decode step's attention,
+    run here); ``launch.dryrun`` run on the CPU beside the phase for this
+    cell's prefill and decode step and ``lm_mesh_2x4``'s step: its bytes by
+    kind equal to the ranks' counts, exactly, and its peaks within
+    DRYRUN_PEAK_REL of ``max_memory_allocated``.  Per rank the resident
+    and peak GiB, step walls (median and spread), the bytes handed to
+    ``all_reduce`` and ``broadcast`` a step (or a call) by kind (FSDP
+    gathers, gradient reduce-scatters, TP sums, the decode combine), the
+    phase's time; no port kernel is launched on the mesh path, which is
+    held."""
 
     ARCH, MOE_ARCH = "llama3.2-1b", "mixtral-8x7b"
     CFGS = None  # {arch: config} in place of get_config(arch) (CPU rehearsals)
@@ -5412,6 +5519,22 @@ class _Phase19:
     TIMEOUT_S = 300
     DEADLINE_S = 900
     TARGET = staticmethod(_phase19_rank)
+    PARTS = ("lm_mesh_2x4", "lm_mesh_gates", "moe_mesh_2x4", "lm_mesh_serve_2x4")  # the world of 8's, in order
+    # lm_mesh_serve_2x4: 8 prompts of 2048 tokens (4 a data rank), 4 new
+    # tokens (prefill and 3 decode steps; each forward gathers ≈2.2 GB a rank)
+    SERVE_SEED, SERVE_GATE_SEED = 1904, 1905
+    SERVE_PROMPTS, SERVE_LEN, SERVE_NEW = 8, 2048, 4
+    # the depth-2 f32 gate: 2 prompts (1 a data rank) of 1024 tokens, 2 decode
+    # steps fed their next tokens, a cache of 1028 positions (257 a model rank)
+    SERVE_GATE_PROMPTS, SERVE_GATE_LEN, SERVE_GATE_STEPS, SERVE_GATE_EXTRA = 2, 1024, 2, 4
+    # the f32 gate's limit on max|mesh − one-process| / max|one-process| over
+    # the prefill's and the decode steps' logits: fixed between the sound
+    # reading (predicted ≤ 1e-5) and the fault's, one model rank's slice of
+    # the positions left out of the combine (predicted ≥ 1e-2)
+    SERVE_F32_REL = 1e-4
+    FAULT_MODEL_RANK = 1  # the model rank whose positions the fault leaves out
+    DRYRUN_PEAK_REL = 0.25  # the dry run's peak a rank against max_memory_allocated
+    DRYRUN_TIMEOUT_S = 400
 
     def __init__(self, torch, dev, smi, root):
         self.torch, self.dev, self.smi, self.root = torch, dev, smi, root
@@ -5438,16 +5561,166 @@ class _Phase19:
         (self.root / "build").mkdir(exist_ok=True)
         self.tmp = tempfile.mkdtemp(prefix="phase19-", dir=self.root / "build")
         t0 = time.perf_counter()
+        dryrun = self.start_dryrun()
         try:
             plan, refs = self.references()
-            world8 = self.world(8, dict(plan, parts=["lm_mesh_2x4", "lm_mesh_gates", "moe_mesh_2x4"],
-                                        meshes=[self.MESH]), refs)
+            world8 = self.world(8, dict(plan, parts=list(self.PARTS), meshes=[self.MESH]), refs)
             del refs
             self.free()
             world4 = self.world(4, dict(plan, parts=["elastic_restore"], meshes=[self.SMALL_MESH]), {})
+            predicted = self.finish_dryrun(dryrun)
         finally:
+            if dryrun[0].poll() is None:
+                dryrun[0].kill()
+                dryrun[0].wait()
             shutil.rmtree(self.tmp, ignore_errors=True)
         self.judge(plan, world8, world4, time.perf_counter() - t0)
+        if "lm_mesh_serve_2x4" in self.PARTS:
+            self.judge_serve(plan, world8[:-1], predicted)
+
+    # ---- lm_mesh_serve_2x4's gates ------------------------------------------------
+
+    def judge_serve(self, plan, ranks, predicted):
+        """The serve cell against the one-process runs and the dry run's
+        predictions; prints its row and raises on a failed gate."""
+        import numpy as np
+
+        torch, part, one = self.torch, "lm_mesh_serve_2x4", self.serve_one
+        rs = [r[part] for r in ranks]
+        by_data = sorted((r for r in rs if r["logits"] is not None), key=lambda r: r["coords"]["data"])
+        fails = []
+
+        # the caches: each rank's bytes exactly 1/8 of the one-process cache's
+        n = math.prod(self.MESH)
+        cache_share = [r["cache_bytes"] / one["cache_bytes"] for r in rs]
+        if any(n * r["cache_bytes"] != one["cache_bytes"] for r in rs):
+            fails.append(f"cache share {cache_share} is not exactly 1/{n}")
+
+        # bf16 at full depth: phase 17's rule, the mesh's logits teacher-forced
+        # on the one-process greedy tokens against the one-process logits
+        mesh = torch.as_tensor(np.concatenate([np.stack(r["logits"], 1) for r in by_data]))  # (P, N, V)
+        toks = one["tokens"].long()
+        gap = float((mesh - one["logits"]).abs().max())
+        differ = torch.argmax(mesh, -1) != toks
+        excess = mesh.amax(-1) - mesh.gather(-1, toks[..., None])[..., 0]
+        worst = float(excess[differ].max()) if bool(differ.any()) else 0.0
+        greedy = torch.as_tensor(np.concatenate([r["greedy"] for r in by_data]))
+        if not (gap <= _Phase17.TF_GAP_MAX and worst <= 2 * gap):
+            fails.append(f"bf16 logits: gap {gap}, worst excess {worst}")
+
+        # f32 at depth 2: a fixed limit between the sound reading and the fault's
+        gate = torch.as_tensor(np.concatenate([np.stack(r["gate_logits"], 1) for r in by_data]))
+        sound = [_max_rel(gate[:, i], one["gate"][:, i]) for i in range(gate.shape[1])]
+        if not (max(sound) <= self.SERVE_F32_REL < one["fault_rel"]):
+            fails.append(f"f32 gate: {sound} against {self.SERVE_F32_REL} (fault {one['fault_rel']})")
+
+        # no port kernel on the serving path
+        launched = [c["launches"] for r in rs for c in [r["prefill"]] + r["decode"] if c["launches"]]
+        if launched:
+            fails.append(f"the serving path launched a port kernel: {launched[0]}")
+
+        # the dry run: bytes by kind exactly, peaks within DRYRUN_PEAK_REL
+        want = {k: predicted[k]["full"]["handoff_by_kind"] for k in ("train", "prefill", "decode")}
+        got = {"train": [r["lm_mesh_2x4"]["steps"][0]["bytes"] for r in ranks],
+               "prefill": [r["prefill"]["bytes"] for r in rs],
+               "decode": [c["bytes"] for r in rs for c in r["decode"]]}
+        for k in want:
+            if any(g != want[k] for g in got[k]):
+                fails.append(f"dry run {k}: bytes by kind {want[k]} against the ranks' {got[k][0]}")
+        peaks = {"train": max(r["lm_mesh_2x4"]["peak_gib"] or 0.0 for r in ranks),
+                 "prefill": max(r["prefill"]["peak_gib"] or 0.0 for r in rs),
+                 "decode": max(c["peak_gib"] or 0.0 for r in rs for c in r["decode"])}
+        predicted_peak = {k: predicted[k]["full"]["memory"]["peak_bytes"] / 2**30 for k in want}
+        peak_rel = {k: predicted_peak[k] / peaks[k] - 1 if peaks[k] else None for k in want}
+        if self.dev.type == "cuda" and any(abs(v) > self.DRYRUN_PEAK_REL for v in peak_rel.values()):
+            fails.append(f"dry-run peaks off by {peak_rel}")
+
+        def roof_ms(k):
+            r = predicted[k]["roofline"]
+            return 1e3 * max(r["t_compute_s"], r["t_memory_s"], r["t_collective_s"])
+
+        walls = [max(r["decode"][i]["wall"] for r in rs) for i in range(len(rs[0]["decode"]))]
+        row = dict(arch=plan["llama"].name, n_layers=plan["llama"].n_layers, mesh=self.MESH, prompts=self.SERVE_PROMPTS,
+                   prompt_len=self.SERVE_LEN, new=self.SERVE_NEW,
+                   resident_gib=[r["resident_gib"] for r in rs],
+                   cache_bytes=rs[0]["cache_bytes"], one_process_cache_bytes=one["cache_bytes"],
+                   cache_share=cache_share, prefill_ms=1e3 * max(r["prefill"]["wall"] for r in rs),
+                   decode_ms_per_token=1e3 * sorted(walls)[len(walls) // 2], decode_ms=[1e3 * w for w in walls],
+                   peak_gib=peaks, bytes_prefill=rs[0]["prefill"]["bytes"], bytes_decode_step=rs[0]["decode"][0]["bytes"],
+                   bf16_gap=gap, bf16_worst_excess=worst, bf16_mismatches=int(differ.sum()),
+                   greedy_equal=bool(torch.equal(greedy, toks.to(greedy.dtype))),
+                   f32_rel=sound, f32_limit=self.SERVE_F32_REL, f32_fault_rel=one["fault_rel"],
+                   dryrun=dict(peak_gib=predicted_peak, peak_rel=peak_rel, bytes=want,
+                               resident_gib={k: predicted[k]["full"]["memory"]["resident_bytes"] / 2**30 for k in want},
+                               roofline_ms={k: roof_ms(k) for k in want},
+                               bottleneck={k: predicted[k]["roofline"]["bottleneck"] for k in want},
+                               cell_s={k: predicted[k]["t_cell_s"] for k in want}, wall_s=predicted["wall_s"]))
+        self.rows[part] = row
+        _p(f"phase 19: {part} (bf16 serving at full depth on 8 gloo ranks sharing the card, the logits teacher-"
+           f"forced on the one-process tokens; the f32 gate at depth 2, f32_fault_rel: one model rank's positions "
+           f"left out of the combine; dryrun: launch.dryrun's prediction for 8 H100s (roofline_ms) and for these "
+           f"ranks (peaks, bytes), run on the CPU; card: {self.smi}): {json.dumps(row)}")
+        if fails:
+            raise AssertionError(f"phase 19 {part}: " + "; ".join(fails))
+
+    # ---- the dry run of the card's cells, on the CPU beside the phase ------------
+
+    def dryrun_cells(self):
+        """(name, shape, seq, global batch, n_micro) of the cells the world
+        runs: lm_mesh_2x4's step and lm_mesh_serve_2x4's prefill and decode
+        step, at the card's shapes."""
+        S, N = self.SERVE_LEN, self.SERVE_NEW
+        return [("train", "train_4k", self.SEQ, self.BATCH, self.MICRO),
+                ("prefill", "prefill_32k", S, self.SERVE_PROMPTS, None),
+                ("decode", "decode_32k", S + N, self.SERVE_PROMPTS, None)]
+
+    def start_dryrun(self):
+        """``launch.dryrun.run_cell`` for dryrun_cells on the (2, 4) mesh,
+        under the fake group, in a process of its own on the CPU (no card
+        visible), started before the world so that the two overlap."""
+        import os
+
+        import pickle
+
+        out = self.root / "build" / f"phase19-dryrun-{os.getpid()}"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "cfg.pkl").write_bytes(pickle.dumps(self.config(self.ARCH)))
+        code = (
+            "import json, pickle, sys\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            "cfg = pickle.load(open(sys.argv[1] + '/cfg.pkl', 'rb'))\n"
+            "recs = {n: run_cell(%r, shape, False, sys.argv[1], force=True, micro=micro, mesh_shape=%r, seq=seq,\n"
+            "                    batch=batch, cfg=cfg) for n, shape, seq, batch, micro in %r}\n"
+            "json.dump(recs, open(sys.argv[1] + '/cells.json', 'w'), default=str)\n"
+        ) % (self.ARCH, "x".join(map(str, self.MESH)), self.dryrun_cells())
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1", PYTHONPATH=str(self.root / "src"))
+        log = open(out / "log.txt", "w")
+        proc = subprocess.Popen([sys.executable, "-c", code, str(out)], cwd=self.root, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+        return proc, out, log, time.perf_counter()
+
+    def finish_dryrun(self, dryrun):
+        import shutil
+
+        proc, out, log, t0 = dryrun
+        try:
+            code = proc.wait(timeout=max(1.0, self.DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"phase 19: the dry run did not end in {self.DRYRUN_TIMEOUT_S} s") from None
+        finally:
+            log.close()
+        text = (out / "log.txt").read_text()
+        if code != 0:
+            raise AssertionError(f"phase 19: the dry run exited {code}:\n{text[-3000:]}")
+        recs = json.loads((out / "cells.json").read_text())
+        shutil.rmtree(out, ignore_errors=True)
+        bad = {n: r.get("error") for n, r in recs.items() if r["status"] != "ok"}
+        if bad:
+            raise AssertionError(f"phase 19: dry-run cells failed: {bad}")
+        recs["wall_s"] = time.perf_counter() - t0
+        return recs
 
     # ---- the one-process references, on the card before the world -----------
 
@@ -5501,6 +5774,7 @@ class _Phase19:
         del params, p, x, y
         self.free()
 
+        serve = self.serve_references(llama) if "lm_mesh_serve_2x4" in self.PARTS else {}
         plan = dict(llama=llama, seed=self.SEED, opt=self.OPT, seq=self.SEQ, batch=self.BATCH, micro=self.MICRO,
                     steps=self.STEPS, gates_cfg=gates, gates_seed=self.GATES_SEED, gates_opt=self.GATES_OPT,
                     moe_fwd_cfg=cfg32.replace(moe_impl="shard_map"),
@@ -5508,8 +5782,72 @@ class _Phase19:
                     moe_x=moe_x, moe_y=moe_y, mesh=self.MESH, small_mesh=self.SMALL_MESH,
                     ckpt=f"{self.tmp}/ckpt", timeout_s=self.TIMEOUT_S, mem_fraction=self.RANK_MEM_FRACTION,
                     device=f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else str(dev),
-                    one=one, gates_one=gates_losses, gates_moved=moved, gates_fault_moved=fault_moved)
+                    one=one, gates_one=gates_losses, gates_moved=moved, gates_fault_moved=fault_moved, **serve)
         return plan, refs
+
+    def serve_references(self, llama):
+        """lm_mesh_serve_2x4's one-process runs on the card: in bf16 at full
+        depth, prefill and greedy decode (``generate``'s loop) of the prompts,
+        its tokens, logits and cache bytes; at depth 2 in f32, prefill and
+        decode steps fed the prompts' next tokens, and the same with one
+        model rank's slice of the cache's positions left out of every decode
+        step's attention (the fault the combine must not make)."""
+        from repro_torch.models import attention, decode_step, init_params, prefill
+        from repro_torch.models.common import tree_leaves
+
+        torch, dev = self.torch, self.dev
+        S, N, P = self.SERVE_LEN, self.SERVE_NEW, self.SERVE_PROMPTS
+        gen = torch.Generator(device="cpu").manual_seed(self.SERVE_SEED)
+        prompts = torch.randint(0, llama.vocab, (P, S), generator=gen, dtype=torch.int32)
+        params = init_params(llama, self.SERVE_SEED, device=dev)
+        with torch.no_grad():
+            logits, cache = prefill(llama, params, {"tokens": prompts.to(dev)}, S_cache=S + N)
+            cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+            toks, out = [torch.argmax(logits, -1).to(torch.int32)], [logits.float().cpu()]
+            for i in range(N - 1):
+                logits, cache = decode_step(llama, params, cache, toks[-1], S + i)
+                toks.append(torch.argmax(logits, -1).to(torch.int32))
+                out.append(logits.float().cpu())
+        del params, cache, logits
+        self.free()
+
+        cfg32 = llama.replace(n_periods=self.SHALLOW, dtype="float32")
+        S2, K, extra = self.SERVE_GATE_LEN, self.SERVE_GATE_STEPS, self.SERVE_GATE_EXTRA
+        gen = torch.Generator(device="cpu").manual_seed(self.SERVE_GATE_SEED)
+        gate_toks = torch.randint(0, llama.vocab, (self.SERVE_GATE_PROMPTS, S2 + K), generator=gen, dtype=torch.int32)
+        params = init_params(cfg32, self.SERVE_GATE_SEED, device=dev)
+        t = gate_toks.to(dev)
+        n = (S2 + extra) // self.MESH[1]
+        drop = slice(self.FAULT_MODEL_RANK * n, (self.FAULT_MODEL_RANK + 1) * n)
+        real = attention.decode_attention
+
+        def faulty(q, k, v, valid, **kw):
+            valid = valid.clone()
+            valid[:, drop] = False
+            return real(q, k, v, valid, **kw)
+
+        runs = {}
+        with torch.no_grad():
+            for name in ("sound", "fault"):
+                attention.decode_attention = faulty if name == "fault" else real
+                try:
+                    logits, cache = prefill(cfg32, params, {"tokens": t[:, :S2]}, S_cache=S2 + extra)
+                    got = [logits.cpu()]
+                    for i in range(K):
+                        logits, cache = decode_step(cfg32, params, cache, t[:, S2 + i], S2 + i)
+                        got.append(logits.cpu())
+                finally:
+                    attention.decode_attention = real
+                runs[name] = got
+        del params, cache, logits
+        self.free()
+        # what the judge reads (kept here: the ranks' plan stays small)
+        self.serve_one = dict(logits=torch.stack(out, 1), tokens=torch.stack(toks, 1).cpu(), cache_bytes=cache_bytes,
+                              gate=torch.stack(runs["sound"], 1),
+                              fault_rel=max(_max_rel(f, g) for f, g in zip(runs["fault"][1:], runs["sound"][1:])))
+        return dict(serve_seed=self.SERVE_SEED, serve_len=S, serve_new=N, serve_prompts=prompts,
+                    serve_tokens=self.serve_one["tokens"], serve_gate_cfg=cfg32, serve_gate_seed=self.SERVE_GATE_SEED,
+                    serve_gate_len=S2, serve_gate_steps=K, serve_gate_extra=extra, serve_gate_tokens=gate_toks)
 
     def drop_free(self, cfg):
         return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))

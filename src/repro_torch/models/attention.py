@@ -28,6 +28,23 @@ through the FSDP gather over ``data``.  Where the heads do not split over
 ``model`` every model rank computes the whole block on its rows, with the
 weights gathered whole.
 
+Serving under a mesh, each rank holds its rows of every GQA and MLA cache
+and, where the rules split ``cache_seq`` (over ``model`` by default), only
+its slice of the positions (of a window's ring, its slice of the ``L``
+slots).  A prompt's keys and values (``gqa_prefill``), and MLA's latent,
+are projected only at the positions this rank holds, with the whole
+``wk``/``wv`` (which the rules replicate over ``model``).  A decode step
+(``gqa_decode``, ``mla_decode``) computes every query head (``wq``
+gathered whole), writes the new token on the rank that holds its slot,
+attends over the rank's positions and combines the ranks' partial
+attentions in f32 (``_combine``: the running max by an ``all_reduce`` MAX,
+then the sums of exponentials and the weighted values by ``all_reduce``
+SUMs, counted as ``collectives.BYTES["attn_combine"]``).  GQA's output
+then goes through the rank's rows of ``wo`` and one sum over ``model``, as
+in ``gqa_apply``; MLA's weights are whole (``transformer`` gathers them).
+With no mesh the combine is the identity and the body is the one-process
+decode.
+
 No Pallas kernel runs here in the reference, so none is owed; the products
 are ``torch.einsum``.
 """
@@ -49,6 +66,7 @@ __all__ = [
     "decode_attention",
     "gqa_specs",
     "gqa_apply",
+    "gqa_prefill",
     "gqa_init_cache",
     "gqa_cache_axes",
     "gqa_decode",
@@ -138,8 +156,44 @@ def flash_attention(
     return out.reshape(B, Hq, Sq, dv).to(v.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, valid_mask):
-    """One-token attention.  q (B,Hq,dk); caches (B,Hkv,S,d*); mask (B,S)."""
+def _seq_split():
+    """(the mesh, the mesh axes a cache's positions split over under the
+    current mesh and rules, this rank's index over them, their size); with
+    no mesh, or where the rules keep ``cache_seq`` whole, ``(mesh, (), 0,
+    1)``."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return None, (), 0, 1
+    axes = sharding.logical_to_spec(("cache_seq",), mesh, sharding.current_rules()).axes(0)
+    if not axes or mesh.axis_size(axes) == 1:
+        return mesh, (), 0, 1
+    return mesh, axes, mesh.axis_index(axes), mesh.axis_size(axes)
+
+
+def _combine(out, s, over, mesh):
+    """The attention over every rank's positions from each rank's own:
+    ``out`` (..., d) this rank's softmax-weighted values over its positions,
+    ``s`` (..., n) its masked scores.  In f32, with m_r and l_r the rank's
+    max and sum of exponentials: m = max_r m_r, c_r = l_r·exp(m_r − m) and
+    the result Σ_r out_r·c_r / Σ_r c_r, in ``out``'s dtype.  A rank with no
+    valid position has m_r = −1e30 and adds 0.  With nothing to combine
+    (``over`` empty: one rank holds every position) ``out`` itself."""
+    if not over:
+        return out
+    m_r = s.amax(-1)
+    l_r = torch.exp(s - m_r[..., None]).sum(-1)
+    m = col.psum_over(m_r, over, mesh, kind="attn_combine", op="max")
+    c = l_r * torch.exp(m_r - m)
+    w = c / col.psum_over(c, over, mesh, kind="attn_combine")
+    return col.psum_over(out.float() * w[..., None], over, mesh, kind="attn_combine").to(out.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, valid_mask, *, over=()):
+    """One-token attention.  q (B,Hq,dk); caches (B,Hkv,S,d*); mask (B,S).
+
+    ``over``: the mesh axes the caches' positions are split over (this rank
+    holds its slice of them, ``valid_mask`` its slice of the mask); the
+    ranks' attentions are combined over them (``_combine``)."""
     B, Hq, dk = q.shape
     Hkv = k_cache.shape[1]
     G = Hq // Hkv
@@ -148,6 +202,7 @@ def decode_attention(q, k_cache, v_cache, valid_mask):
     s = torch.where(valid_mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+    out = _combine(out, s, over, sharding.current_mesh())
     return out.reshape(B, Hq, v_cache.shape[-1]).to(v_cache.dtype)
 
 
@@ -204,13 +259,15 @@ def _project_qkv(p, h, cfg: ModelConfig, positions, *, heads=None, mesh=None):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _gqa_weights(p, cfg: ModelConfig):
+def _gqa_weights(p, cfg: ModelConfig, *, whole_q: bool = False):
     """The weights this rank uses, the mesh its tensor-parallel sums run
     over (``None`` where every rank computes every head) and its query heads
     (h0, Hl).  With no mesh, ``p`` and every head.  Under a mesh whose
     ``model`` axis splits the heads, ``wq`` and ``wo`` are this rank's
-    columns and rows (gathered over ``data``), the rest gathered whole;
-    where it does not split them, every weight gathered whole."""
+    columns and rows (gathered over ``data``; ``whole_q``: ``wq`` gathered
+    whole, for a decode step that attends with every head), the rest
+    gathered whole; where it does not split them, every weight gathered
+    whole."""
     H = cfg.n_heads
     mesh = sharding.current_mesh()
     if mesh is None:
@@ -219,7 +276,8 @@ def _gqa_weights(p, cfg: ModelConfig):
     tp = mesh.shape.get("model", 1)
     if tp == 1 or H % tp or specs["wq"].axes(1) != ("model",) or specs["wo"].axes(0) != ("model",):
         return gather_tree(p, gqa_specs(cfg), mesh), None, (0, H)
-    w = {k: col.gather_param(t, specs[k], mesh, whole=k not in ("wq", "wo")) for k, t in p.items()}
+    own = ("wo",) if whole_q else ("wq", "wo")
+    w = {k: col.gather_param(t, specs[k], mesh, whole=k not in own) for k, t in p.items()}
     return w, mesh, (mesh.axis_index("model") * (H // tp), H // tp)
 
 
@@ -229,8 +287,12 @@ def gqa_apply(p, x, cfg: ModelConfig, *, window=None, pos_offset=0):
     rank attends with its own query heads and multiplies by its rows of
     ``wo``, followed by one sum over ``model`` (``ln`` acts before that
     region, so its gradient is whole on every rank already)."""
+    return _gqa_attend(*_gqa_weights(p, cfg), x, cfg, window, pos_offset)
+
+
+def _gqa_attend(p, mesh, heads, x, cfg: ModelConfig, window, pos_offset):
+    """``gqa_apply`` on the weights, mesh and heads of ``_gqa_weights``."""
     B, S, D = x.shape
-    p, mesh, heads = _gqa_weights(p, cfg)
     h = col.copy_to(rms_norm(x, p["ln"], cfg.norm_eps), mesh)
     positions = pos_offset + torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, h, cfg, positions, heads=heads, mesh=mesh)
@@ -241,6 +303,52 @@ def gqa_apply(p, x, cfg: ModelConfig, *, window=None, pos_offset=0):
     )
     o = o.transpose(1, 2).reshape(B, S, heads[1] * cfg.head_dim)
     return x + col.reduce_from(o @ p["wo"], mesh)
+
+
+def _project_kv(p, h, cfg: ModelConfig, positions):
+    """Every KV head's roped (qk-normed) keys and its values at the rows of
+    ``h`` (B, n, D) standing at ``positions``: (B, KV, n, hd) each, as
+    ``_project_qkv`` computes them."""
+    B, n, _ = h.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    k = (h @ p["wk"]).reshape(B, n, KV, hd).transpose(1, 2)
+    v = (h @ p["wv"]).reshape(B, n, KV, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = make_rope(positions, hd, cfg.rope_theta)
+    return apply_rope(k, cos, sin), v
+
+
+def _prompt_slots(S: int, L: int, a: int, n: int):
+    """The prompt positions of a GQA cache of ``L`` slots (position t at
+    slot t % L, the last min(S, L) positions kept) that fall in slots
+    a … a + n − 1: (t0, t1, first slot − a) for each run of consecutive
+    positions (at most two: the ring wraps once)."""
+    lo, hi = S - min(S, L), S
+    out = []
+    for k in (lo // L, lo // L + 1):
+        t0, t1 = max(lo, k * L + a), min(hi, k * L + a + n)
+        if t0 < t1:
+            out.append((t0, t1, t0 - k * L - a))
+    return out
+
+
+def gqa_prefill(p, x, cache, cfg: ModelConfig, *, window=None):
+    """``gqa_apply`` over a prompt (B, S, D), writing into ``cache`` in place
+    the keys and values of its last ``L`` positions (position t at slot
+    t % L) that this rank's slots hold: the reference recomputes the cache
+    projections beside the layer.  Under a mesh the weights are gathered
+    once for both."""
+    B, S, D = x.shape
+    w, mesh, heads = _gqa_weights(p, cfg)
+    _, _, i, parts = _seq_split()
+    n = cache["k"].shape[2]
+    h = rms_norm(x, w["ln"], cfg.norm_eps)
+    for t0, t1, slot in _prompt_slots(S, n * parts, i * n, n):
+        k, v = _project_kv(w, h[:, t0:t1], cfg, torch.arange(t0, t1, device=x.device))
+        cache["k"][:, :, slot:slot + t1 - t0] = k.to(cache["k"].dtype)
+        cache["v"][:, :, slot:slot + t1 - t0] = v.to(cache["v"].dtype)
+    return _gqa_attend(w, mesh, heads, x, cfg, window, 0)
 
 
 def gqa_init_cache(cfg: ModelConfig, B: int, S: int, window, dtype, device=None):
@@ -265,10 +373,16 @@ def gqa_decode(p, x, cache, step: int, cfg: ModelConfig, *, window=None):
     Writes the token's k and v into ``cache`` in place (the reference's
     functional update, donated) and returns ``(x, cache)``.  The slot is
     ``step % L`` with a window (the ring buffer) and ``min(step, L - 1)``
-    without one, as in the reference.
+    without one, as in the reference.  Under a mesh ``cache`` holds this
+    rank's slots a … a + n − 1 of the L (``_seq_split``): the rank holding
+    the slot writes it, each attends over its own and the ranks' attentions
+    are combined; the output goes through this rank's rows of ``wo`` and
+    one sum over ``model``.
     """
     B, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p, mesh, (h0, Hl) = _gqa_weights(p, cfg, whole_q=True)
+    _, over, i, parts = _seq_split()
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = (h @ p["wq"]).reshape(B, H, hd)
     k = (h @ p["wk"]).reshape(B, KV, hd)
@@ -280,14 +394,16 @@ def gqa_decode(p, x, cache, step: int, cfg: ModelConfig, *, window=None):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    L = cache["k"].shape[2]
+    n = cache["k"].shape[2]
+    L, a = n * parts, i * n
     slot = step % L if window else min(step, L - 1)
-    cache["k"][:, :, slot] = k.to(cache["k"].dtype)
-    cache["v"][:, :, slot] = v.to(cache["v"].dtype)
-    slots = torch.arange(L, device=x.device)
-    valid = ((slots <= step) | (step >= L)).expand(B, L)
-    o = decode_attention(q, cache["k"], cache["v"], valid).reshape(B, H * hd)
-    return x + o @ p["wo"], cache
+    if a <= slot < a + n:
+        cache["k"][:, :, slot - a] = k.to(cache["k"].dtype)
+        cache["v"][:, :, slot - a] = v.to(cache["v"].dtype)
+    slots = a + torch.arange(n, device=x.device)
+    valid = ((slots <= step) | (step >= L)).expand(B, n)
+    o = decode_attention(q, cache["k"], cache["v"], valid, over=over).reshape(B, H * hd)
+    return x + col.reduce_from(o[:, h0 * hd:(h0 + Hl) * hd] @ p["wo"], mesh), cache
 
 
 # ===========================================================================
@@ -431,7 +547,10 @@ def mla_decode(p, x, cache, step: int, cfg: ModelConfig):
     ctx = attn·latent; out_h = ctx·W_uv, with W_uk and W_uv slices of
     ``wkv_b``: no key or value is expanded per head.  Writes the token's
     latent and k_rope into ``cache`` in place (slot ``min(step, S − 1)``)
-    and returns ``(x, cache)``.
+    and returns ``(x, cache)``.  Under a mesh ``p`` is whole and ``cache``
+    holds this rank's slots of the S (``_seq_split``): the rank holding the
+    slot writes it, and each rank's ctx over its own positions is combined
+    with the others'.
     """
     B, D = x.shape
     H = cfg.n_heads
@@ -445,18 +564,22 @@ def mla_decode(p, x, cache, step: int, cfg: ModelConfig):
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
     latent_new, k_rope_new = mla_latent(p, h[None], cfg, pos)
 
-    S = cache["latent"].shape[1]
+    mesh, over, i, parts = _seq_split()
+    n = cache["latent"].shape[1]
+    S, a = n * parts, i * n
     slot = min(step, S - 1)
-    cache["latent"][:, slot] = latent_new[0].to(cache["latent"].dtype)
-    cache["k_rope"][:, slot] = k_rope_new[0].to(cache["k_rope"].dtype)
+    if a <= slot < a + n:
+        cache["latent"][:, slot - a] = latent_new[0].to(cache["latent"].dtype)
+        cache["k_rope"][:, slot - a] = k_rope_new[0].to(cache["k_rope"].dtype)
     latent, k_rope = cache["latent"], cache["k_rope"]
 
     wkv_b = p["wkv_b"].reshape(m.kv_lora, H, dn + dv)
     q_abs = torch.einsum("bhd,lhd->bhl", q_nope, wkv_b[..., :dn])  # (B, H, kv_lora)
     s = (torch.einsum("bhl,bsl->bhs", q_abs.float(), latent.float())
          + torch.einsum("bhr,bsr->bhs", q_rope.float(), k_rope.float())) / math.sqrt(dn + dr)
-    valid = torch.arange(S, device=x.device) <= step
-    probs = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
-    ctx = torch.einsum("bhs,bsl->bhl", probs.to(latent.dtype), latent)
+    valid = a + torch.arange(n, device=x.device) <= step
+    s = torch.where(valid, s, NEG_INF)
+    probs = torch.softmax(s, dim=-1)
+    ctx = _combine(torch.einsum("bhs,bsl->bhl", probs.to(latent.dtype), latent), s, over, mesh)
     o = torch.einsum("bhl,lhd->bhd", ctx, wkv_b[..., dn:]).reshape(B, H * dv)
     return x + o @ p["wo"], cache

@@ -87,11 +87,21 @@ def _route(p_router, h, m: MoEConfig):
     return probs, gate_vals, gate_idx
 
 
+def _expert_counts(flat_e, E: int):
+    """The assignments each of the ``E`` experts receives, (E,) int64:
+    ``torch.bincount(flat_e, minlength=E)``'s integers with a shape fixed by
+    ``E`` (a scatter-add of ones), so the dispatch also runs on meta and
+    fake tensors (the dry run), where an output shape read from the data
+    cannot be."""
+    return torch.zeros(E, dtype=torch.int64, device=flat_e.device).scatter_add_(
+        0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.int64))
+
+
 def _rank_in_expert(flat_e, E: int):
     """Stable rank of each assignment within its target expert."""
     A = flat_e.shape[0]
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = _expert_counts(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(order)
     rank[order] = torch.arange(A, device=flat_e.device) - starts[flat_e[order]]
@@ -112,7 +122,7 @@ def _shared_ffn(h, p, cfg: ModelConfig):
 
 
 def _aux_loss(probs, flat_e, m: MoEConfig):
-    frac = torch.bincount(flat_e, minlength=m.n_experts).float() / flat_e.shape[0]
+    frac = _expert_counts(flat_e, m.n_experts).float() / flat_e.shape[0]
     return m.aux_weight * m.n_experts * torch.sum(frac * probs.mean(0))
 
 
@@ -247,9 +257,10 @@ def moe_apply(p, x, cfg: ModelConfig, return_aux: bool = False):
 
     Under a mesh with a ``model`` axis (``sharding.use_mesh``), ``"auto"``
     and ``"shard_map"`` take the expert-parallel path on this rank's blocks
-    and rows; ``"shard_map"`` without one raises, as the reference does.
-    The global dispatch over a mesh's ranks (the reference's GSPMD
-    partitioning of ``"gspmd"``) has no port and raises."""
+    and rows (a decode step's (T, D) tokens as T rows of one); ``"shard_map"``
+    without one raises, as the reference does.  The global dispatch over a
+    mesh's ranks (the reference's GSPMD partitioning of ``"gspmd"``) has no
+    port and raises."""
     impl = cfg.moe_impl
     mesh = sharding.current_mesh()
     if impl in ("auto", "shard_map") and x.ndim == 3:
@@ -257,6 +268,9 @@ def moe_apply(p, x, cfg: ModelConfig, return_aux: bool = False):
             return _moe_shard_map(p, x, cfg, mesh, return_aux)
         if impl == "shard_map":
             raise RuntimeError("moe_impl='shard_map' requires a mesh with a 'model' axis")
+    if impl in ("auto", "shard_map") and x.ndim == 2 and mesh is not None:
+        out = moe_apply(p, x[:, None], cfg, return_aux)
+        return (out[0][:, 0], out[1]) if return_aux else out[:, 0]
     if mesh is not None:
         raise NotImplementedError(
             f"moe_impl={impl!r} on {mesh}: the global dispatch over the ranks' rows has no port; the "

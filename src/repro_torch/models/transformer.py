@@ -48,6 +48,21 @@ run on every model rank with their weights gathered whole (their state
 stays sharded by the rules).  The embedding table and the head are
 gathered whole before use, once a call (with tied embeddings the lookup
 and the head share the table); the final norm over ``data``.
+
+``prefill`` and ``decode_step`` take the same blocks and the rank's rows
+of the prompts (or tokens) under a mesh, and the caches are each rank's
+blocks (``init_cache``): its rows over the data axes and, for the GQA and
+MLA caches, its slice of the positions over ``model`` (the rules'
+``cache_seq``; a cache's length must divide over it).  The tables, the
+final norm and the replicated mixers are gathered as in ``backbone``; GQA
+attention runs tensor-parallel in prefill and over the split positions in
+decode (``attention``); the FFNs as in ``forward``.  One deviation from
+the rules: the SSD and RG-LRU states and conv tails are held whole over
+``model`` (the rules split ``conv_x`` over ``inner`` and ``h``/``conv``
+over ``rnn``), since those mixers run whole on every model rank until
+their true tensor parallelism (ROADMAP A14c, part 2).  Where the rules
+replicate the batch (a batch that does not divide over the data axes),
+every data rank serves all of it.
 """
 from __future__ import annotations
 
@@ -61,17 +76,19 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from .. import sharding
 from ..configs.base import LayerSpec, ModelConfig
 from ..core.backend import as_generator, resolve_device
+from ..sharding import PartitionSpec, logical_to_spec
 from ..sharding import collectives as col
 from . import attention as attn
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .common import DTYPES, PSpec, axes_tree, gather_tree, init_tree, mesh_specs, rms_norm, shape_tree, tree_map
+from .common import (DTYPES, PSpec, axes_tree, gather_tree, init_tree, is_shape, mesh_specs, rms_norm, shape_tree,
+                     tree_map)
 
 __all__ = [
     "layer_specs", "model_specs", "init_params", "params_axes", "params_shapes",
-    "apply_layer", "backbone", "forward", "loss_fn", "init_cache", "cache_axes",
+    "apply_layer", "backbone", "forward", "loss_fn", "init_cache", "cache_axes", "cache_specs",
     "decode_step", "prefill", "Transformer",
 ]
 
@@ -147,21 +164,35 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
     """The layer's FFN: returns (x, aux); aux is 0 without an MoE FFN."""
     if spec.ffn and spec.moe:
         return moe_mod.moe_apply(p["ffn"], x, cfg, return_aux=True)
+    return _serve_ffn(p, x, cfg, spec), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _serve_ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
+    """The layer's FFN without the aux loss (serving)."""
+    if spec.ffn and spec.moe:
+        return moe_mod.moe_apply(p["ffn"], x, cfg)
     if spec.ffn:
-        x = mlp_mod.mlp_apply(p["ffn"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return mlp_mod.mlp_apply(p["ffn"], x, cfg)
+    return x
 
 
 # the mixers that run whole on every model rank under a mesh
 _REPLICATED_MIXERS = ("mla", "cross_attn", "ssd", "rglru")
 
 
-def apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, img=None, pos_offset=0):
-    """Returns (x, aux); aux is 0 without an MoE FFN."""
-    mp = p["mixer"]
+def _mixer_params(p, cfg: ModelConfig, spec: LayerSpec):
+    """The layer's mixer weights as its mixer takes them: under a mesh the
+    replicated mixers' gathered whole, GQA's this rank's blocks (it gathers
+    its own)."""
     mesh = sharding.current_mesh()
     if mesh is not None and spec.mixer in _REPLICATED_MIXERS:
-        mp = gather_tree(mp, _MIXER_SPECS[spec.mixer](cfg), mesh)
+        return gather_tree(p["mixer"], _MIXER_SPECS[spec.mixer](cfg), mesh)
+    return p["mixer"]
+
+
+def apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, img=None, pos_offset=0):
+    """Returns (x, aux); aux is 0 without an MoE FFN."""
+    mp = _mixer_params(p, cfg, spec)
     if spec.mixer == "attn":
         x = attn.gqa_apply(mp, x, cfg, window=spec.window, pos_offset=pos_offset)
     elif spec.mixer == "mla":
@@ -238,11 +269,16 @@ def backbone(cfg: ModelConfig, params, x, img=None):
     for spec, p in zip(cfg.suffix, params["suffix"]):
         x, aux = apply_layer(p, x, cfg, spec, img=img)
         aux_total = aux_total + aux
+    return _final_norm(cfg, params, x), aux_total
+
+
+def _final_norm(cfg: ModelConfig, params, x):
+    """The final norm (under a mesh its weight gathered whole)."""
     final_ln = params["final_ln"]
     mesh = sharding.current_mesh()
     if mesh is not None:
         final_ln = col.gather_param(final_ln, mesh_specs(model_specs(cfg), mesh)["final_ln"], mesh, whole=True)
-    return rms_norm(x, final_ln, cfg.norm_eps), aux_total
+    return rms_norm(x, final_ln, cfg.norm_eps)
 
 
 def _head_weight(cfg: ModelConfig, params):
@@ -333,18 +369,66 @@ _CACHE_AXES = {
 def init_cache(cfg: ModelConfig, B: int, S: int, *, device=None):
     """Zero caches for ``B`` sequences of up to ``S`` positions; the pattern's
     stacked ``(n_periods, …)``.  The recurrent states are f32, the rest in
-    the model's dtype."""
-    dtype, dev = DTYPES[cfg.dtype], resolve_device(device)
+    the model's dtype.  Under a mesh, this rank's block of each
+    (``cache_specs``)."""
+    return _zero_caches(cfg, B, S, resolve_device(device), split_batch=True)
 
-    def stacked(spec):
-        one = _layer_cache(cfg, spec, B, S, dtype, "meta")
-        return {k: torch.zeros((cfg.n_periods,) + tuple(a.shape), dtype=a.dtype, device=dev) for k, a in one.items()}
+
+def cache_specs(cfg: ModelConfig, B: int, S: int, mesh, rules=None):
+    """The caches' specs on ``mesh``: ``cache_axes`` through the rules with
+    each cache's shape, except that the SSD and RG-LRU states and tails
+    keep only their batch split (held whole over ``model``; ROADMAP A14c,
+    part 2).  A cache whose positions the rules split but whose length does
+    not divide over them raises: the decode reads a rank's positions from
+    the rules alone."""
+    shapes, axes = _cache_shapes(cfg, B, S), cache_axes(cfg)
+    seq_axes = logical_to_spec(("cache_seq",), mesh, rules).axes(0)
+
+    def spec(sh, ax, mixer):
+        out = logical_to_spec(ax, mesh, rules, shape=sh[0])
+        if mixer in ("ssd", "rglru"):
+            return PartitionSpec(*(e if a == "batch" else None for e, a in zip(out, ax)))
+        if "cache_seq" in ax and seq_axes and out.axes(ax.index("cache_seq")) != seq_axes:
+            raise ValueError(f"a {mixer} cache of {sh[0][ax.index('cache_seq')]} positions does not split "
+                             f"over {seq_axes} ({mesh.axis_size(seq_axes)} ranks): choose a length that does")
+        return out
+
+    def layer(shp, axs, mixer):
+        return {k: spec(shp[k], axs[k], mixer) for k in shp}
+
+    return {part: [layer(shp, axs, s.mixer) for shp, axs, s in zip(shapes[part], axes[part], specs)]
+            for part, specs in (("prefix", cfg.prefix), ("pattern", cfg.pattern), ("suffix", cfg.suffix))}
+
+
+def _cache_shapes(cfg: ModelConfig, B: int, S: int):
+    """The caches' ``(shape, dtype)`` leaves, nothing allocated."""
+    dtype = DTYPES[cfg.dtype]
+
+    def layer(spec, lead=()):
+        return {k: (lead + tuple(a.shape), a.dtype) for k, a in _layer_cache(cfg, spec, B, S, dtype, "meta").items()}
 
     return {
-        "prefix": [_layer_cache(cfg, s, B, S, dtype, dev) for s in cfg.prefix],
-        "pattern": [stacked(s) for s in cfg.pattern],
-        "suffix": [_layer_cache(cfg, s, B, S, dtype, dev) for s in cfg.suffix],
+        "prefix": [layer(s) for s in cfg.prefix],
+        "pattern": [layer(s, (cfg.n_periods,)) for s in cfg.pattern],
+        "suffix": [layer(s) for s in cfg.suffix],
     }
+
+
+def _zero_caches(cfg: ModelConfig, B: int, S: int, dev, *, split_batch: bool):
+    """``init_cache``; under a mesh each rank's block, its rows only where
+    ``split_batch`` (``prefill`` is handed the rank's rows already)."""
+    shapes = _cache_shapes(cfg, B, S)
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return tree_map(lambda sh: torch.zeros(sh[0], dtype=sh[1], device=dev), shapes, is_leaf=is_shape)
+    specs = cache_specs(cfg, B, S, mesh, sharding.current_rules())
+
+    def block(sh, spec, ax):
+        if not split_batch:
+            spec = PartitionSpec(*(None if a == "batch" else e for e, a in zip(spec, ax)))
+        return torch.zeros(col.block_shape(sh[0], spec, mesh), dtype=sh[1], device=dev)
+
+    return tree_map(block, shapes, specs, cache_axes(cfg), is_leaf=is_shape)
 
 
 def cache_axes(cfg: ModelConfig):
@@ -359,7 +443,7 @@ def cache_axes(cfg: ModelConfig):
 
 
 def _decode_layer(p, x, c, step: int, cfg: ModelConfig, spec: LayerSpec, img=None):
-    mp = p["mixer"]
+    mp = _mixer_params(p, cfg, spec)
     if spec.mixer == "attn":
         x, c = attn.gqa_decode(mp, x, c, step, cfg, window=spec.window)
     elif spec.mixer == "mla":
@@ -370,7 +454,7 @@ def _decode_layer(p, x, c, step: int, cfg: ModelConfig, spec: LayerSpec, img=Non
         x, c = rglru_mod.rglru_decode(mp, x, c, step, cfg)
     elif spec.mixer == "cross_attn":
         x = attn.cross_decode(mp, x, img, cfg)
-    return _ffn(p, x, cfg, spec)[0], c
+    return _serve_ffn(p, x, cfg, spec), c
 
 
 @torch.no_grad()
@@ -381,10 +465,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, step, embeds=None, img=
     ``step`` = the absolute position being written (an int); ``img`` the
     (B, P, D) image embeddings a cross-attention layer attends to.  Writes
     into ``cache`` in place (the reference's functional update, donated) and
-    returns ``(logits (B, V) f32, cache)``.
+    returns ``(logits (B, V) f32, cache)``.  Under a mesh: the rank's blocks,
+    its rows of ``tokens`` (and ``img``) and its blocks of the caches.
     """
     step = int(step)
     dtype = DTYPES[cfg.dtype]
+    params = _whole_tables(cfg, params)
     x = embeds.to(dtype) if cfg.frontend == "frames" else params["embed"][tokens.long()].to(dtype)
     img = None if img is None else img.to(dtype)
     for spec, p, c in zip(cfg.prefix, params["prefix"], cache["prefix"]):
@@ -395,7 +481,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, step, embeds=None, img=
             x, _ = _decode_layer(period_params[i], x, period_cache[i], step, cfg, spec, img)
     for spec, p, c in zip(cfg.suffix, params["suffix"], cache["suffix"]):
         x, _ = _decode_layer(p, x, c, step, cfg, spec, img)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = _final_norm(cfg, params, x)
     return (x @ _head_weight(cfg, params)).float(), cache
 
 
@@ -403,25 +489,24 @@ def _prefill_layer(p, x, c, cfg: ModelConfig, spec: LayerSpec, img=None):
     """Apply the layer over the whole prompt, writing its cache entry ``c``:
     a GQA layer's keys and values of the prompt's last ``L`` positions
     (position t at slot t % L), MLA's latent and k_rope of its first
-    ``S_cache`` positions, the recurrent mixers' final state and tails."""
+    ``S_cache`` positions, the recurrent mixers' final state and tails.
+    Under a mesh a rank writes the positions its slots hold only."""
     B, S, D = x.shape
-    mp = p["mixer"]
-    positions = torch.arange(S, device=x.device)
+    mp = _mixer_params(p, cfg, spec)
     if spec.mixer == "attn":
-        # the reference recomputes the cache projections beside the layer
-        h = rms_norm(x, mp["ln"], cfg.norm_eps)
-        _, k, v = attn._project_qkv(mp, h, cfg, positions)
-        L = c["k"].shape[2]
-        take = min(S, L)
-        idx = torch.arange(S - take, S, device=x.device) % L
-        c["k"][:, :, idx] = k[:, :, S - take:].to(c["k"].dtype)
-        c["v"][:, :, idx] = v[:, :, S - take:].to(c["v"].dtype)
-        x = attn.gqa_apply(mp, x, cfg, window=spec.window)
+        x = attn.gqa_prefill(mp, x, c, cfg, window=spec.window)
     elif spec.mixer == "mla":
-        latent, k_rope = attn.mla_latent(mp, rms_norm(x, mp["ln"], cfg.norm_eps), cfg, positions)
-        take = min(S, c["latent"].shape[1])
-        c["latent"][:, :take] = latent[:, :take].to(c["latent"].dtype)
-        c["k_rope"][:, :take] = k_rope[:, :take].to(c["k_rope"].dtype)
+        # this rank's slots a … a + n − 1 of the S_cache; the prompt's first
+        # positions at slots of their own
+        _, _, i, parts = attn._seq_split()
+        n = c["latent"].shape[1]
+        a = i * n
+        end = min(a + n, S, n * parts)
+        if a < end:
+            h = rms_norm(x[:, a:end], mp["ln"], cfg.norm_eps)
+            latent, k_rope = attn.mla_latent(mp, h, cfg, torch.arange(a, end, device=x.device))
+            c["latent"][:, :end - a] = latent.to(c["latent"].dtype)
+            c["k_rope"][:, :end - a] = k_rope.to(c["k_rope"].dtype)
         x = attn.mla_apply(mp, x, cfg)
     elif spec.mixer == "ssd":
         x, (state, tails) = ssm_mod.ssd_apply(mp, x, cfg, return_state=True)
@@ -434,15 +519,18 @@ def _prefill_layer(p, x, c, cfg: ModelConfig, spec: LayerSpec, img=None):
         c["conv"].copy_(tail)
     elif spec.mixer == "cross_attn":
         x = attn.cross_apply(mp, x, img, cfg)
-    return _ffn(p, x, cfg, spec)[0]
+    return _serve_ffn(p, x, cfg, spec)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, batch, S_cache: int | None = None):
-    """Process the prompt; returns (last-token logits (B, V) f32, cache)."""
+    """Process the prompt; returns (last-token logits (B, V) f32, cache).
+    Under a mesh: the rank's blocks and its rows of the batch; the cache is
+    the rank's blocks for those rows (``init_cache``)."""
+    params = _whole_tables(cfg, params)
     x, img = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
-    cache = init_cache(cfg, B, S_cache or S, device=x.device)
+    cache = _zero_caches(cfg, B, S_cache or S, x.device, split_batch=False)
     for spec, p, c in zip(cfg.prefix, params["prefix"], cache["prefix"]):
         x = _prefill_layer(p, x, c, cfg, spec, img)
     for l in range(cfg.n_periods):
@@ -451,7 +539,7 @@ def prefill(cfg: ModelConfig, params, batch, S_cache: int | None = None):
             x = _prefill_layer(period_params[i], x, period_cache[i], cfg, spec, img)
     for spec, p, c in zip(cfg.suffix, params["suffix"], cache["suffix"]):
         x = _prefill_layer(p, x, c, cfg, spec, img)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = _final_norm(cfg, params, x)
     return (x[:, -1] @ _head_weight(cfg, params)).float(), cache
 
 

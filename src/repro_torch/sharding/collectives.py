@@ -5,8 +5,8 @@ names mesh axes, the slice at this rank's flattened coordinate over them
 (``PartitionSpec.axes``; the first axis major), as ``NamedSharding`` places
 a ``jax.Array``'s shards.
 
-- :func:`block_slices` / :func:`shard_block` — this rank's block of a full
-  tensor;
+- :func:`block_slices` / :func:`block_shape` / :func:`shard_block` — this
+  rank's block of a full tensor;
 - :func:`unshard` — the full tensor from every rank's block;
 - :func:`gather` / :func:`reduce_scatter` — along one dimension over one
   mesh axis;
@@ -28,7 +28,11 @@ each rank keeps its block.
 
 ``BYTES`` counts the bytes each kind hands to ``all_reduce`` and
 ``broadcast`` on this rank (``"gather"``, ``"reduce_scatter"``,
-``"model_sum"``, ``"mean"``, ``"norm"``); ``reset_bytes()`` zeroes them.
+``"model_sum"``, ``"mean"``, ``"norm"``, and ``"attn_combine"``: a decode
+step's combine of the ranks' attentions over a cache split by position);
+``CALLS`` the same calls by kind, collective, mesh axes and group size
+(the count and the bytes of each, which ``launch.collective_stats`` turns
+into ring traffic); ``reset_bytes()`` zeroes both.
 """
 from __future__ import annotations
 
@@ -41,9 +45,11 @@ from . import Mesh, PartitionSpec
 
 __all__ = [
     "BYTES",
+    "CALLS",
     "reset_bytes",
     "dp_axes",
     "block_slices",
+    "block_shape",
     "shard_block",
     "unshard",
     "gather",
@@ -55,12 +61,25 @@ __all__ = [
     "pmean",
 ]
 
-BYTES = {"gather": 0, "reduce_scatter": 0, "model_sum": 0, "mean": 0, "norm": 0}
+BYTES = {"gather": 0, "reduce_scatter": 0, "model_sum": 0, "mean": 0, "norm": 0, "attn_combine": 0}
+# kind -> {(collective, mesh axes, group size): [calls, bytes]}; collective
+# is "all_reduce" or "broadcast"
+CALLS: dict = {k: {} for k in BYTES}
 
 
 def reset_bytes():
     for k in BYTES:
         BYTES[k] = 0
+        CALLS[k] = {}
+
+
+def _count(kind: str, collective: str, mesh: Mesh, axes: tuple, nbytes: int):
+    """One call of ``kind``: ``nbytes`` handed to ``collective`` over the
+    group of ``mesh``'s ``axes``."""
+    BYTES[kind] += nbytes
+    rec = CALLS[kind].setdefault((collective, axes, mesh.axis_size(axes)), [0, 0])
+    rec[0] += 1
+    rec[1] += nbytes
 
 
 def dp_axes(mesh: Mesh) -> tuple:
@@ -89,6 +108,18 @@ def block_slices(shape, spec, mesh: Mesh, axes=None) -> tuple:
             out.append(slice(i * size, (i + 1) * size))
         else:
             out.append(slice(None))
+    return tuple(out)
+
+
+def block_shape(shape, spec, mesh: Mesh) -> tuple:
+    """The shape of a rank's block of a tensor of ``shape`` (the same on
+    every rank; ``mesh`` may be abstract)."""
+    out = []
+    for n, ax in zip(shape, _spec_axes(spec, len(shape))):
+        parts = mesh.axis_size(ax) if ax else 1
+        if n % parts:
+            raise ValueError(f"dimension {n} does not split over {ax} ({parts} ranks)")
+        out.append(n // parts)
     return tuple(out)
 
 
@@ -137,11 +168,11 @@ def unshard(t: torch.Tensor, spec, mesh: Mesh, axes=None, *, kind: str = "gather
     if not used or mesh.axis_size(used) == 1:
         return t
     buf = torch.empty(shape, dtype=t.dtype, device=t.device)
-    group = mesh.group(used)
-    for peer in _peers(mesh, tuple(a for a in mesh.axis_names if a in used)):
+    group, used = mesh.group(used), tuple(a for a in mesh.axis_names if a in used)
+    for peer in _peers(mesh, used):
         block = t.contiguous() if peer.rank == mesh.rank else torch.empty(t.shape, dtype=t.dtype, device=t.device)
         raw = block.view(-1).view(torch.uint8)
-        BYTES[kind] += raw.numel()
+        _count(kind, "broadcast", mesh, used, raw.numel())
         dist.broadcast(raw, src=peer.rank, group=group)
         buf[block_slices(shape, spec, peer, axes=used)] = block
     return buf
@@ -157,14 +188,17 @@ def gather(t: torch.Tensor, dim: int, axis: str, mesh: Mesh) -> torch.Tensor:
     return unshard(t, _one_dim_spec(t.ndim, dim, axis), mesh, (axis,))
 
 
-def psum_over(t: torch.Tensor, axes, mesh: Mesh, *, kind: str, dtype=None) -> torch.Tensor:
-    """Σ of ``t`` over the ranks along ``axes`` (a copy, summed in ``dtype``,
-    default ``t``'s; returned in that dtype)."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def psum_over(t: torch.Tensor, axes, mesh: Mesh, *, kind: str, dtype=None, op: str = "sum") -> torch.Tensor:
+    """Σ (``op="max"``: the max) of ``t`` over the ranks along ``axes`` (a
+    copy, reduced in ``dtype``, default ``t``'s; returned in that dtype)."""
     axes = tuple(a for a in mesh.axis_names if a in ((axes,) if isinstance(axes, str) else axes))
     out = t.to(dtype or t.dtype, copy=True, memory_format=torch.contiguous_format)
     if axes and mesh.axis_size(axes) > 1:
-        BYTES[kind] += out.numel() * out.element_size()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group(axes))
+        _count(kind, "all_reduce", mesh, axes, out.numel() * out.element_size())
+        dist.all_reduce(out, op=_OPS[op], group=mesh.group(axes))
     return out
 
 

@@ -19,7 +19,11 @@ __all__ = ["generate"]
 def generate(cfg: ModelConfig, params, prompts: torch.Tensor, *, max_new: int = 32,
              cache_len: int | None = None) -> torch.Tensor:
     """Prefill + greedy decode of ``prompts`` (B, S_prompt) on their device.
-    Returns the (B, max_new) int32 generated tokens."""
+    Returns the (B, max_new) int32 generated tokens.  Under
+    ``sharding.use_mesh`` every rank passes its blocks of ``params`` and its
+    rows of the prompts and gets the tokens of those rows (each argmax is
+    over whole logits: the head is gathered whole); the cache length must
+    divide over the ranks its positions split across."""
     set_matmul_precision()
     B, S = prompts.shape
     logits, cache = tfm.prefill(cfg, params, {"tokens": prompts}, S_cache=cache_len or (S + max_new))

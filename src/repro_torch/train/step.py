@@ -27,7 +27,8 @@ gradient on the card) with an error-feedback tree.  The reference's
 ``axes=`` through ``sharding.group_for``, else the default group); with no
 group initialized it raises.
 
-``make_prefill_step`` / ``make_decode_step`` — serving entry points.
+``make_prefill_step`` / ``make_decode_step`` — serving entry points, on one
+process or (``mesh=``) on each rank's blocks, rows and caches.
 
 A step updates the state it is given in place (the reference's state is
 donated to its jitted step) and returns it as the new state with the step
@@ -40,6 +41,7 @@ accumulate in f32, as the reference's do.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
@@ -307,19 +309,32 @@ def make_dp_train_step(
 # ===========================================================================
 
 
-def make_prefill_step(cfg: ModelConfig):
+def _on_mesh(mesh):
+    return sharding.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """``prefill_step(params, batch, S_cache=None) -> (logits, cache)``; on
+    ``mesh`` every rank passes its blocks and its rows of the batch and gets
+    its rows of the logits and its blocks of the caches (``tfm.prefill``
+    under ``sharding.use_mesh``)."""
     set_matmul_precision()
 
-    def prefill_step(params, batch):
-        return tfm.prefill(cfg, params, batch)
+    def prefill_step(params, batch, S_cache=None):
+        with _on_mesh(mesh):
+            return tfm.prefill(cfg, params, batch, S_cache=S_cache)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
+    """``decode_step(params, cache, tokens, step, embeds=None, img=None) ->
+    (logits, cache)``; on ``mesh`` each rank's blocks, rows and caches, as
+    in ``make_prefill_step``."""
     set_matmul_precision()
 
-    def decode_step(params, cache, tokens, step, embeds=None):
-        return tfm.decode_step(cfg, params, cache, tokens, step, embeds=embeds)
+    def decode_step(params, cache, tokens, step, embeds=None, img=None):
+        with _on_mesh(mesh):
+            return tfm.decode_step(cfg, params, cache, tokens, step, embeds=embeds, img=img)
 
     return decode_step

@@ -192,3 +192,22 @@ def test_moe_specs_are_the_references():
         for k in got:
             assert (got[k].shape, got[k].axes, got[k].init) == (want[k].shape, want[k].axes, want[k].init), k
         assert got["router"].dtype == torch.float32 and got["w_in"].dtype is None
+
+
+@pytest.mark.parametrize("E, A, seed", [(4, 64, 0), (8, 1, 1), (160, 4096, 2), (8, 4096, 3)])
+def test_the_fixed_shape_count_is_bincount_and_runs_on_fake_tensors(E, A, seed):
+    """``_expert_counts`` (a scatter-add of ones into E slots) gives
+    ``torch.bincount(flat_e, minlength=E)``'s integers on random routings
+    (experts left empty included), and ``_moe_gspmd`` runs under
+    ``FakeTensorMode``, where an output shape read from the data cannot."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    flat_e = torch.as_tensor(np.random.default_rng(seed).integers(0, E, A))
+    got = tmoe._expert_counts(flat_e, E)
+    assert got.dtype == torch.int64 and torch.equal(got, torch.bincount(flat_e, minlength=E))
+    cfg, _, p = _moe("deepseek-v2-236b", 1.25)
+    x = np.random.default_rng(seed).standard_normal((2, 8, cfg.d_model)).astype(np.float32)
+    with FakeTensorMode() as mode:
+        fake_p = {k: mode.from_tensor(torch.as_tensor(v)) for k, v in p.items()}
+        y, aux = tmoe._moe_gspmd(fake_p, mode.from_tensor(torch.as_tensor(x)), cfg, True)
+    assert tuple(y.shape) == x.shape and tuple(aux.shape) == ()
