@@ -193,7 +193,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
 19. the mesh (class ``_Phase19``, last): eight gloo ranks sharing the card
    on a (2, 4) ``("data", "model")`` mesh, each drawing the weights a leaf
    at a time and keeping its blocks.  ``lm_mesh_2x4``: llama3.2-1b at full
-   width and depth, 3 steps of ``jit_train_step`` (FSDP × TP), each rank's
+   width, 4 of its 16 layers, 3 steps of ``jit_train_step`` (FSDP × TP), each rank's
    state at most 1/8 of the whole plus what the rules leave unsplit over
    ``model``, step 1 against the one-process
    step; ``lm_mesh_gates``: depth 2 in f32 against it (m, v, parameters
@@ -201,15 +201,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    published widths (f32 forward within 1e-4 of the global dispatch, 3
    train steps at 1.25); ``elastic_2x4_to_2x2``: the state saved from 2×4
    and restored by a world of 4 onto (2, 2), bitwise, and the next step;
-   ``lm_mesh_serve_2x4``: llama3.2-1b at full depth served on the same
+   ``lm_mesh_serve_2x4``: llama3.2-1b at 4 layers served on the same
    mesh (8 prompts of 2048 tokens, 4 new), each rank 1/8 of the KV cache
    exactly, the logits teacher-forced on the one-process greedy tokens
    (phase 17's bf16 rule), depth 2 in f32 against the one-process run
    under a fixed limit that the fault (one model rank's positions left
    out of the combine) exceeds, and ``launch.dryrun`` run beside it on the
    CPU: its bytes by kind equal to the ranks' counts for this cell and for
-   ``lm_mesh_2x4``, its peaks within 25%.  No port kernel is launched on
-   the mesh path, which is held.
+   ``lm_mesh_2x4``, its peaks within 25%; ``families_tp_2x4`` (first in
+   the world of 8): deepseek-v2, mamba2, recurrentgemma and the vision model
+   tensor-parallel at their published widths, bf16 serving and one train
+   step against one process, an f32 prefill against its computed fault;
+   ``zero1_2x2x2``: llama3.2-1b at depth 2 with ZeRO-1 over ``pod`` on a
+   (2, 2, 2) mesh, 3 steps against one process.  No port kernel is
+   launched on the mesh path, which is held.
 
 Phase 2 also holds B8 (``hadamard_transform``, ``srht_apply``) bitwise
 against its plain version on the card and on the CPU, in f64 and f32 and on
@@ -265,11 +270,6 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bandwidth and the
-# FP64 (tensor core) and FP32 rates.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 
 M_MAIN, N_MAIN = 2**20, 1000
 COND, BETA = 1e10, 1e-10
@@ -375,9 +375,11 @@ def _ulps(torch, x, y):
 
 def _bound(ops, nbytes):
     """The least time (ms) of a call and what bounds it: ``ops`` f64
-    operations at the FP64 peak, or ``nbytes`` at the HBM rate."""
-    t_ops, t_bytes = ops / PEAK_FLOPS["float64"], nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    operations at the FP64 peak, or ``nbytes`` at the HBM rate (the port's
+    one formula, ``repro_torch.kernels.autotune.bound``)."""
+    from repro_torch.kernels.autotune import bound
+
+    return bound(ops, nbytes)
 
 
 def _rates(t, ops):
@@ -1356,6 +1358,8 @@ def main() -> int:
     # B4's vector route on b: b read once and S·b written, and the d·m
     # Gaussians it generates (GAUSS_OPS 32-bit operations each) at the f32
     # rate outside the tensor cores, beside the 2·d·m f64 operations
+    from repro_torch.kernels.autotune import PEAK_BYTES_PER_S, PEAK_FLOPS
+
     vec_ops = GAUSS_OPS * d8 * M_DENSE
     t_dense["fused_gaussian_sketch"]["vec_bound_ms"] = max(
         (M_DENSE + d8) * 8 / PEAK_BYTES_PER_S, vec_ops / PEAK_FLOPS["float32"], 2 * d8 * M_DENSE / PEAK_FLOPS["float64"]
@@ -1649,7 +1653,7 @@ class _Phase10:
             t = sorted(_sync_time(torch, fn)[1] for _ in range(3))[1]
             loops[name] = dict(itn=itn, products_with_A=products(itn), wall_s=t,
                                ms_per_pair=2e3 * t / products(itn),
-                               bound_ms_per_pair=1e3 * 2 * m * n * A.element_size() / PEAK_BYTES_PER_S)
+                               bound_ms_per_pair=_bound(0, 2 * m * n * A.element_size())[0])
         _p(f"phase 10: refinement loops on one factor (median of 3; card: {self.smi}): {json.dumps(loops)}")
 
     def after_main(self):
@@ -4266,7 +4270,7 @@ class _Phase17:
     def serve(self):
         from repro_torch.models import decode_step, init_params, prefill
         from repro_torch.models.common import tree_leaves, tree_map
-        from repro_torch.models.transformer import _embed_inputs, _head_weight, backbone
+        from repro_torch.models.transformer import _embed_inputs, _logits, _tables, backbone
         from repro_torch.train import generate
 
         torch, dev = self.torch, self.dev
@@ -4299,8 +4303,9 @@ class _Phase17:
         # teacher-forced forward over the prompts and every generated token
         # (S + N = 2112 = 6 · 352 keeps the reference's blocks)
         with torch.no_grad():
-            h, _ = backbone(cfg, params, *_embed_inputs(cfg, params, {"tokens": torch.cat([prompts, out], 1)}))
-            tf = (h[:, S - 1:S - 1 + N] @ _head_weight(cfg, params)).float()  # (P, N, V)
+            tables = _tables(cfg, params)
+            h, _ = backbone(cfg, params, *_embed_inputs(cfg, tables, {"tokens": torch.cat([prompts, out], 1)}))
+            tf = _logits(tables, h[:, S - 1:S - 1 + N])  # (P, N, V)
         dec = torch.stack(dec, 1)
         gap = float((dec - tf).abs().max())
         excess = tf.amax(-1) - tf.gather(-1, out.long()[..., None])[..., 0]
@@ -4332,8 +4337,9 @@ class _Phase17:
 
         pre, cache = prefill(cfg32, p32, {"tokens": pr[:, : S - K]}, S_cache=S)
         with torch.no_grad():  # forward's logits at the K + 1 positions read
-            h, _ = backbone(cfg32, p32, *_embed_inputs(cfg32, p32, {"tokens": pr}))
-            want = (h[:, S - K - 1:] @ _head_weight(cfg32, p32)).float()  # (GATE_PROMPTS, K + 1, V)
+            tables = _tables(cfg32, p32)
+            h, _ = backbone(cfg32, p32, *_embed_inputs(cfg32, tables, {"tokens": pr}))
+            want = _logits(tables, h[:, S - K - 1:])  # (GATE_PROMPTS, K + 1, V)
         del h
         e_pre, e_dec = share(pre, want[:, 0]), []
         for i in range(K):
@@ -4785,7 +4791,7 @@ class _Phase18:
     def teacher_forced(self, cfg, params, batch, out):
         """forward's logits at the positions whose next tokens are ``out``:
         (P, N, V), TF_GROUP prompts at a time."""
-        from repro_torch.models.transformer import _embed_inputs, _head_weight, backbone
+        from repro_torch.models.transformer import _embed_inputs, _logits, _tables, backbone
 
         torch = self.torch
         S, N = batch["tokens"].shape[1], out.shape[1]
@@ -4795,8 +4801,9 @@ class _Phase18:
             for g in range(0, seq.shape[0], self.TF_GROUP):
                 part = {k: v[g:g + self.TF_GROUP] for k, v in batch.items()}
                 part["tokens"] = seq[g:g + self.TF_GROUP]
-                h, _ = backbone(cfg, params, *_embed_inputs(cfg, params, part))
-                tf.append((h[:, S - 1:S - 1 + N] @ _head_weight(cfg, params)).float())
+                tables = _tables(cfg, params)
+                h, _ = backbone(cfg, params, *_embed_inputs(cfg, tables, part))
+                tf.append(_logits(tables, h[:, S - 1:S - 1 + N]))
                 del h
         return torch.cat(tf)
 
@@ -4947,7 +4954,7 @@ class _Phase18:
 
     def gates(self, cell, arch, kw):
         from repro_torch.models import decode_step, prefill
-        from repro_torch.models.transformer import _embed_inputs, _head_weight, backbone
+        from repro_torch.models.transformer import _embed_inputs, _logits, _tables, backbone
 
         torch, dev = self.torch, self.dev
         cfg = self.drop_free(self.config(arch, dtype="float32", **kw))
@@ -4963,8 +4970,9 @@ class _Phase18:
         def run():
             pre, cache = prefill(cfg, params, {"tokens": pr[:, : L - K], **img}, S_cache=L)
             with torch.no_grad():
-                h, _ = backbone(cfg, params, *_embed_inputs(cfg, params, {"tokens": pr, **img}))
-                want = (h[:, L - K - 1:] @ _head_weight(cfg, params)).float()  # (GATE_PROMPTS, K + 1, V)
+                tables = _tables(cfg, params)
+                h, _ = backbone(cfg, params, *_embed_inputs(cfg, tables, {"tokens": pr, **img}))
+                want = _logits(tables, h[:, L - K - 1:])  # (GATE_PROMPTS, K + 1, V)
             del h
             shares = [share(pre, want[:, 0])]
             for i in range(K):
@@ -5055,6 +5063,42 @@ class _Phase18:
             raise AssertionError(f"phase 18 {cell} loss: {row}")
 
 
+_MESH_AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}  # a mesh shape's axes
+
+
+def _open_cross_gates(torch, cfg, tree, seed):
+    """Set the cross-attention layers' tanh gates of a parameter tree (or of
+    its master) to seeded values in [0.3, 0.7]: zero at init, where
+    cross-attention adds nothing.  The same values on every rank."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    for i, spec in enumerate(cfg.pattern):
+        if spec.mixer == "cross_attn":
+            gate = tree["pattern"][i]["mixer"]["gate"]
+            with torch.no_grad():
+                gate.copy_(0.3 + 0.4 * torch.rand(gate.shape, generator=gen))
+    return tree
+
+
+def _images(torch, cfg, n, seed):
+    """(n, n_patches, D) seeded f32 image embeddings on the CPU, or None for
+    a model with no vision front end."""
+    if cfg.frontend != "vision":
+        return None
+    return torch.randn((n, cfg.n_patches, cfg.d_model), generator=torch.Generator(device="cpu").manual_seed(seed))
+
+
+def _train_batch(torch, cfg, dcfg, i, seed, dev):
+    """The bigram stream's global batch ``i`` (``batch_at``), with seeded
+    image embeddings for the vision model (seed + i)."""
+    from repro_torch.data import batch_at
+
+    batch = batch_at(dcfg, i, device=dev)
+    img = None if seed is None else _images(torch, cfg, dcfg.global_batch, seed + i)
+    if img is not None:
+        batch["image_embeds"] = img.to(dev)
+    return batch
+
+
 def _phase19_rank(rank, world, init, plan, refs, queue):
     """One rank of phase 19's gloo world, a process of its own on the card:
     its results (numbers only), or its traceback, go to ``queue``.
@@ -5099,7 +5143,7 @@ class _Phase19Rank:
 
         out = {}
         try:
-            self.meshes = {tuple(s): make_mesh(s, ("data", "model")) for s in self.plan["meshes"]}
+            self.meshes = {tuple(s): make_mesh(s, _MESH_AXES[len(s)]) for s in self.plan["meshes"]}
             for part in self.plan["parts"]:
                 t0 = time.perf_counter()
                 out[part] = getattr(self, part)()
@@ -5129,19 +5173,19 @@ class _Phase19Rank:
 
         return SyntheticConfig(vocab=cfg.vocab, seq_len=self.plan["seq"], global_batch=self.plan["batch"])
 
-    def steps(self, cfg, mesh, state, step_fn, first, n, watch=None):
+    def steps(self, cfg, mesh, state, step_fn, first, n, watch=None, seed=None):
         """Steps ``first`` … ``first + n − 1`` on this rank's rows of each
-        global batch: per step the metrics, the wall (after a barrier), the
-        bytes handed to ``all_reduce`` and ``broadcast`` by kind, and the
-        kernels launched."""
-        from repro_torch.data import batch_at
+        global batch (``_train_batch``; ``seed`` the image embeddings'):
+        per step the metrics, the wall (after a barrier), the bytes handed to
+        ``all_reduce`` and ``broadcast`` by kind, and the kernels launched."""
         from repro_torch.kernels import KERNELS, reset_launches
         from repro_torch.sharding import collectives as col
         from repro_torch.train import batch_pspec
 
         dcfg, recs = self.data(cfg), []
         for i in range(first, first + n):
-            batch = {k: col.shard_block(v, batch_pspec(mesh), mesh) for k, v in batch_at(dcfg, i, device=self.dev).items()}
+            batch = {k: col.shard_block(v.to(self.dev), batch_pspec(mesh), mesh)
+                     for k, v in _train_batch(self.torch, cfg, dcfg, i, seed, self.dev).items()}
             self.dist.barrier()
             self.sync()
             reset_launches()
@@ -5153,7 +5197,8 @@ class _Phase19Rank:
             wall = time.perf_counter() - t0
             rec = {k: float(v) for k, v in m.items()}
             rec.update(wall=wall, bytes=dict(col.BYTES), collective_bytes=coll.bytes["all_reduce"] + coll.bytes["broadcast"],
-                       launches={f.__name__: f.launches for f in KERNELS if f.launches})
+                       launches={f.__name__: f.launches for f in KERNELS if f.launches},
+                       gather_axes=sorted({"+".join(c[1]) for c in col.CALLS["gather"]}))
             if watch is not None:
                 rec["dropped_share"] = watch.share()
                 watch.reset()
@@ -5168,8 +5213,9 @@ class _Phase19Rank:
     # ---- lm_mesh_2x4 -----------------------------------------------------------
 
     def lm_mesh_2x4(self):
-        """llama3.2-1b at full width and depth, bf16 with an f32 master,
-        sharded 8 ways: this rank's resident state, then STEPS steps."""
+        """llama3.2-1b at full width, LM_PERIODS layers, bf16 with an f32
+        master, sharded 8 ways: this rank's resident state, then STEPS
+        steps."""
         from repro_torch.optim import AdamWConfig
         from repro_torch.train import init_sharded_state, jit_train_step
 
@@ -5290,15 +5336,38 @@ class _Phase19Rank:
         spec_of = dict(_tree_items(state_pspecs(cfg, mesh).params))
         return init_params(cfg, seed, device=self.dev, keep=lambda path, t: col.shard_block(t, spec_of[path], mesh))
 
+    def call(self, mesh, fn):
+        """(fn's output under ``use_mesh(mesh)``, {its wall, the peak GiB, the
+        bytes by kind, the kernels launched, the axes of every FSDP gather})."""
+        from repro_torch.kernels import KERNELS, reset_launches
+        from repro_torch.sharding import collectives as col
+        from repro_torch.sharding import use_mesh
+
+        self.dist.barrier()
+        self.sync()
+        self.reset_peak()
+        reset_launches()
+        col.reset_bytes()
+        t0 = time.perf_counter()
+        with _Collectives() as coll, use_mesh(mesh):
+            out = fn()
+            self.sync()
+        wall = time.perf_counter() - t0
+        counted = dict(col.BYTES)
+        if sum(counted.values()) != coll.bytes["all_reduce"] + coll.bytes["broadcast"]:
+            raise AssertionError("the bytes by kind do not add up to all_reduce's and broadcast's")
+        return out, dict(wall=wall, peak_gib=self.gib("max_memory_allocated"), bytes=counted,
+                         launches={f.__name__: f.launches for f in KERNELS if f.launches},
+                         gather_axes=sorted({"+".join(c[1]) for c in col.CALLS["gather"]}))
+
     def lm_mesh_serve_2x4(self):
-        """llama3.2-1b at full width and depth in bf16 served on the mesh:
+        """llama3.2-1b at full width, LM_PERIODS layers, in bf16 served on the mesh:
         prefill of this rank's rows of the prompts into its blocks of the
         caches, then decode steps fed the one-process greedy tokens (teacher
         forcing); per call the wall, the peak, the bytes by kind.  Then the
         depth-2 f32 gate: prefill and decode steps fed the prompts' next
         tokens.  The logits come back from the ranks of model coordinate 0
         (the others hold the same)."""
-        from repro_torch.kernels import KERNELS, reset_launches
         from repro_torch.models import decode_step, prefill
         from repro_torch.models.common import tree_leaves
         from repro_torch.sharding import PartitionSpec, use_mesh
@@ -5316,23 +5385,7 @@ class _Phase19Rank:
         resident = None if base is None else self.gib("memory_allocated") - base
 
         def call(fn):
-            """(fn's output, {its wall, the peak GiB, the bytes by kind, the
-            kernels launched})."""
-            self.dist.barrier()
-            self.sync()
-            self.reset_peak()
-            reset_launches()
-            col.reset_bytes()
-            t0 = time.perf_counter()
-            with _Collectives() as coll, use_mesh(mesh):
-                out = fn()
-                self.sync()
-            wall = time.perf_counter() - t0
-            counted = dict(col.BYTES)
-            if sum(counted.values()) != coll.bytes["all_reduce"] + coll.bytes["broadcast"]:
-                raise AssertionError("the bytes by kind do not add up to all_reduce's and broadcast's")
-            return out, dict(wall=wall, peak_gib=self.gib("max_memory_allocated"), bytes=counted,
-                             launches={f.__name__: f.launches for f in KERNELS if f.launches})
+            return self.call(mesh, fn)
 
         (logits, cache), pre = call(lambda: prefill(cfg, params, {"tokens": prompts}, S_cache=S + N))
         cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
@@ -5359,6 +5412,201 @@ class _Phase19Rank:
         return dict(resident_gib=resident, cache_bytes=cache_bytes, prefill=pre, decode=steps,
                     logits=out if first else None, greedy=torch.stack(greedy, 1).numpy() if first else None,
                     gate_logits=gate if first else None, coords=dict(mesh.coords))
+
+    # ---- families_tp_2x4 ------------------------------------------------------------
+
+    def families_tp_2x4(self):
+        """Each family of ``plan["fam"]`` in turn, tensor-parallel on the
+        (2, 4) mesh, each freed before the next (``family``)."""
+        import gc
+
+        out = {}
+        for arch in self.plan["fam"]:
+            out[arch] = self.family(arch)
+            gc.collect()
+            if self.cuda:
+                self.torch.cuda.empty_cache()
+        return out
+
+    def family(self, arch):
+        """One family at its published widths, only the depth cut: (1) bf16
+        prefill of this rank's rows of the prompts and decode steps fed the
+        one-process greedy tokens, per call the wall, peak, bytes by kind,
+        launches and gather axes, its caches' bytes leaf by leaf; (2) the f32
+        gate at one period (prefill and decode steps of short prompts); (3)
+        one train step on the bigram stream (deepseek-v2: one ``loss_fn``
+        forward and backward, its loss and gradient norm reduced as the
+        step reduces them)."""
+        from repro_torch.models import decode_step, prefill
+        from repro_torch.models.common import tree_leaves, tree_map
+        from repro_torch.optim import AdamWConfig, global_norm
+        from repro_torch.sharding import PartitionSpec, use_mesh
+        from repro_torch.sharding import collectives as col
+        from repro_torch.train import init_sharded_state, jit_train_step, state_pspecs
+        from repro_torch.train.step import _accumulated
+
+        torch, plan, mesh = self.torch, self.plan, self.meshes[tuple(self.plan["mesh"])]
+        f = plan["fam"][arch]
+        first = mesh.coords["model"] == 0
+        rows = lambda t: None if t is None else col.shard_block(t, PartitionSpec("data"), mesh).to(self.dev)  # noqa: E731
+        cfg, S, N, seed = f["cfg"], plan["fam_len"], plan["fam_new"], f["seed"]
+        t0 = time.perf_counter()
+        params = _open_cross_gates(torch, cfg, self.drawn(cfg, lambda: self.serve_blocks(cfg, seed, mesh)), seed)
+        img = rows(_images(torch, cfg, plan["fam_prompts"], seed))
+        batch = {"tokens": rows(f["prompts"])}
+        if img is not None:
+            batch["image_embeds"] = img
+        fed = rows(f["tokens"])
+        drops = _MoEDrops(torch)
+        with drops:
+            (logits, cache), pre = self.call(mesh, lambda: prefill(cfg, params, batch, S_cache=S + plan["fam_extra"]))
+            cache_bytes = [t.numel() * t.element_size() for t in tree_leaves(cache)]
+            logits_out, steps = [logits.float().cpu().numpy()], []
+            for i in range(N - 1):
+                (logits, cache), rec = self.call(mesh, lambda: decode_step(cfg, params, cache, fed[:, i], S + i,
+                                                                          img=img))
+                steps.append(rec)
+                logits_out.append(logits.float().cpu().numpy())
+        dropped = {"serve": drops.share()}
+        del params, cache, logits, batch, img
+        self.free_card()
+        t_serve = time.perf_counter() - t0
+
+        # the f32 gate: a prefill
+        cfg32 = f["cfg32"]
+        params = _open_cross_gates(torch, cfg32, self.drawn(cfg32, lambda: self.serve_blocks(cfg32, seed + 1, mesh)),
+                                   seed + 1)
+        batch = {"tokens": rows(f["gate_tokens"])}
+        img = rows(_images(torch, cfg32, plan["fam_gate_prompts"], seed + 1))
+        if img is not None:
+            batch["image_embeds"] = img
+        with torch.no_grad(), use_mesh(mesh):
+            logits, cache = prefill(cfg32, params, batch)
+            gate = logits.cpu().numpy()
+        del params, cache, logits, batch, img
+        self.free_card()
+        t_gate = time.perf_counter() - t0 - t_serve
+
+        # one train step (deepseek-v2: one loss_fn forward and backward)
+        opt, cfg = AdamWConfig(**plan["opt"]), f["cfg_train"]
+        self.reset_peak()
+        drops.reset()
+        drops.__enter__()
+        if f["train"] == "step":
+            state = self.drawn(cfg, lambda: init_sharded_state(cfg, seed + 2, mesh, device=self.dev))
+            _open_cross_gates(torch, cfg, state.params, seed + 2)
+            _open_cross_gates(torch, cfg, state.opt["master"], seed + 2)
+            step_fn = jit_train_step(cfg, opt, mesh, n_micro=plan["fam_micro"])
+            state, recs = self.steps(cfg, mesh, state, step_fn, 0, 1, seed=seed + 3)
+            train = dict(recs[0], peak_gib=self.gib("max_memory_allocated"))
+            leaves = self.copy_to_leaves(state.opt["m"]) if first else None
+            del state
+        else:
+            params = self.drawn(cfg, lambda: self.serve_blocks(cfg, seed + 2, mesh))
+            dcfg = self.data(cfg)
+            from repro_torch.train import batch_pspec
+
+            shard = {k: col.shard_block(v, batch_pspec(mesh), mesh)
+                     for k, v in _train_batch(torch, cfg, dcfg, 0, seed + 3, self.dev).items()}
+            dp = col.dp_axes(mesh)
+            n_dp = mesh.axis_size(dp)
+            specs = state_pspecs(cfg, mesh).opt["master"]
+
+            def fwd_bwd():
+                loss, grads, metrics = _accumulated(cfg, params, shard, plan["fam_micro"])
+                tree_map(lambda g: g.div_(n_dp), grads)
+                both = col.psum_over(torch.stack([loss, metrics["ce"]]), dp, mesh, kind="mean") / n_dp
+                return both, global_norm(grads, specs, mesh), grads
+
+            (both, gnorm, grads), rec = self.call(mesh, fwd_bwd)
+            train = dict(rec, loss=float(both[0]), ce=float(both[1]), grad_norm=float(gnorm))
+            leaves = self.copy_to_leaves(grads) if first else None
+            del params, grads
+        drops.__exit__()
+        dropped["train"] = drops.share()
+        self.free_card()
+        sections = dict(serve_s=t_serve, f32_gate_s=t_gate, train_s=time.perf_counter() - t0 - t_serve - t_gate)
+        return dict(prefill=pre, decode=steps, cache_bytes=cache_bytes, train=train, copy_to_leaves=leaves,
+                    sections=sections, dropped=dropped,
+                    logits=logits_out if first else None, gate_logits=gate if first else None,
+                    coords=dict(mesh.coords))
+
+    def copy_to_leaves(self, tree):
+        """{path: this rank's block of each leaf of ``tree`` a mixer takes
+        through copy_to, f32 numpy}."""
+        from repro_torch.models.common import tree_get, tree_paths
+
+        return {"/".join(map(str, p)): tree_get(tree, p).float().cpu().numpy() for p in tree_paths(tree)
+                if p[-1] in self.plan["copy_to_leaves"] and "mixer" in p}
+
+    def drawn(self, cfg, fn):
+        """``fn()``, a draw of this rank's blocks of ``cfg``'s weights
+        (``init_params`` draws each leaf whole on the card, as an f32
+        Gaussian and its scaled copy, and cuts it): where the largest leaf's
+        two f32 copies take more than half a rank's cap (deepseek-v2's
+        experts, recurrentgemma's tables), the ranks draw one at a time under
+        a cap of DRAW_FRACTION, then return to theirs (two at a time filled
+        the card beside six ranks holding recurrentgemma's train state, as
+        measured on one H100)."""
+        from repro_torch.models import transformer as tfm
+        from repro_torch.models.common import is_shape, tree_leaves
+
+        torch = self.torch
+        largest = max(math.prod(s) for s, _ in tree_leaves(tfm.params_shapes(cfg), is_leaf=is_shape))
+        if not self.cuda or 8 * largest <= self.plan["mem_fraction"] * torch.cuda.get_device_properties(
+                self.dev).total_memory / 2:
+            return fn()
+        out = None
+        for r in range(self.world):
+            if r == self.rank:
+                torch.cuda.set_per_process_memory_fraction(self.plan["draw_fraction"], self.dev)
+                out = fn()
+                self.free_card()
+                torch.cuda.set_per_process_memory_fraction(self.plan["mem_fraction"], self.dev)
+            self.dist.barrier()
+        return out
+
+    def free_card(self):
+        import gc
+
+        gc.collect()
+        if self.cuda:
+            self.torch.cuda.empty_cache()
+
+    # ---- zero1_2x2x2 ----------------------------------------------------------------
+
+    def zero1_2x2x2(self):
+        """llama3.2-1b at full width, depth 2, f32, on a (2, 2, 2) ``("pod",
+        "data", "model")`` mesh of the same world: ZeRO-1 over ``pod``, its
+        parameters and optimizer state a rank's, STEPS steps, then the
+        parameters reassembled (rank 0 compares them)."""
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.sharding import PartitionSpec
+        from repro_torch.sharding import collectives as col
+        from repro_torch.train import init_sharded_state, jit_train_step, state_pspecs
+
+        plan, refs = self.plan, self.refs
+        mesh = self.meshes[tuple(plan["zero_mesh"])]
+        cfg = plan["gates_cfg"]
+        state = init_sharded_state(cfg, plan["gates_seed"], mesh, device=self.dev)
+        params_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state.params))
+        opt_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state.opt))
+        step_fn = jit_train_step(cfg, AdamWConfig(**plan["gates_opt"]), mesh, n_micro=plan["zero_micro"])
+        self.reset_peak()
+        state, recs = self.steps(cfg, mesh, state, step_fn, 0, plan["steps"])
+        peak = self.gib("max_memory_allocated")
+        pspecs = tree_leaves(state_pspecs(cfg, mesh).params, is_leaf=lambda x: isinstance(x, PartitionSpec))
+        diff_sq, diff_max = 0.0, 0.0
+        for got, want, spec in zip(tree_leaves(state.params), refs["params"], pspecs):
+            whole = col.unshard(got, spec, mesh)  # every rank takes part; rank 0 compares
+            if self.rank == 0:
+                d = (whole - want).double()
+                diff_sq += float((d * d).sum())
+                diff_max = max(diff_max, float(d.abs().max()))
+            del whole
+        return dict(steps=recs, params_bytes=params_bytes, opt_bytes=opt_bytes, peak_gib=peak,
+                    param_diff_norm=math.sqrt(diff_sq), param_diff_max=diff_max)
 
     # ---- elastic_2x4_to_2x2 (a world of 4) --------------------------------------
 
@@ -5452,8 +5700,8 @@ class _Phase19:
     whole, one leaf at a time, and keeps only its block
     (``init_sharded_state``), so no rank ever holds the whole state.
 
-    (1) ``lm_mesh_2x4``: llama3.2-1b at full width and depth (16 layers),
-    bf16 parameters with an f32 master, 3 steps at seq 512, global batch 8,
+    (1) ``lm_mesh_2x4``: llama3.2-1b at full width, LM_PERIODS of its 16
+    layers, bf16 parameters with an f32 master, 3 steps at seq 512, global batch 8,
     ``n_micro`` 2: each rank's state and resident bytes at most
     STATE_SHARE_MAX of the full state's (1/8 and a fixed margin); the loss
     finite and the same on every rank; at step 1 (learning rate 0) the loss
@@ -5476,8 +5724,8 @@ class _Phase19:
     2×4 mesh (assembled leaf by leaf, written by the first rank), restored
     by a world of 4 onto (2, 2): every block bitwise its slice of the saved
     array, and the next step's loss within 1e-5 relative of the same step
-    on 2×4.  (5) ``lm_mesh_serve_2x4``, last in the world of 8: llama3.2-1b
-    at full depth in bf16 served on the mesh (``prefill`` and 3
+    on 2×4.  (5) ``lm_mesh_serve_2x4``: llama3.2-1b at LM_PERIODS layers in
+    bf16 served on the mesh (``prefill`` and 3
     ``decode_step``s under ``use_mesh``, fed the one-process greedy tokens),
     each rank's caches exactly 1/8 of the one-process cache's, the logits
     against the one-process logits by phase 17's bf16 rule; at depth 2 in
@@ -5492,13 +5740,35 @@ class _Phase19:
     ``all_reduce`` and ``broadcast`` a step (or a call) by kind (FSDP
     gathers, gradient reduce-scatters, TP sums, the decode combine), the
     phase's time; no port kernel is launched on the mesh path, which is
-    held."""
+    held.  (6) ``families_tp_2x4`` (``family``, ``judge_families``), first in
+    the world of 8, while each rank's memory is fresh: each of FAMILIES at its published widths, only the depth cut, bf16:
+    prefill of 8 prompts of 2048 tokens and a decode step fed the
+    one-process greedy tokens (phase 17's bf16 rule; the MoE at DROP_FREE,
+    its dropped share held at 0), an f32 prefill at one
+    period (FAM_GATE_PROMPTS of FAM_GATE_LEN tokens) within FAM_F32_REL of
+    one process below the reading of the
+    family's fault (FAM_FAULTS, run here), one train step (deepseek-v2: one
+    ``loss_fn`` forward and backward) with step 1's loss and ``grad_norm``
+    within one bf16 ulp and each ``copy_to`` leaf's moment within
+    FAM_LEAF_REL below the leaf taken tp times; each rank's caches its
+    blocks under the rules, no FSDP gather over ``model``, the dry run's
+    bytes by kind exact and its peaks within DRYRUN_PEAK_REL.  (7)
+    ``zero1_2x2x2``, last in the world of 8: llama3.2-1b at depth 2 in f32
+    with ZeRO-1 over ``pod`` on ZERO_MESH, 3 steps against lm_mesh_gates'
+    one-process run (step 1 within 1e-5, the parameters within PARAM_REL),
+    a rank's parameters and optimizer state within ZERO_PARAM_SHARE_MAX
+    and ZERO_OPT_SHARE_MAX of the one-process state's, the dry run's bytes
+    exact."""
 
     ARCH, MOE_ARCH = "llama3.2-1b", "mixtral-8x7b"
     CFGS = None  # {arch: config} in place of get_config(arch) (CPU rehearsals)
     SEED, GATES_SEED, MOE_SEED = 1901, 1902, 1903
     MESH, SMALL_MESH = (2, 4), (2, 2)
     SEQ, BATCH, MICRO, STEPS, SHALLOW = 512, 8, 2, 3, 2
+    # lm_mesh_2x4's and lm_mesh_serve_2x4's depth: 4 of llama3.2-1b's 16
+    # layers (the whole script's time limit; PRs 26–27 ran 16), its widths
+    # whole
+    LM_PERIODS = 4
     OPT = dict(lr=3e-3, warmup_steps=5)  # step 1 at learning rate 0
     GATES_OPT = dict(lr=3e-3, warmup_steps=2)
     MOE_OPT = dict(lr=1e-3, warmup_steps=1)  # phase 18's
@@ -5516,10 +5786,14 @@ class _Phase19:
     FAULT_LEAVES = ("wk", "wv")  # replicated over 'model' and used inside its region
     FWD_TOL = 1e-4  # tests/test_multidevice.py::test_moe_shard_map_matches_gspmd
     RANK_MEM_FRACTION = 0.115  # of the card, a gloo rank's cap (eight ranks and this process share it)
+    DRAW_FRACTION = 0.3  # a rank's cap while it alone draws a family's weights (``_Phase19Rank.drawn``)
     TIMEOUT_S = 300
     DEADLINE_S = 900
     TARGET = staticmethod(_phase19_rank)
-    PARTS = ("lm_mesh_2x4", "lm_mesh_gates", "moe_mesh_2x4", "lm_mesh_serve_2x4")  # the world of 8's, in order
+    # the world of 8's, in order: the families first, while each rank's
+    # memory is fresh (after the other parts their f32 gates filled the card,
+    # as measured on one H100)
+    PARTS = ("families_tp_2x4", "lm_mesh_2x4", "lm_mesh_gates", "moe_mesh_2x4", "lm_mesh_serve_2x4", "zero1_2x2x2")
     # lm_mesh_serve_2x4: 8 prompts of 2048 tokens (4 a data rank), 4 new
     # tokens (prefill and 3 decode steps; each forward gathers ≈2.2 GB a rank)
     SERVE_SEED, SERVE_GATE_SEED = 1904, 1905
@@ -5534,7 +5808,65 @@ class _Phase19:
     SERVE_F32_REL = 1e-4
     FAULT_MODEL_RANK = 1  # the model rank whose positions the fault leaves out
     DRYRUN_PEAK_REL = 0.25  # the dry run's peak a rank against max_memory_allocated
-    DRYRUN_TIMEOUT_S = 400
+    DRYRUN_TIMEOUT_S = 600
+    # families_tp_2x4: (arch, the depth cut of its bf16 serving, of its
+    # train step): deepseek-v2 its dense prefix + 1 period, mamba2 2 layers,
+    # recurrentgemma 1 period + its suffix (its train step 1 period: with the
+    # suffix a rank's step peaks at 9.01 GiB by the dry run, against its cap
+    # of RANK_MEM_FRACTION of the card), the vision model 1 period with its
+    # cross layer; the f32 gate at 1 period.  The MoE at DROP_FREE (the mesh
+    # takes capacity from a rank's tokens, so only drop-free runs agree with
+    # one process; at 2.0 deepseek-v2 dropped 0.6–1.7% of a rank's serving
+    # assignments and 3.7–4.2% in training, measured on one H100), its
+    # dropped share held at 0 on both sides.
+    FAMILIES = (("deepseek-v2-236b", dict(n_periods=1), dict(n_periods=1)),
+                ("mamba2-2.7b", dict(n_periods=2), dict(n_periods=2)),
+                ("recurrentgemma-9b", dict(n_periods=1), dict(n_periods=1, suffix=())),
+                ("llama-3.2-vision-11b", dict(n_periods=1), dict(n_periods=1)))
+    # one micro-batch a step in the new parts: a micro-batch gathers every
+    # weight twice (forward and the remat recomputation), and their bytes
+    # through gloo set the parts' walls
+    FAM_MICRO = ZERO_MICRO = 1
+    FAM_SEED = 1910
+    # prefill and 1 decode step fed the one-process greedy token (each bf16
+    # decode step gathers 0.19–2.66 GB a rank through gloo; the whole script's
+    # time limit)
+    # a cache of 2052 positions (513 a model rank)
+    FAM_PROMPTS, FAM_LEN, FAM_NEW, FAM_EXTRA = 8, 2048, 2, 4
+    # the f32 gate: a prefill of 2 prompts (1 a data rank) of 256 tokens, no
+    # decode step: each f32 forward gathers 2.2–5.3 GB a rank through gloo
+    # (≈17 s for deepseek-v2 on an H100 80GB HBM3 at 700 W), and the bf16
+    # run decodes
+    FAM_GATE_PROMPTS, FAM_GATE_LEN = 2, 256
+    # the f32 gate's limit on max|mesh − one-process| / max|one-process|
+    # over the logits: fixed between the sound reading (predicted ≤ 1e-5)
+    # and the family's fault (FAM_FAULTS, predicted ≥ 1e-3)
+    FAM_F32_REL = 1e-4
+    DROP_FREE = 8.0
+    # the fault each family's f32 gate must tell apart: SSD's gated norm over
+    # each model rank's columns alone, RG-LRU's gate products left without
+    # the sum over model (each rank's rows only), and for MLA and
+    # cross-attention model rank FAULT_MODEL_RANK's partial output left out
+    # of the sum over model
+    FAM_FAULTS = {"deepseek-v2-236b": "rank_left_out", "mamba2-2.7b": "ssd_norm_per_rank",
+                  "recurrentgemma-9b": "gate_sum_left_out", "llama-3.2-vision-11b": "rank_left_out"}
+    # the mixer leaves each family takes through copy_to (replicated over
+    # model, used inside its tensor-parallel region): their gradients taken
+    # tp times are the train step's fault
+    # the limit on ‖mesh − one-process‖ / ‖one-process‖ of each such leaf's
+    # moment (deepseek-v2: its gradient) after step 1 on a rank's block:
+    # fixed between bf16's rounding (predicted ≤ 2e-2) and the fault's
+    # reading (≈ tp − 1 = 3, computed here)
+    FAM_LEAF_REL = 0.1
+    COPY_TO_LEAVES = ("wk", "wv", "q_norm", "k_norm", "gate", "wq_a", "wkv_a", "q_ln", "kv_ln", "w_B", "w_C",
+                      "conv_B", "conv_C", "conv_b_B", "conv_b_C", "w_dt", "A_log", "D_skip", "dt_bias", "rg_ba",
+                      "rg_bx", "lam")
+    # zero1_2x2x2: a rank's share of the one-process state's bytes, fixed
+    # limits above the rules' shares (computed here; llama3.2-1b at depth 2 on
+    # (2, 2, 2): the parameters 1/4 and the optimizer 1/8, each plus the
+    # leaves the rules replicate over model, wk/wv and the norms)
+    ZERO_MESH = (2, 2, 2)
+    ZERO_PARAM_SHARE_MAX, ZERO_OPT_SHARE_MAX = 0.27, 0.14
 
     def __init__(self, torch, dev, smi, root):
         self.torch, self.dev, self.smi, self.root = torch, dev, smi, root
@@ -5564,7 +5896,8 @@ class _Phase19:
         dryrun = self.start_dryrun()
         try:
             plan, refs = self.references()
-            world8 = self.world(8, dict(plan, parts=list(self.PARTS), meshes=[self.MESH]), refs)
+            meshes = [self.MESH] + ([self.ZERO_MESH] if "zero1_2x2x2" in self.PARTS else [])
+            world8 = self.world(8, dict(plan, parts=list(self.PARTS), meshes=meshes), refs)
             del refs
             self.free()
             world4 = self.world(4, dict(plan, parts=["elastic_restore"], meshes=[self.SMALL_MESH]), {})
@@ -5577,6 +5910,10 @@ class _Phase19:
         self.judge(plan, world8, world4, time.perf_counter() - t0)
         if "lm_mesh_serve_2x4" in self.PARTS:
             self.judge_serve(plan, world8[:-1], predicted)
+        if "families_tp_2x4" in self.PARTS:
+            self.judge_families(plan, world8[:-1], predicted)
+        if "zero1_2x2x2" in self.PARTS:
+            self.judge_zero1(plan, world8[:-1], predicted)
 
     # ---- lm_mesh_serve_2x4's gates ------------------------------------------------
 
@@ -5596,7 +5933,7 @@ class _Phase19:
         if any(n * r["cache_bytes"] != one["cache_bytes"] for r in rs):
             fails.append(f"cache share {cache_share} is not exactly 1/{n}")
 
-        # bf16 at full depth: phase 17's rule, the mesh's logits teacher-forced
+        # bf16: phase 17's rule, the mesh's logits teacher-forced
         # on the one-process greedy tokens against the one-process logits
         mesh = torch.as_tensor(np.concatenate([np.stack(r["logits"], 1) for r in by_data]))  # (P, N, V)
         toks = one["tokens"].long()
@@ -5656,43 +5993,242 @@ class _Phase19:
                                bottleneck={k: predicted[k]["roofline"]["bottleneck"] for k in want},
                                cell_s={k: predicted[k]["t_cell_s"] for k in want}, wall_s=predicted["wall_s"]))
         self.rows[part] = row
-        _p(f"phase 19: {part} (bf16 serving at full depth on 8 gloo ranks sharing the card, the logits teacher-"
+        _p(f"phase 19: {part} (bf16 serving on 8 gloo ranks sharing the card, the logits teacher-"
            f"forced on the one-process tokens; the f32 gate at depth 2, f32_fault_rel: one model rank's positions "
            f"left out of the combine; dryrun: launch.dryrun's prediction for 8 H100s (roofline_ms) and for these "
            f"ranks (peaks, bytes), run on the CPU; card: {self.smi}): {json.dumps(row)}")
         if fails:
             raise AssertionError(f"phase 19 {part}: " + "; ".join(fails))
 
+    # ---- families_tp_2x4's and zero1_2x2x2's gates --------------------------------
+
+    def dryrun_held(self, name, predicted, bytes_got, peaks_got, fails):
+        """The dry run's cell ``name`` against the ranks: its bytes by kind
+        equal to every reading in ``bytes_got``, exactly; its peak within
+        DRYRUN_PEAK_REL of the largest of ``peaks_got`` (None: not held).
+        Returns (the predicted peak GiB, its distance)."""
+        rec = predicted[name]["full"]
+        want = rec["handoff_by_kind"]
+        if any(g != want for g in bytes_got):
+            fails.append(f"dry run {name}: bytes by kind {want} against the ranks' {bytes_got[0]}")
+        pred = rec["memory"]["peak_bytes"] / 2**30
+        if peaks_got is None or self.dev.type != "cuda":
+            return pred, None
+        rel = pred / max(peaks_got) - 1
+        if abs(rel) > self.DRYRUN_PEAK_REL:
+            fails.append(f"dry run {name}: peak {pred:.3f} GiB against {max(peaks_got):.3f}")
+        return pred, rel
+
+    def judge_families(self, plan, ranks, predicted):
+        """Each family of families_tp_2x4 against its one-process runs, the
+        rules and the dry run; prints a row a family and raises on a failed
+        gate."""
+        import numpy as np
+
+        from repro_torch.models import transformer as tfm
+        from repro_torch.models.common import is_shape, tree_leaves, tree_paths
+        from repro_torch.sharding import Mesh, PartitionSpec
+        from repro_torch.sharding import collectives as col
+
+        torch, fails = self.torch, []
+        for arch, _, _ in self.FAMILIES:
+            one, f = self.fam_one[arch], plan["fam"][arch]
+            rs = [r["families_tp_2x4"][arch] for r in ranks]
+            by_data = sorted((r for r in rs if r["logits"] is not None), key=lambda r: r["coords"]["data"])
+            calls = [r["prefill"] for r in rs] + [c for r in rs for c in r["decode"]] + [r["train"] for r in rs]
+
+            # the caches: each rank's leaves exactly its blocks under the rules
+            cfg, S = f["cfg"], self.FAM_LEN + self.FAM_EXTRA
+            specs = tfm.cache_specs(cfg, self.FAM_PROMPTS, S, Mesh(self.MESH, _MESH_AXES[2]))
+            shapes = tfm._cache_shapes(cfg, self.FAM_PROMPTS, S)
+            names = ["/".join(map(str, p)) for p in tree_paths(shapes, is_leaf=is_shape)]
+            want = [math.prod(col.block_shape(sh[0], sp, Mesh(self.MESH, _MESH_AXES[2]))) * sh[1].itemsize
+                    for sh, sp in zip(tree_leaves(shapes, is_leaf=is_shape),
+                                      tree_leaves(specs, is_leaf=lambda x: isinstance(x, PartitionSpec)))]
+            if any(r["cache_bytes"] != want for r in rs):
+                fails.append(f"{arch}: a rank's cache leaves {rs[0]['cache_bytes']} are not the rules' {want}")
+            leaf_share = {n: w / o for n, w, o in zip(names, want, one["cache_leaves"])}
+
+            # bf16 at the published widths: phase 17's rule, teacher-forced
+            mesh_logits = torch.as_tensor(np.concatenate([np.stack(r["logits"], 1) for r in by_data]))
+            toks = one["tokens"].long()
+            gap = float((mesh_logits - one["logits"]).abs().max())
+            differ = torch.argmax(mesh_logits, -1) != toks
+            excess = mesh_logits.amax(-1) - mesh_logits.gather(-1, toks[..., None])[..., 0]
+            worst = float(excess[differ].max()) if bool(differ.any()) else 0.0
+            if not (gap <= _Phase17.TF_GAP_MAX and worst <= 2 * gap):
+                fails.append(f"{arch} bf16 logits: gap {gap}, worst excess {worst}")
+
+            # f32 at one period: a fixed limit between the sound reading and the fault's
+            sound = _max_rel(torch.as_tensor(np.concatenate([r["gate_logits"] for r in by_data])), one["gate"])
+            if not (sound <= self.FAM_F32_REL < one["fault_rel"]):
+                fails.append(f"{arch} f32 gate: {sound} against {self.FAM_F32_REL} (fault {one['fault_rel']})")
+
+            # the train step: step 1 within one bf16 ulp, below the copy_to fault
+            # the train step: step 1 within one bf16 ulp; each copy_to leaf's
+            # moment (gradient) below its fault, the leaf taken tp times
+            tr, t1 = one["train"], rs[0]["train"]
+            loss_rel = abs(t1["loss"] - tr["loss"]) / abs(tr["loss"])
+            norm_rel = abs(t1["grad_norm"] - tr["grad_norm"]) / abs(tr["grad_norm"])
+            if not (loss_rel <= self.BF16_LOSS_REL and norm_rel <= self.BF16_NORM_REL):
+                fails.append(f"{arch} train: loss_rel {loss_rel}, grad_norm_rel {norm_rel}")
+            from repro_torch.train import state_pspecs
+
+            tspec_tree = state_pspecs(f["cfg_train"], Mesh(self.MESH, _MESH_AXES[2])).opt["master"]
+            if len({r["train"]["loss"] for r in rs}) != 1:
+                fails.append(f"{arch} train: the loss differs between ranks")
+            leaf_rel = {}
+            for r in rs:
+                if r["copy_to_leaves"] is None:
+                    continue
+                placed = Mesh(self.MESH, _MESH_AXES[2], rank=r["coords"]["data"] * self.MESH[1] + r["coords"]["model"])
+                tspecs = {"/".join(map(str, p)): spec for p, spec in _tree_items(tspec_tree)}
+                for path, got in r["copy_to_leaves"].items():
+                    w = one["copy_to_leaves"][path]
+                    w = w[col.block_slices(w.shape, tspecs[path], placed)]
+                    if float(w.norm()):
+                        rel = float((torch.as_tensor(got) - w).norm() / w.norm())
+                        leaf_rel[path] = max(leaf_rel.get(path, 0.0), rel)
+            worst_leaf = max(leaf_rel.values()) if leaf_rel else float("inf")
+            if not (worst_leaf <= self.FAM_LEAF_REL < tr["fault_leaf_rel"]):
+                fails.append(f"{arch} train: copy_to leaves {leaf_rel} against {self.FAM_LEAF_REL} "
+                             f"(fault {tr['fault_leaf_rel']})")
+
+            # drop-free on both sides (the mesh's capacity comes from a rank's tokens)
+            dropped = dict(one=one["dropped"], mesh=[r["dropped"] for r in rs])
+            if any(v for d in [one["dropped"]] + dropped["mesh"] for v in d.values()):
+                fails.append(f"{arch}: the MoE dropped assignments {dropped}")
+
+            # no port kernel, no weight gathered over model
+            if any(c["launches"] for c in calls):
+                fails.append(f"{arch}: the mesh path launched a port kernel")
+            axes = sorted({a for c in calls for a in c["gather_axes"]})
+            if any("model" in a for a in axes):
+                fails.append(f"{arch}: a weight was gathered over {axes}")
+
+            # the dry run
+            dry = {}
+            for kind, got, peaks in (
+                    ("prefill", [r["prefill"]["bytes"] for r in rs], [r["prefill"]["peak_gib"] or 0.0 for r in rs]),
+                    ("decode", [c["bytes"] for r in rs for c in r["decode"]],
+                     [c["peak_gib"] or 0.0 for r in rs for c in r["decode"]]),
+                    ("train", [r["train"]["bytes"] for r in rs],
+                     [r["train"]["peak_gib"] or 0.0 for r in rs] if f["train"] == "step" else None)):
+                dry[kind] = self.dryrun_held(f"{arch}/{kind}", predicted, got, peaks, fails)
+            walls = [max(r["decode"][i]["wall"] for r in rs) for i in range(len(rs[0]["decode"]))]
+            row = dict(arch=arch, n_layers=cfg.n_layers, mesh=self.MESH, prompts=self.FAM_PROMPTS,
+                       prompt_len=self.FAM_LEN, new=self.FAM_NEW, prefill_ms=1e3 * max(r["prefill"]["wall"] for r in rs),
+                       decode_ms=[1e3 * w for w in walls], one_process_serve_s=one["serve_s"],
+                       train_s=max(r["train"]["wall"] for r in rs),
+                       train=dict(loss=t1["loss"], grad_norm=t1["grad_norm"], one_process=tr, loss_rel=loss_rel,
+                                  grad_norm_rel=norm_rel, copy_to_leaf_rel=worst_leaf, leaf_limit=self.FAM_LEAF_REL,
+                                  leaves=len(leaf_rel)),
+                       cache_leaf_share=leaf_share, bf16_gap=gap, bf16_worst_excess=worst,
+                       bf16_mismatches=int(differ.sum()), dropped_share=dropped, f32_rel=sound,
+                       f32_limit=self.FAM_F32_REL,
+                       f32_fault=self.FAM_FAULTS[arch], f32_fault_rel=one["fault_rel"], gather_axes=axes,
+                       bytes_prefill=rs[0]["prefill"]["bytes"], bytes_decode_step=rs[0]["decode"][0]["bytes"],
+                       bytes_train=t1["bytes"],
+                       peak_gib={"prefill": max(r["prefill"]["peak_gib"] or 0.0 for r in rs),
+                                 "decode": max(c["peak_gib"] or 0.0 for r in rs for c in r["decode"]),
+                                 "train": max(r["train"]["peak_gib"] or 0.0 for r in rs)},
+                       dryrun_peak={k: dict(gib=v[0], rel=v[1]) for k, v in dry.items()},
+                       sections_s=rs[0]["sections"], part_s=ranks[0]["families_tp_2x4"].get("part_s"))
+            self.rows[f"families_tp_2x4/{arch}"] = row
+            _p(f"phase 19: families_tp_2x4 {arch} (bf16 at published widths, only the depth cut, tensor-parallel on "
+               f"8 gloo ranks sharing the card, the logits teacher-forced on the one-process tokens; the f32 gate at "
+               f"1 period against its fault; train: step 1 against one process, fault: the copy_to leaves' "
+               f"gradients taken {self.MESH[1]} times; card: {self.smi}): {json.dumps(row)}")
+        part_s = ranks[0]["families_tp_2x4"]["part_s"]
+        _p(f"phase 19: families_tp_2x4 {part_s:.1f} s (card: {self.smi})")
+        if fails:
+            raise AssertionError("phase 19 families_tp_2x4: " + "; ".join(fails))
+
+    def judge_zero1(self, plan, ranks, predicted):
+        """zero1_2x2x2 against the one-process step (lm_mesh_gates'
+        references), the rules' shares and the dry run."""
+        part, fails = "zero1_2x2x2", []
+        rs = [r[part] for r in ranks]
+        want, first = plan["gates_one"], rs[0]["steps"][0]
+        losses = [[s["loss"] for s in r["steps"]] for r in rs]
+        if any(l != losses[0] for l in losses):
+            fails.append("the loss differs between ranks")
+        loss_rel = abs(first["loss"] - want[0]["loss"]) / abs(want[0]["loss"])
+        norm_rel = abs(first["grad_norm"] - want[0]["grad_norm"]) / abs(want[0]["grad_norm"])
+        diff = rs[0]["param_diff_norm"] / plan["gates_moved"]
+        if not (loss_rel <= 1e-5 and norm_rel <= 1e-5 and diff <= self.PARAM_REL < plan["gates_fault_moved"]):
+            fails.append(f"step 1 loss_rel {loss_rel}, grad_norm_rel {norm_rel}, params {diff}")
+        split = self.zero_one["state_bytes"]
+        param_share = [r["params_bytes"] / split["params"] for r in rs]
+        opt_share = [r["opt_bytes"] / split["opt"] for r in rs]
+        if max(param_share) > self.ZERO_PARAM_SHARE_MAX or max(opt_share) > self.ZERO_OPT_SHARE_MAX:
+            fails.append(f"shares: parameters {max(param_share)}, optimizer {max(opt_share)}")
+        steps = [s for r in rs for s in r["steps"]]
+        if any(s["launches"] for s in steps):
+            fails.append("the mesh path launched a port kernel")
+        if any(sum(s["bytes"].values()) != s["collective_bytes"] for s in steps):
+            fails.append("the bytes by kind do not add up to all_reduce's and broadcast's")
+        pred, rel = self.dryrun_held("zero1", predicted, [r["steps"][0]["bytes"] for r in rs],
+                                     [r["peak_gib"] or 0.0 for r in rs], fails)
+        row = dict(arch=plan["gates_cfg"].name, n_layers=plan["gates_cfg"].n_layers, mesh=self.ZERO_MESH,
+                   axes=_MESH_AXES[3], losses=losses[0], one_process_losses=[w["loss"] for w in want],
+                   loss_rel=loss_rel, grad_norm_rel=norm_rel, param_diff_share=diff,
+                   fault_moved_share=plan["gates_fault_moved"], param_share=param_share, opt_share=opt_share,
+                   rules_param_share=split["rules_params"] / split["params"],
+                   rules_opt_share=split["rules_opt"] / split["opt"],
+                   share_max=dict(params=self.ZERO_PARAM_SHARE_MAX, opt=self.ZERO_OPT_SHARE_MAX),
+                   bytes_per_step=first["bytes"], peak_gib=[r["peak_gib"] for r in rs], dryrun_peak_gib=pred,
+                   dryrun_peak_rel=rel, **self.walls(ranks, part), part_s=ranks[0][part]["part_s"])
+        self.rows[part] = row
+        _p(f"phase 19: {part} (llama3.2-1b, f32, ZeRO-1 over pod on a (2, 2, 2) mesh of the same 8 gloo ranks, "
+           f"against the one-process step of lm_mesh_gates; card: {self.smi}): {json.dumps(row)}")
+        if fails:
+            raise AssertionError(f"phase 19 {part}: " + "; ".join(fails))
+
     # ---- the dry run of the card's cells, on the CPU beside the phase ------------
 
     def dryrun_cells(self):
-        """(name, shape, seq, global batch, n_micro) of the cells the world
-        runs: lm_mesh_2x4's step and lm_mesh_serve_2x4's prefill and decode
-        step, at the card's shapes."""
-        S, N = self.SERVE_LEN, self.SERVE_NEW
-        return [("train", "train_4k", self.SEQ, self.BATCH, self.MICRO),
-                ("prefill", "prefill_32k", S, self.SERVE_PROMPTS, None),
-                ("decode", "decode_32k", S + N, self.SERVE_PROMPTS, None)]
+        """(name, arch, config, shape, seq, global batch, n_micro, mesh) of
+        the cells the world runs, at the card's shapes: lm_mesh_2x4's step,
+        lm_mesh_serve_2x4's prefill and decode step, each family's prefill,
+        decode step and train step, and zero1_2x2x2's step."""
+        S, N, mesh = self.SERVE_LEN, self.SERVE_NEW, "x".join(map(str, self.MESH))
+        llama = self.config(self.ARCH, n_periods=self.LM_PERIODS)
+        cells = [("train", self.ARCH, llama, "train_4k", self.SEQ, self.BATCH, self.MICRO, mesh),
+                 ("prefill", self.ARCH, llama, "prefill_32k", S, self.SERVE_PROMPTS, None, mesh),
+                 ("decode", self.ARCH, llama, "decode_32k", S + N, self.SERVE_PROMPTS, None, mesh)]
+        if "families_tp_2x4" in self.PARTS:
+            for arch, cut, train_cut in self.FAMILIES:
+                cfg = self.family_cfg(arch, cut)
+                cells += [(f"{arch}/prefill", arch, cfg, "prefill_32k", self.FAM_LEN, self.FAM_PROMPTS, None, mesh),
+                          (f"{arch}/decode", arch, cfg, "decode_32k", self.FAM_LEN + self.FAM_EXTRA, self.FAM_PROMPTS,
+                           None, mesh),
+                          (f"{arch}/train", arch, self.family_cfg(arch, train_cut), "train_4k", self.SEQ, self.BATCH,
+                           self.FAM_MICRO, mesh)]
+        if "zero1_2x2x2" in self.PARTS:
+            cells.append(("zero1", self.ARCH, llama.replace(n_periods=self.SHALLOW, dtype="float32"), "train_4k",
+                          self.SEQ, self.BATCH, self.ZERO_MICRO, "x".join(map(str, self.ZERO_MESH))))
+        return cells
 
     def start_dryrun(self):
-        """``launch.dryrun.run_cell`` for dryrun_cells on the (2, 4) mesh,
-        under the fake group, in a process of its own on the CPU (no card
-        visible), started before the world so that the two overlap."""
+        """``launch.dryrun.run_cell`` for dryrun_cells, under the fake group,
+        in a process of its own on the CPU (no card visible), started before
+        the world so that the two overlap."""
         import os
 
         import pickle
 
         out = self.root / "build" / f"phase19-dryrun-{os.getpid()}"
         out.mkdir(parents=True, exist_ok=True)
-        (out / "cfg.pkl").write_bytes(pickle.dumps(self.config(self.ARCH)))
+        (out / "cells.pkl").write_bytes(pickle.dumps(self.dryrun_cells()))
         code = (
             "import json, pickle, sys\n"
             "from repro_torch.launch.dryrun import run_cell\n"
-            "cfg = pickle.load(open(sys.argv[1] + '/cfg.pkl', 'rb'))\n"
-            "recs = {n: run_cell(%r, shape, False, sys.argv[1], force=True, micro=micro, mesh_shape=%r, seq=seq,\n"
-            "                    batch=batch, cfg=cfg) for n, shape, seq, batch, micro in %r}\n"
+            "cells = pickle.load(open(sys.argv[1] + '/cells.pkl', 'rb'))\n"
+            "recs = {n: run_cell(arch, shape, False, sys.argv[1], force=True, micro=micro, mesh_shape=mesh, seq=seq,\n"
+            "                    batch=batch, cfg=cfg) for n, arch, cfg, shape, seq, batch, micro, mesh in cells}\n"
             "json.dump(recs, open(sys.argv[1] + '/cells.json', 'w'), default=str)\n"
-        ) % (self.ARCH, "x".join(map(str, self.MESH)), self.dryrun_cells())
+        )
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1", PYTHONPATH=str(self.root / "src"))
         log = open(out / "log.txt", "w")
         proc = subprocess.Popen([sys.executable, "-c", code, str(out)], cwd=self.root, env=env, stdout=log,
@@ -5733,7 +6269,7 @@ class _Phase19:
         from repro_torch.train import init_train_state, make_train_step
 
         torch, dev = self.torch, self.dev
-        llama = self.config(self.ARCH)
+        llama = self.config(self.ARCH, n_periods=self.LM_PERIODS)
         dcfg = SyntheticConfig(vocab=llama.vocab, seq_len=self.SEQ, global_batch=self.BATCH)
         state = init_train_state(llama, self.SEED, device=dev)
         full_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state.params) + tree_leaves(state.opt))
@@ -5775,15 +6311,227 @@ class _Phase19:
         self.free()
 
         serve = self.serve_references(llama) if "lm_mesh_serve_2x4" in self.PARTS else {}
+        fam = self.family_references() if "families_tp_2x4" in self.PARTS else {}
+        if "zero1_2x2x2" in self.PARTS:
+            self.zero_one = dict(state_bytes=self.state_split(gates, self.GATES_SEED))
         plan = dict(llama=llama, seed=self.SEED, opt=self.OPT, seq=self.SEQ, batch=self.BATCH, micro=self.MICRO,
                     steps=self.STEPS, gates_cfg=gates, gates_seed=self.GATES_SEED, gates_opt=self.GATES_OPT,
                     moe_fwd_cfg=cfg32.replace(moe_impl="shard_map"),
                     moe_cfg=self.config(self.MOE_ARCH, n_periods=1), moe_seed=self.MOE_SEED, moe_opt=self.MOE_OPT,
                     moe_x=moe_x, moe_y=moe_y, mesh=self.MESH, small_mesh=self.SMALL_MESH,
                     ckpt=f"{self.tmp}/ckpt", timeout_s=self.TIMEOUT_S, mem_fraction=self.RANK_MEM_FRACTION,
+                    draw_fraction=self.DRAW_FRACTION,
                     device=f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else str(dev),
-                    one=one, gates_one=gates_losses, gates_moved=moved, gates_fault_moved=fault_moved, **serve)
+                    one=one, gates_one=gates_losses, gates_moved=moved, gates_fault_moved=fault_moved,
+                    fam=fam, fam_prompts=self.FAM_PROMPTS, fam_len=self.FAM_LEN, fam_new=self.FAM_NEW, fam_extra=self.FAM_EXTRA,
+                    fam_gate_prompts=self.FAM_GATE_PROMPTS,
+                    fam_micro=self.FAM_MICRO, copy_to_leaves=self.COPY_TO_LEAVES, zero_mesh=self.ZERO_MESH,
+                    zero_micro=self.ZERO_MICRO, **serve)
         return plan, refs
+
+    # ---- families_tp_2x4's one-process runs ---------------------------------------
+
+    def family_cfg(self, arch, cut, **kw):
+        """The family at its published widths, the depth cut, bf16 (or
+        ``kw``), the MoE at DROP_FREE."""
+        cfg = self.config(arch, **cut, **kw)
+        return cfg if cfg.moe is None else cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=self.DROP_FREE))
+
+    def family_references(self):
+        """For each family, its one-process runs on the card (``family_one``),
+        kept here for the judge; the ranks' plan gets the configs, seeds
+        and token inputs only."""
+        self.fam_one, plan = {}, {}
+        for k, (arch, cut, train_cut) in enumerate(self.FAMILIES):
+            plan[arch], self.fam_one[arch] = self.family_one(arch, cut, train_cut, self.FAM_SEED + 10 * k)
+            self.free()
+        return plan
+
+    def family_one(self, arch, cut, train_cut, seed):
+        """One family in one process: (1) bf16 prefill of the prompts and
+        greedy decode; (2) the f32 gate at 1 period, sound and with the
+        family's fault (FAM_FAULTS); (3) the train step's loss and gradient
+        norm (deepseek-v2: the mean over the data shards of ``loss_fn``'s
+        forward and backward, the mesh step's definition) and the reading of
+        the copy_to leaves' gradients taken tp times."""
+        from repro_torch.data import SyntheticConfig
+        from repro_torch.models import decode_step, init_params, prefill
+        from repro_torch.models.common import tree_leaves, tree_map, tree_paths
+        from repro_torch.optim import AdamWConfig, global_norm
+        from repro_torch.train import init_train_state, make_train_step
+        from repro_torch.train.step import _accumulated
+
+        torch, dev = self.torch, self.dev
+        cfg = self.family_cfg(arch, cut)
+        P, S, N = self.FAM_PROMPTS, self.FAM_LEN, self.FAM_NEW
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        prompts = torch.randint(0, cfg.vocab, (P, S), generator=gen, dtype=torch.int32)
+        params = _open_cross_gates(torch, cfg, init_params(cfg, seed, device=dev), seed)
+        img = _images(torch, cfg, P, seed)
+        batch = {"tokens": prompts.to(dev)}
+        if img is not None:
+            img = batch["image_embeds"] = img.to(dev)
+        t0 = time.perf_counter()
+        drops = _MoEDrops(torch)
+        with torch.no_grad(), drops:
+            logits, cache = prefill(cfg, params, batch, S_cache=S + self.FAM_EXTRA)
+            cache_leaves = [t.numel() * t.element_size() for t in tree_leaves(cache)]
+            toks, out = [torch.argmax(logits, -1).to(torch.int32)], [logits.float().cpu()]
+            for i in range(N - 1):
+                logits, cache = decode_step(cfg, params, cache, toks[-1], S + i, img=img)
+                toks.append(torch.argmax(logits, -1).to(torch.int32))
+                out.append(logits.float().cpu())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        dropped = {"serve": drops.share()}
+        del params, cache, logits, batch, img
+        self.free()
+
+        # the f32 gate, a prefill, sound and faulty
+        cfg32 = self.family_cfg(arch, dict(n_periods=1), dtype="float32")
+        gate_toks = torch.randint(0, cfg.vocab, (self.FAM_GATE_PROMPTS, self.FAM_GATE_LEN), generator=gen,
+                                  dtype=torch.int32)
+        params = _open_cross_gates(torch, cfg32, init_params(cfg32, seed + 1, device=dev), seed + 1)
+        batch = {"tokens": gate_toks.to(dev)}
+        img = _images(torch, cfg32, self.FAM_GATE_PROMPTS, seed + 1)
+        if img is not None:
+            batch["image_embeds"] = img.to(dev)
+        runs = {}
+        for name in ("sound", "fault"):
+            with torch.no_grad(), (self.family_fault(arch) if name == "fault" else contextlib.nullcontext()):
+                runs[name] = prefill(cfg32, params, batch)[0].cpu()
+        del params, batch, img
+        self.free()
+
+        # the train step
+        tp = self.MESH[1]
+        cfg = self.family_cfg(arch, train_cut)
+        dcfg = SyntheticConfig(vocab=cfg.vocab, seq_len=self.SEQ, global_batch=self.BATCH)
+        batch = _train_batch(torch, cfg, dcfg, 0, seed + 3, dev)
+        drops.reset()
+        drops.__enter__()
+        if cfg.moe is None:
+            state = init_train_state(cfg, seed + 2, device=dev)
+            _open_cross_gates(torch, cfg, state.params, seed + 2)
+            _open_cross_gates(torch, cfg, state.opt["master"], seed + 2)
+            state, m = make_train_step(cfg, AdamWConfig(**self.OPT), n_micro=self.FAM_MICRO)(state, batch)
+            train = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+            grads = state.opt["m"]  # at learning rate 0, (1 − β1)·the clipped gradient
+            paths = list(tree_paths(grads))
+        else:  # the mean over the data shards of loss_fn's forward and backward
+            params = init_params(cfg, seed + 2, device=dev)
+            n_dp, rows = self.MESH[0], self.BATCH // self.MESH[0]
+            total, losses = None, []
+            for d in range(n_dp):
+                shard = {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()}
+                loss, g, _ = _accumulated(cfg, params, shard, self.FAM_MICRO)
+                losses.append(float(loss))
+                if total is None:
+                    total = tree_map(lambda x: x.float(), g)
+                else:
+                    tree_map(lambda a, b: a.add_(b.float()), total, g)
+                del g
+            grads = tree_map(lambda x: x / n_dp, total)
+            del total, params
+            train = dict(loss=sum(losses) / n_dp, grad_norm=float(global_norm(grads)))
+            paths = list(tree_paths(grads))
+        drops.__exit__()
+        dropped["train"] = drops.share()
+        sq = [float((x.detach().double() ** 2).sum()) for x in tree_leaves(grads)]
+        leaf_is_copy = [path[-1] in self.COPY_TO_LEAVES and "mixer" in path for path in paths]
+        share = sum(v for v, c in zip(sq, leaf_is_copy) if c) / sum(sq)
+        fault_norm = math.sqrt(1 + (tp**2 - 1) * share) - 1
+        # a copy_to leaf's moment (or gradient) taken tp times: tp times the
+        # leaf, under a clipping scale that the larger norm lowers
+        train.update(fault_share=share, fault_grad_norm_rel=fault_norm,
+                     fault_leaf_rel=(tp / (1 + fault_norm) if cfg.moe is None else tp) - 1)
+        copy_leaves = {"/".join(map(str, p)): x.detach().float().cpu() for p, x, c in
+                       zip(paths, tree_leaves(grads), leaf_is_copy) if c}
+        del grads
+        self.free()
+        one = dict(logits=torch.stack(out, 1), tokens=torch.stack(toks, 1).cpu(), cache_leaves=cache_leaves,
+                   gate=runs["sound"], serve_s=serve_s, train=train, copy_to_leaves=copy_leaves, dropped=dropped,
+                   fault_rel=_max_rel(runs["fault"], runs["sound"]))
+        plan = dict(cfg=self.family_cfg(arch, cut), cfg32=cfg32, cfg_train=cfg, seed=seed, prompts=prompts,
+                    tokens=one["tokens"], gate_tokens=gate_toks, train="step" if cfg.moe is None else "loss")
+        return plan, one
+
+    @contextlib.contextmanager
+    def family_fault(self, arch):
+        """The family's fault (FAM_FAULTS) in the one-process port, as a mesh
+        of MESH would make it."""
+        import torch.nn.functional as F
+
+        from repro_torch.models import attention, rglru, ssm
+        from repro_torch.models.common import rms_norm
+
+        torch, tp, kind = self.torch, self.MESH[1], self.FAM_FAULTS[arch]
+        saved = []
+
+        def patch(mod, name, fn):
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+
+        if kind == "ssd_norm_per_rank":
+            def per_rank(y, z, scale, cfg, mesh):
+                g = (y * F.silu(z))
+                parts = g.reshape(*g.shape[:-1], tp, -1)
+                normed = torch.cat([rms_norm(c, torch.zeros(c.shape[-1], device=c.device), cfg.norm_eps)
+                                    for c in parts.unbind(-2)], -1)
+                return normed * (1.0 + scale.to(g.dtype))
+
+            patch(ssm, "_gated_norm", per_rank)
+        elif kind == "gate_sum_left_out":
+            real = rglru._gates
+
+            def own_rows(p, u, cfg, mesh=None, chans=None):
+                R = p["rg_wa"].shape[0]
+                blk = torch.arange(R, device=u.device) // (R // tp)
+                mask = (blk[:, None] == blk[None, :]).to(p["rg_wa"].dtype)
+                return real(dict(p, rg_wa=p["rg_wa"] * mask, rg_wx=p["rg_wx"] * mask), u, cfg, mesh, chans)
+
+            patch(rglru, "_gates", own_rows)
+        else:
+            for name in ("_mla_weights", "_cross_weights"):
+                real_w = getattr(attention, name)
+
+                def left_out(p, cfg, real_w=real_w):
+                    w, mesh, heads = real_w(p, cfg)
+                    wo = w["wo"].clone()
+                    n = wo.shape[0] // tp
+                    wo[self.FAULT_MODEL_RANK * n:(self.FAULT_MODEL_RANK + 1) * n] = 0
+                    return dict(w, wo=wo), mesh, heads
+
+                patch(attention, name, left_out)
+        try:
+            yield
+        finally:
+            for mod, name, fn in reversed(saved):
+                setattr(mod, name, fn)
+
+    def state_split(self, cfg, seed):
+        """The bytes of a one-process state of ``cfg`` and the rules' bytes a
+        rank of ZERO_MESH holds: parameters and optimizer state apart."""
+        from repro_torch.models import transformer as tfm
+        from repro_torch.models.common import is_shape, tree_leaves
+        from repro_torch.sharding import Mesh, PartitionSpec
+        from repro_torch.sharding import collectives as col
+        from repro_torch.train import state_pspecs
+
+        mesh = Mesh(self.ZERO_MESH, _MESH_AXES[len(self.ZERO_MESH)])
+        specs = state_pspecs(cfg, mesh)
+        is_spec = lambda x: isinstance(x, PartitionSpec)  # noqa: E731
+        shapes = tree_leaves(tfm.params_shapes(cfg), is_leaf=is_shape)
+        out = dict(params=0, opt=0, rules_params=0, rules_opt=0)
+        for (shape, dtype), ps, os in zip(shapes, tree_leaves(specs.params, is_leaf=is_spec),
+                                          tree_leaves(specs.opt["master"], is_leaf=is_spec)):
+            n = math.prod(shape)
+            out["params"] += n * dtype.itemsize
+            out["opt"] += 3 * n * 4
+            out["rules_params"] += math.prod(col.block_shape(shape, ps, mesh)) * dtype.itemsize
+            out["rules_opt"] += 3 * math.prod(col.block_shape(shape, os, mesh)) * 4
+        return out
 
     def serve_references(self, llama):
         """lm_mesh_serve_2x4's one-process runs on the card: in bf16 at full
@@ -5885,6 +6633,7 @@ class _Phase19:
     # ---- a gloo world on the card ------------------------------------------------
 
     def world(self, n, plan, refs):
+        import os
         import queue as queue_lib
 
         import torch.multiprocessing as mp
@@ -5901,9 +6650,22 @@ class _Phase19:
                  for r in range(n)]
         ranks = {}
         t0 = time.perf_counter()
+        # the ranks' allocator settings come from the environment they start
+        # with: unpickling ``refs`` (CUDA IPC) initializes the card before a
+        # rank's own code runs, and without expandable segments a rank holding
+        # recurrentgemma's train state kept ≈8 GiB of the card (measured on
+        # one H100)
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         try:
-            for p in procs:
-                p.start()
+            try:
+                for p in procs:
+                    p.start()
+            finally:
+                if alloc_conf is None:
+                    del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+                else:
+                    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
             while len(ranks) < n:
                 left = self.DEADLINE_S - (time.perf_counter() - t0)
                 try:

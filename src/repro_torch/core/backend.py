@@ -16,6 +16,9 @@ that device; a machine without CUDA therefore raises unless the caller asks
 for ``device="cpu"``.
 
 ``resolve_fused`` keeps reading ``REPRO_FUSED_QR``, as the reference does.
+``kernel_blocks`` answers the reference's dispatch-time question, which
+blocks a kernel takes at a shape, from ``kernels.autotune.best_blocks``: the
+closed-form plans the kernels take (no cache file, no sweep).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ __all__ = [
     "resolve_device",
     "as_tensor",
     "as_generator",
+    "kernel_blocks",
 ]
 
 BACKENDS = ("auto", "reference")
@@ -106,3 +110,14 @@ def as_generator(key, device) -> torch.Generator:
     raise TypeError(
         f"key must be a torch.Generator or an int seed, got {type(key).__name__}"
     )
+
+
+def kernel_blocks(kind: str, m: int, n: int, d: int, dtype, device=None) -> dict:
+    """The plan ``kind``'s kernel takes for A (m, n) sketched to d rows in
+    ``dtype`` on ``device`` (``kernels.autotune.best_blocks``: the engine's
+    reduction split, B4's cluster, B8's passes and panel; ``{}`` for B1).
+    The reference's ``REPRO_AUTOTUNE=0`` (the kernels' defaults) has no
+    counterpart: the plans are the kernels' own."""
+    from ..kernels.autotune import best_blocks
+
+    return best_blocks(kind, m, n, d, dtype, device)

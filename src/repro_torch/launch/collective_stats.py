@@ -33,14 +33,16 @@ def _ring_bytes(collective: str, nbytes: float, ranks: int) -> float:
 
 def collective_stats(bytes_by_kind=None) -> dict:
     """Returns ``{"total_bytes", "total_handoff_bytes", "by_kind": {kind:
-    {"count", "bytes", "handoff_bytes", "op"}}, "by_axes": {axes: bytes}}``.
+    {"count", "bytes", "handoff_bytes", "op", "axes"}}, "by_axes": {axes:
+    bytes}}``.
 
     ``bytes_by_kind``: ``{kind: {(collective, axes, group size): (calls,
     bytes handed over)}}``, default the live ``collectives.CALLS``.
     ``bytes`` are per-rank link traffic under ring algorithms (the
     reference's layout and formulas), ``handoff_bytes`` the bytes handed to
-    the collectives (``collectives.BYTES``); ``by_axes`` keys are the mesh
-    axes joined by ``+``.  Kinds with no call are left out, as the
+    the collectives (``collectives.BYTES``); ``by_axes`` keys, and each
+    kind's ``axes`` (the groups it runs over, whose link the dry run's
+    roofline names), are the mesh axes joined by ``+``.  Kinds with no call are left out, as the
     reference lists only the ops it finds."""
     if bytes_by_kind is None:
         from ..sharding.collectives import CALLS as bytes_by_kind
@@ -48,15 +50,17 @@ def collective_stats(bytes_by_kind=None) -> dict:
     for kind, calls in bytes_by_kind.items():
         for (collective, axes, ranks), (count, nbytes) in calls.items():
             ring = _ring_bytes(collective, nbytes, ranks)
-            rec = by_kind.setdefault(kind, {"count": 0, "bytes": 0.0, "handoff_bytes": 0, "op": set()})
+            rec = by_kind.setdefault(kind, {"count": 0, "bytes": 0.0, "handoff_bytes": 0, "op": set(), "axes": set()})
+            key = "+".join(axes)
             rec["count"] += count
             rec["bytes"] += ring
             rec["handoff_bytes"] += nbytes
             rec["op"].add(RING_OP[collective])
-            key = "+".join(axes)
+            rec["axes"].add(key)
             by_axes[key] = by_axes.get(key, 0.0) + ring
             total += ring
             handoff += nbytes
     for rec in by_kind.values():
         rec["op"] = "/".join(sorted(rec["op"]))
+        rec["axes"] = sorted(rec["axes"])
     return {"total_bytes": total, "total_handoff_bytes": handoff, "by_kind": by_kind, "by_axes": by_axes}

@@ -57,11 +57,13 @@ The roofline uses ``full``'s exact counts and ``launch.mesh.HW``'s H100
 constants; the collective term divides each mesh axis's ring bytes by the
 rate of the link its group crosses (``_link``): NVLink within a node of
 ``NODE_CARDS`` cards (ranks in row-major order, 8 consecutive ranks a
-node), the network beyond it.  Cells are written one JSON file each under
-``--out`` (default ``build/dryrun``) with the reference's keys.  On
-``--mesh multi`` the train cells need ZeRO-1 over ``pod``, which
-``jit_train_step`` refuses: their status is the error, as the reference
-records a failed cell.  Every cell's wall time is printed.
+node), the network beyond it; ``kind_links`` names the link each kind of
+collective (``collectives.BYTES``) crosses.  Cells are written one JSON
+file each under ``--out`` (default ``build/dryrun``) with the reference's
+keys.  On ``--mesh multi`` the train cells take ZeRO-1 over ``pod``
+(``jit_train_step``), counted under the kinds ``zero_grad`` and
+``zero_param``.  A failed cell's status is its error, as the reference
+records it.  Every cell's wall time is printed.
 """
 from __future__ import annotations
 
@@ -498,6 +500,8 @@ def roofline(cfg: ModelConfig, shape: ShapeConfig, mesh, counts: dict) -> dict:
         link, bw = _link(mesh, axes)
         links[axes] = {"link": link, "bytes_per_s": bw, "ring_bytes": nbytes, "t_s": nbytes / bw}
     t_coll = sum(v["t_s"] for v in links.values())
+    kind_links = {kind: {axes: links[axes]["link"] for axes in rec["axes"]}
+                  for kind, rec in counts["coll_by_kind"].items()}
     return {
         "card": CARD,
         "constants": {k: {"value": v, "source": s} for k, (v, s) in CONSTANTS.items()},
@@ -512,15 +516,13 @@ def roofline(cfg: ModelConfig, shape: ShapeConfig, mesh, counts: dict) -> dict:
         "t_memory_s": t_mem,
         "t_collective_s": t_coll,
         "links": links,
+        "kind_links": kind_links,
         "bottleneck": max([("compute", t_comp), ("memory", t_mem), ("collective", t_coll)], key=lambda kv: kv[1])[0],
     }
 
 
 # ---------------------------------------------------------------------------
 # a cell
-
-
-_HELD_WHOLE = ("ssd", "rglru")
 
 
 def _mesh_of(multi_pod: bool, mesh_shape):
@@ -573,9 +575,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str, force=Fa
         "global_batch": shape.global_batch,
         "smoke": smoke,
     }
-    if shape.kind != "train" and any(s.mixer in _HELD_WHOLE for s in cfg.prefix + cfg.pattern + cfg.suffix):
-        rec["deviations"] = ["the SSD/RG-LRU states and conv tails are held whole over 'model' (the rules split "
-                             "conv_x over 'inner' and h/conv over 'rnn'); ROADMAP A14c, part 2"]
     try:
         with fake_world(dims, axes) as mesh:
             n_micro = micro if micro else pick_micro(shape, mesh)

@@ -17,32 +17,40 @@ scaled by tanh(gate)) and DeepSeek-V2's multi-head latent attention
 (``mla_*``: a latent KV cache and the weight-absorbed decode) are the
 reference's too.
 
-Under a mesh (``sharding.use_mesh``) ``gqa_apply`` takes each rank's
+Under a mesh (``sharding.use_mesh``) every mixer here takes each rank's
 blocks and its rows and runs tensor-parallel over ``model`` (the
-reference's ``act_heads`` constraints): each model rank projects its own
-slice of the query heads (``wq`` column-parallel), the KV heads those
-query heads use (head h uses KV head h // (H/KV); ``kv_heads`` is
-replicated by the rules), attends, and multiplies by its rows of ``wo``
-(row-parallel), followed by one sum over ``model``.  The weights arrive
-through the FSDP gather over ``data``.  Where the heads do not split over
-``model`` every model rank computes the whole block on its rows, with the
-weights gathered whole.
+reference's ``act_heads`` constraints), one body with or without a mesh
+(``common.tp_weights``): the weights arrive through the FSDP gather over
+``data`` only; each model rank computes its own slice of the heads (the
+columns of ``wq``, MLA's ``wq_b`` and ``wkv_b``) and multiplies by its
+rows of ``wo``, followed by one sum over ``model``.  GQA and
+cross-attention project the KV heads their query heads use (head h uses
+KV head h // (H/KV); ``kv_heads`` is replicated by the rules); MLA
+computes the whole latent and k_rope on every rank (``lora`` is
+replicated).  Every weight the rules replicate over ``model`` but that is
+used inside the region (``wk``, ``wv``, the qk norms, the cross gate,
+MLA's ``wq_a``, ``wkv_a`` and latent norms) enters it through
+``collectives.copy_to``, so its gradient is summed over ``model`` exactly
+once.  Where the heads do not split over ``model`` every model rank
+computes the whole block on its rows, with the weights gathered whole.
 
 Serving under a mesh, each rank holds its rows of every GQA and MLA cache
 and, where the rules split ``cache_seq`` (over ``model`` by default), only
 its slice of the positions (of a window's ring, its slice of the ``L``
-slots).  A prompt's keys and values (``gqa_prefill``), and MLA's latent,
-are projected only at the positions this rank holds, with the whole
-``wk``/``wv`` (which the rules replicate over ``model``).  A decode step
-(``gqa_decode``, ``mla_decode``) computes every query head (``wq``
-gathered whole), writes the new token on the rank that holds its slot,
-attends over the rank's positions and combines the ranks' partial
-attentions in f32 (``_combine``: the running max by an ``all_reduce`` MAX,
-then the sums of exponentials and the weighted values by ``all_reduce``
-SUMs, counted as ``collectives.BYTES["attn_combine"]``).  GQA's output
-then goes through the rank's rows of ``wo`` and one sum over ``model``, as
-in ``gqa_apply``; MLA's weights are whole (``transformer`` gathers them).
-With no mesh the combine is the identity and the body is the one-process
+slots).  A prompt's keys and values (``gqa_prefill``), and MLA's latent
+(``mla_prefill``), are projected only at the positions this rank holds,
+with the whole ``wk``/``wv`` (``wkv_a``), which the rules replicate over
+``model``.  A decode step (``gqa_decode``, ``mla_decode``) writes the new
+token on the rank that holds its slot; each rank projects its own heads'
+queries (MLA: the absorbed q̃ and q_rope) and gathers every head's over
+``model`` (``_every_head``, kind ``head_gather``: (B, H/tp, d) blocks, no
+weight is gathered whole), attends with every head over its own positions
+and combines the ranks' partial attentions in f32 (``_combine``: the
+running max by an ``all_reduce`` MAX, then the sums of exponentials and
+the weighted values by ``all_reduce`` SUMs, counted as
+``collectives.BYTES["attn_combine"]``); its own heads' output then goes
+through its rows of ``wo`` and one sum over ``model``.  With no mesh the
+gather and the combine are the identity and the body is the one-process
 decode.
 
 No Pallas kernel runs here in the reference, so none is owed; the products
@@ -57,7 +65,7 @@ import torch
 from .. import sharding
 from ..configs.base import MLAConfig, ModelConfig
 from ..sharding import collectives as col
-from .common import PSpec, apply_rope, gather_tree, make_rope, mesh_specs, rms_norm
+from .common import PSpec, apply_rope, make_rope, rms_norm, tp_weights
 
 NEG_INF = -1e30
 
@@ -76,6 +84,7 @@ __all__ = [
     "mla_specs",
     "mla_latent",
     "mla_apply",
+    "mla_prefill",
     "mla_init_cache",
     "mla_cache_axes",
     "mla_decode",
@@ -226,27 +235,35 @@ def gqa_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def _kv_cols(cfg: ModelConfig, heads):
+    """The KV heads query heads ``heads`` = (h0, Hl) use (head h uses KV
+    head h // (H/KV)): (the columns of ``wk``/``wv`` that hold them, their
+    count, and the index of each query head's KV head among them where a
+    group is split between ranks, else ``None``)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h0, Hl = heads or (0, H)
+    G = H // KV
+    if Hl % G == 0:  # whole groups: KV heads h0/G … (h0 + Hl)/G − 1, in order
+        return slice(h0 // G * hd, (h0 + Hl) // G * hd), Hl // G, None
+    kv_of = [(h0 + i) // G for i in range(Hl)]  # a group split between ranks
+    return slice(kv_of[0] * hd, (kv_of[-1] + 1) * hd), kv_of[-1] - kv_of[0] + 1, [j - kv_of[0] for j in kv_of]
+
+
 def _project_qkv(p, h, cfg: ModelConfig, positions, *, heads=None, mesh=None):
     """The roped queries, keys and values of the normed input ``h``:
     (B, Hl, S, hd), (B, n_kv, S, hd) and (B, n_kv, S, hd).
 
     ``heads`` = (h0, Hl): only query heads h0 … h0 + Hl − 1 (``p["wq"]`` holds
     their columns) and, repeated so head i of them reads its own, the KV
-    heads they use (head h uses KV head h // (H/KV)); default every head.
-    The weights used whole here (``wk``, ``wv``, the qk norms) enter through
+    heads they use (``_kv_cols``); default every head.  The weights used
+    whole here (``wk``, ``wv``, the qk norms) enter through
     ``collectives.copy_to`` over ``mesh``'s ``model`` axis, so their
     gradients are summed over ``model`` exactly once (with no mesh, as
     themselves)."""
     B, S, D = h.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h0, Hl = heads or (0, H)
-    G = H // KV
-    if Hl % G == 0:  # whole groups: KV heads h0/G … (h0 + Hl)/G − 1, in order
-        cols, n_kv, expand = slice(h0 // G * hd, (h0 + Hl) // G * hd), Hl // G, None
-    else:  # a group split between ranks: the KV head of each query head
-        kv_of = [(h0 + i) // G for i in range(Hl)]
-        cols, n_kv = slice(kv_of[0] * hd, (kv_of[-1] + 1) * hd), kv_of[-1] - kv_of[0] + 1
-        expand = [j - kv_of[0] for j in kv_of]
+    hd = cfg.head_dim
+    Hl = (heads or (0, cfg.n_heads))[1]
+    cols, n_kv, expand = _kv_cols(cfg, heads)
     q = (h @ p["wq"]).reshape(B, S, Hl, hd).transpose(1, 2)
     k = (h @ col.copy_to(p["wk"], mesh)[:, cols]).reshape(B, S, n_kv, hd).transpose(1, 2)
     v = (h @ col.copy_to(p["wv"], mesh)[:, cols]).reshape(B, S, n_kv, hd).transpose(1, 2)
@@ -259,26 +276,10 @@ def _project_qkv(p, h, cfg: ModelConfig, positions, *, heads=None, mesh=None):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _gqa_weights(p, cfg: ModelConfig, *, whole_q: bool = False):
-    """The weights this rank uses, the mesh its tensor-parallel sums run
-    over (``None`` where every rank computes every head) and its query heads
-    (h0, Hl).  With no mesh, ``p`` and every head.  Under a mesh whose
-    ``model`` axis splits the heads, ``wq`` and ``wo`` are this rank's
-    columns and rows (gathered over ``data``; ``whole_q``: ``wq`` gathered
-    whole, for a decode step that attends with every head), the rest
-    gathered whole; where it does not split them, every weight gathered
-    whole."""
-    H = cfg.n_heads
-    mesh = sharding.current_mesh()
-    if mesh is None:
-        return p, None, (0, H)
-    specs = mesh_specs(gqa_specs(cfg), mesh)
-    tp = mesh.shape.get("model", 1)
-    if tp == 1 or H % tp or specs["wq"].axes(1) != ("model",) or specs["wo"].axes(0) != ("model",):
-        return gather_tree(p, gqa_specs(cfg), mesh), None, (0, H)
-    own = ("wo",) if whole_q else ("wq", "wo")
-    w = {k: col.gather_param(t, specs[k], mesh, whole=k not in own) for k, t in p.items()}
-    return w, mesh, (mesh.axis_index("model") * (H // tp), H // tp)
+def _gqa_weights(p, cfg: ModelConfig):
+    """``tp_weights`` for GQA: ``wq`` column-parallel, ``wo`` row-parallel
+    over the query heads."""
+    return tp_weights(p, gqa_specs(cfg), cfg.n_heads, ("wq",), ("wo",))
 
 
 def gqa_apply(p, x, cfg: ModelConfig, *, window=None, pos_offset=0):
@@ -367,6 +368,15 @@ def gqa_cache_axes():
     }
 
 
+def _every_head(q, mesh):
+    """A decode step's queries of this rank's heads (B, Hl, d), concatenated
+    with the other model ranks' into every head's (B, H, d): the cache holds
+    only this rank's positions, which every head attends over (a gather over
+    ``model``, kind ``head_gather``).  With no head split (``mesh`` ``None``),
+    ``q``."""
+    return q if mesh is None else col.gather(q.contiguous(), 1, "model", mesh, kind="head_gather")
+
+
 def gqa_decode(p, x, cache, step: int, cfg: ModelConfig, *, window=None):
     """x (B, D), one token at absolute position ``step`` (an int).
 
@@ -375,23 +385,24 @@ def gqa_decode(p, x, cache, step: int, cfg: ModelConfig, *, window=None):
     ``step % L`` with a window (the ring buffer) and ``min(step, L - 1)``
     without one, as in the reference.  Under a mesh ``cache`` holds this
     rank's slots a … a + n − 1 of the L (``_seq_split``): the rank holding
-    the slot writes it, each attends over its own and the ranks' attentions
-    are combined; the output goes through this rank's rows of ``wo`` and
-    one sum over ``model``.
+    the slot writes it; each rank projects the queries of its own heads,
+    gathers every head's (``_every_head``), attends over its own slots, and
+    the ranks' attentions are combined; its heads' output goes through its
+    rows of ``wo`` and one sum over ``model``.
     """
     B, D = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    p, mesh, (h0, Hl) = _gqa_weights(p, cfg, whole_q=True)
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    p, mesh, (h0, Hl) = _gqa_weights(p, cfg)
     _, over, i, parts = _seq_split()
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = (h @ p["wq"]).reshape(B, H, hd)
+    q = (h @ p["wq"]).reshape(B, Hl, hd)
     k = (h @ p["wk"]).reshape(B, KV, hd)
     v = (h @ p["wv"]).reshape(B, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = make_rope(torch.full((1,), step, device=x.device), hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
+    q = _every_head(apply_rope(q, cos, sin), mesh)
     k = apply_rope(k, cos, sin)
 
     n = cache["k"].shape[2]
@@ -402,8 +413,8 @@ def gqa_decode(p, x, cache, step: int, cfg: ModelConfig, *, window=None):
         cache["v"][:, :, slot - a] = v.to(cache["v"].dtype)
     slots = a + torch.arange(n, device=x.device)
     valid = ((slots <= step) | (step >= L)).expand(B, n)
-    o = decode_attention(q, cache["k"], cache["v"], valid, over=over).reshape(B, H * hd)
-    return x + col.reduce_from(o[:, h0 * hd:(h0 + Hl) * hd] @ p["wo"], mesh), cache
+    o = decode_attention(q, cache["k"], cache["v"], valid, over=over)[:, h0:h0 + Hl].reshape(B, Hl * hd)
+    return x + col.reduce_from(o @ p["wo"], mesh), cache
 
 
 # ===========================================================================
@@ -425,41 +436,60 @@ def cross_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _image_kv(p, img, cfg: ModelConfig):
-    """The image's keys (qk-normed) and values, (B, KV, P, hd) each."""
+def _cross_weights(p, cfg: ModelConfig):
+    """``tp_weights`` for cross-attention: ``wq`` column-parallel, ``wo``
+    row-parallel over the query heads."""
+    return tp_weights(p, cross_specs(cfg), cfg.n_heads, ("wq",), ("wo",))
+
+
+def _image_kv(p, img, cfg: ModelConfig, heads=None, mesh=None):
+    """The image's keys (qk-normed) and values of the KV heads query heads
+    ``heads`` use (``_kv_cols``; default every head), (B, n_kv, P, hd) each;
+    ``wk``, ``wv`` and ``k_norm`` enter through ``copy_to`` over ``mesh``."""
     if img is None:
         raise ValueError("a cross-attention layer needs the image embeddings (batch['image_embeds'] or img=)")
     B, P_img, _ = img.shape
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
-    k = rms_norm((img @ p["wk"]).reshape(B, P_img, KV, hd).transpose(1, 2), p["k_norm"], cfg.norm_eps)
-    v = (img @ p["wv"]).reshape(B, P_img, KV, hd).transpose(1, 2)
+    hd = cfg.head_dim
+    cols, n_kv, expand = _kv_cols(cfg, heads)
+    k = (img @ col.copy_to(p["wk"], mesh)[:, cols]).reshape(B, P_img, n_kv, hd).transpose(1, 2)
+    k = rms_norm(k, col.copy_to(p["k_norm"], mesh), cfg.norm_eps)
+    v = (img @ col.copy_to(p["wv"], mesh)[:, cols]).reshape(B, P_img, n_kv, hd).transpose(1, 2)
+    if expand is not None:
+        k, v = k[:, expand], v[:, expand]
     return k, v
 
 
 def cross_apply(p, x, img, cfg: ModelConfig):
     """x (B,S,D) text; img (B,P,D) precomputed patch embeddings (a stub of
-    the vision tower).  The output is scaled by tanh(gate)."""
+    the vision tower).  The output is scaled by tanh(gate).  Under a mesh,
+    GQA's split: each model rank attends with its own query heads over the
+    KV heads they use, scales by the gate (through ``copy_to``) and
+    multiplies by its rows of ``wo``, followed by one sum over ``model``."""
     B, S, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = rms_norm((h @ p["wq"]).reshape(B, S, H, hd).transpose(1, 2), p["q_norm"], cfg.norm_eps)
-    k, v = _image_kv(p, img, cfg)
+    hd = cfg.head_dim
+    p, mesh, heads = _cross_weights(p, cfg)
+    h = col.copy_to(rms_norm(x, p["ln"], cfg.norm_eps), mesh)
+    q = (h @ p["wq"]).reshape(B, S, heads[1], hd).transpose(1, 2)
+    q = rms_norm(q, col.copy_to(p["q_norm"], mesh), cfg.norm_eps)
+    k, v = _image_kv(p, img, cfg, heads, mesh)
     o = flash_attention(q, k, v, causal=False, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
-    o = o.transpose(1, 2).reshape(B, S, H * hd)
-    return x + torch.tanh(p["gate"]).to(x.dtype) * (o @ p["wo"])
+    o = o.transpose(1, 2).reshape(B, S, heads[1] * hd)
+    return x + col.reduce_from(torch.tanh(col.copy_to(p["gate"], mesh)).to(x.dtype) * (o @ p["wo"]), mesh)
 
 
 def cross_decode(p, x, img, cfg: ModelConfig):
     """One-token cross-attention; the image acts as a fixed KV cache,
-    projected again at every step as in the reference."""
+    projected again at every step as in the reference (under a mesh, only
+    the KV heads this rank's query heads use)."""
     B, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    p, mesh, heads = _cross_weights(p, cfg)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = rms_norm((h @ p["wq"]).reshape(B, H, hd), p["q_norm"], cfg.norm_eps)
-    k, v = _image_kv(p, img, cfg)
+    q = rms_norm((h @ p["wq"]).reshape(B, heads[1], hd), p["q_norm"], cfg.norm_eps)
+    k, v = _image_kv(p, img, cfg, heads)
     valid = torch.ones((B, k.shape[2]), dtype=torch.bool, device=x.device)
-    o = decode_attention(q, k, v, valid).reshape(B, H * hd)
-    return x + torch.tanh(p["gate"]).to(x.dtype) * (o @ p["wo"])
+    o = decode_attention(q, k, v, valid).reshape(B, heads[1] * hd)
+    return x + col.reduce_from(torch.tanh(p["gate"]).to(x.dtype) * (o @ p["wo"]), mesh)
 
 
 # ===========================================================================
@@ -483,46 +513,83 @@ def mla_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def mla_latent(p, h, cfg: ModelConfig, positions):
+def _mla_weights(p, cfg: ModelConfig):
+    """``tp_weights`` for MLA: ``wq_b`` and ``wkv_b`` column-parallel, ``wo``
+    row-parallel over the heads; ``wq_a``, ``wkv_a`` and the latent norms
+    (``lora``, replicated) whole."""
+    return tp_weights(p, mla_specs(cfg), cfg.n_heads, ("wq_b", "wkv_b"), ("wo",))
+
+
+def mla_latent(p, h, cfg: ModelConfig, positions, mesh=None):
     """The normed latent (..., S, kv_lora) and the roped key half shared by
-    every head (..., S, dr): what the decode cache holds."""
+    every head (..., S, dr): what the decode cache holds (``wkv_a`` and
+    ``kv_ln`` enter through ``copy_to`` over ``mesh``)."""
     m: MLAConfig = cfg.mla
-    kv_a = h @ p["wkv_a"]  # (..., S, kv_lora + dr)
-    latent = rms_norm(kv_a[..., : m.kv_lora], p["kv_ln"], cfg.norm_eps)
+    kv_a = h @ col.copy_to(p["wkv_a"], mesh)  # (..., S, kv_lora + dr)
+    latent = rms_norm(kv_a[..., : m.kv_lora], col.copy_to(p["kv_ln"], mesh), cfg.norm_eps)
     cos, sin = make_rope(positions, m.qk_rope_dim, cfg.rope_theta)
     return latent, apply_rope(kv_a[..., m.kv_lora:], cos, sin)
 
 
-def _mla_qkv(p, h, cfg: ModelConfig, positions):
+def _mla_qkv(p, h, cfg: ModelConfig, positions, Hl: int, mesh=None):
+    """The queries of the ``Hl`` heads ``p["wq_b"]`` holds (their no-rope and
+    roped halves), the latent and k_rope (B, 1, S, dr)."""
     B, S, D = h.shape
-    H = cfg.n_heads
     m: MLAConfig = cfg.mla
     dn, dr = m.qk_nope_dim, m.qk_rope_dim
 
-    q = rms_norm(h @ p["wq_a"], p["q_ln"], cfg.norm_eps) @ p["wq_b"]
-    q = q.reshape(B, S, H, dn + dr).transpose(1, 2)
+    q = rms_norm(h @ col.copy_to(p["wq_a"], mesh), col.copy_to(p["q_ln"], mesh), cfg.norm_eps) @ p["wq_b"]
+    q = q.reshape(B, S, Hl, dn + dr).transpose(1, 2)
     cos, sin = make_rope(positions, dr, cfg.rope_theta)
-    latent, k_rope = mla_latent(p, h, cfg, positions)
-    return q[..., :dn], apply_rope(q[..., dn:], cos, sin), latent, k_rope[:, None]  # k_rope (B, 1, S, dr)
+    latent, k_rope = mla_latent(p, h, cfg, positions, mesh)
+    return q[..., :dn], apply_rope(q[..., dn:], cos, sin), latent, k_rope[:, None]
 
 
 def mla_apply(p, x, cfg: ModelConfig, *, pos_offset=0):
     """Full-sequence MLA block (pre-norm, residual): the latent is expanded
-    to per-head keys and values (the train/prefill path)."""
+    to per-head keys and values (the train/prefill path).  Under a mesh each
+    model rank computes the whole latent and k_rope, its own heads' queries,
+    keys and values (its columns of ``wq_b`` and ``wkv_b``) and multiplies
+    by its rows of ``wo``, followed by one sum over ``model``."""
+    return _mla_attend(*_mla_weights(p, cfg), x, cfg, pos_offset)
+
+
+def _mla_attend(p, mesh, heads, x, cfg: ModelConfig, pos_offset):
+    """``mla_apply`` on the weights, mesh and heads of ``_mla_weights``."""
     B, S, D = x.shape
-    H = cfg.n_heads
+    Hl = heads[1]
     m: MLAConfig = cfg.mla
     dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_dim
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = col.copy_to(rms_norm(x, p["ln"], cfg.norm_eps), mesh)
     positions = pos_offset + torch.arange(S, device=x.device)
-    q_nope, q_rope, latent, k_rope = _mla_qkv(p, h, cfg, positions)
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, h, cfg, positions, Hl, mesh)
 
-    kv = (latent @ p["wkv_b"]).reshape(B, S, H, dn + dv).transpose(1, 2)
-    k = torch.cat([kv[..., :dn], k_rope.expand(B, H, S, dr)], dim=-1)
+    kv = (latent @ p["wkv_b"]).reshape(B, S, Hl, dn + dv).transpose(1, 2)
+    k = torch.cat([kv[..., :dn], k_rope.expand(B, Hl, S, dr)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = flash_attention(q, k, kv[..., dn:], causal=True, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
-    o = o.transpose(1, 2).reshape(B, S, H * dv)
-    return x + o @ p["wo"]
+    o = o.transpose(1, 2).reshape(B, S, Hl * dv)
+    return x + col.reduce_from(o @ p["wo"], mesh)
+
+
+def mla_prefill(p, x, cache, cfg: ModelConfig):
+    """``mla_apply`` over a prompt (B, S, D), writing into ``cache`` in place
+    the latent and k_rope of the positions this rank's slots hold (its
+    slots a … a + n − 1 of the S_cache; the prompt's first positions at
+    slots of their own).  Under a mesh the weights are gathered once for
+    both."""
+    B, S, D = x.shape
+    w, mesh, heads = _mla_weights(p, cfg)
+    _, _, i, parts = _seq_split()
+    n = cache["latent"].shape[1]
+    a = i * n
+    end = min(a + n, S, n * parts)
+    if a < end:
+        h = rms_norm(x[:, a:end], w["ln"], cfg.norm_eps)
+        latent, k_rope = mla_latent(w, h, cfg, torch.arange(a, end, device=x.device))
+        cache["latent"][:, :end - a] = latent.to(cache["latent"].dtype)
+        cache["k_rope"][:, :end - a] = k_rope.to(cache["k_rope"].dtype)
+    return _mla_attend(w, mesh, heads, x, cfg, 0)
 
 
 def mla_init_cache(cfg: ModelConfig, B: int, S: int, dtype, device=None):
@@ -547,18 +614,21 @@ def mla_decode(p, x, cache, step: int, cfg: ModelConfig):
     ctx = attn·latent; out_h = ctx·W_uv, with W_uk and W_uv slices of
     ``wkv_b``: no key or value is expanded per head.  Writes the token's
     latent and k_rope into ``cache`` in place (slot ``min(step, S − 1)``)
-    and returns ``(x, cache)``.  Under a mesh ``p`` is whole and ``cache``
-    holds this rank's slots of the S (``_seq_split``): the rank holding the
-    slot writes it, and each rank's ctx over its own positions is combined
-    with the others'.
+    and returns ``(x, cache)``.  Under a mesh ``cache`` holds this rank's
+    slots of the S (``_seq_split``) and the rank holding the slot writes it;
+    each rank computes q̃ and q_rope of its own heads (its columns of
+    ``wq_b`` and ``wkv_b``), gathers every head's (``head_gather``: small
+    (B, H/tp, kv_lora + dr) blocks, never a weight), attends over its own
+    positions, combines its ctx with the other ranks' and applies its
+    heads' W_uv and its rows of ``wo``, followed by one sum over ``model``.
     """
     B, D = x.shape
-    H = cfg.n_heads
     m: MLAConfig = cfg.mla
     dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_dim
+    p, tp_mesh, (h0, Hl) = _mla_weights(p, cfg)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
 
-    q = (rms_norm(h @ p["wq_a"], p["q_ln"], cfg.norm_eps) @ p["wq_b"]).reshape(B, H, dn + dr)
+    q = (rms_norm(h @ p["wq_a"], p["q_ln"], cfg.norm_eps) @ p["wq_b"]).reshape(B, Hl, dn + dr)
     pos = torch.full((1,), step, device=x.device)
     cos, sin = make_rope(pos, dr, cfg.rope_theta)
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
@@ -573,13 +643,16 @@ def mla_decode(p, x, cache, step: int, cfg: ModelConfig):
         cache["k_rope"][:, slot - a] = k_rope_new[0].to(cache["k_rope"].dtype)
     latent, k_rope = cache["latent"], cache["k_rope"]
 
-    wkv_b = p["wkv_b"].reshape(m.kv_lora, H, dn + dv)
-    q_abs = torch.einsum("bhd,lhd->bhl", q_nope, wkv_b[..., :dn])  # (B, H, kv_lora)
+    wkv_b = p["wkv_b"].reshape(m.kv_lora, Hl, dn + dv)
+    q_abs = torch.einsum("bhd,lhd->bhl", q_nope, wkv_b[..., :dn])  # (B, Hl, kv_lora)
+    if tp_mesh is not None:
+        qs = _every_head(torch.cat([q_abs, q_rope.to(q_abs.dtype)], -1), tp_mesh)
+        q_abs, q_rope = qs[..., :m.kv_lora], qs[..., m.kv_lora:]
     s = (torch.einsum("bhl,bsl->bhs", q_abs.float(), latent.float())
          + torch.einsum("bhr,bsr->bhs", q_rope.float(), k_rope.float())) / math.sqrt(dn + dr)
     valid = a + torch.arange(n, device=x.device) <= step
     s = torch.where(valid, s, NEG_INF)
     probs = torch.softmax(s, dim=-1)
-    ctx = _combine(torch.einsum("bhs,bsl->bhl", probs.to(latent.dtype), latent), s, over, mesh)
-    o = torch.einsum("bhl,lhd->bhd", ctx, wkv_b[..., dn:]).reshape(B, H * dv)
-    return x + o @ p["wo"], cache
+    ctx = _combine(torch.einsum("bhs,bsl->bhl", probs.to(latent.dtype), latent), s, over, mesh)[:, h0:h0 + Hl]
+    o = torch.einsum("bhl,lhd->bhd", ctx, wkv_b[..., dn:]).reshape(B, Hl * dv)
+    return x + col.reduce_from(o @ p["wo"], tp_mesh), cache

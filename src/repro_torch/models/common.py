@@ -12,7 +12,7 @@ here the layer loops are plain Python loops and they have no counterpart.
 ``constrain`` (a sharding annotation) is ``sharding.constrain``, the
 identity.  Under a mesh (``sharding.use_mesh``) the model functions take
 each rank's blocks: ``mesh_specs`` gives a module's blocks' specs and
-``gather_tree`` brings a module's blocks whole for replicated use.
+``tp_weights`` the weights a tensor-parallel module uses on this rank.
 
 Tree helpers (``tree_paths``, ``tree_leaves``, ``tree_map``) visit dict keys
 in sorted order and lists in order, as JAX flattens a pytree; ``None`` holds
@@ -46,7 +46,7 @@ __all__ = [
     "conv_step",
     "DTYPES",
     "mesh_specs",
-    "gather_tree",
+    "tp_weights",
 ]
 
 DTYPES = {
@@ -267,10 +267,31 @@ def mesh_specs(specs, mesh):
     return tree_map(lambda s: logical_to_spec(s.axes, mesh, rules, shape=s.shape), specs, is_leaf=_is_pspec)
 
 
-def gather_tree(p, specs, mesh):
-    """Every block of the parameter tree ``p`` gathered whole
-    (``collectives.gather_param(whole=True)``): a module that every model
-    rank computes entirely on its rows."""
+def tp_weights(p, specs, units: int, split=(), row=()):
+    """The weights a tensor-parallel module uses on this rank, the mesh its
+    sums over ``model`` run on, and its share (i0, n) of the ``units``
+    (heads or channels) the module splits over ``model``.
+
+    With no mesh (``sharding.use_mesh``): ``p``, ``None`` and every unit.
+    Under a mesh whose ``model`` axis splits the units (the rules place the
+    leaves ``split`` by their last dimension and those of ``row`` by their
+    first over ``model``), every weight is gathered over the data axes only:
+    a ``model``-split leaf stays this rank's block, the rest are whole, and
+    the module passes those through ``collectives.copy_to`` where it uses
+    them inside its region.  Where ``model`` does not split the units, every
+    weight is gathered whole and the module runs whole on every model rank
+    (mesh ``None``)."""
+    from .. import sharding
     from ..sharding.collectives import gather_param
 
-    return tree_map(lambda w, s: gather_param(w, s, mesh, whole=True), p, mesh_specs(specs, mesh))
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return p, None, (0, units)
+    placed = mesh_specs(specs, mesh)
+    tp = mesh.shape.get("model", 1)
+    whole = (tp == 1 or units % tp or any(placed[k].axes(len(specs[k].shape) - 1) != ("model",) for k in split)
+             or any(placed[k].axes(0) != ("model",) for k in row))
+    w = {k: gather_param(t, placed[k], mesh, whole=whole) for k, t in p.items()}
+    if whole:
+        return w, None, (0, units)
+    return w, mesh, (mesh.axis_index("model") * (units // tp), units // tp)

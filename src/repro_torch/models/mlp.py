@@ -9,10 +9,9 @@ computes the whole block with the weights gathered whole.
 """
 from __future__ import annotations
 
-from .. import sharding
 from ..configs.base import ModelConfig
 from ..sharding import collectives as col
-from .common import PSpec, activation, gather_tree, mesh_specs, rms_norm
+from .common import PSpec, activation, rms_norm, tp_weights
 
 GATED = {"silu_glu", "gelu_glu"}
 
@@ -35,14 +34,7 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 def mlp_apply(p, x, cfg: ModelConfig):
     """Pre-norm FFN with residual.  Under a mesh, ``p`` is this rank's
     blocks and ``x`` its rows."""
-    mesh = sharding.current_mesh()
-    if mesh is not None:
-        specs = mesh_specs(mlp_specs(cfg), mesh)
-        if mesh.shape.get("model", 1) > 1 and specs["w_out"].axes(0) == ("model",) and all(
-                specs[k].axes(1) == ("model",) for k in ("w_in", "w_gate") if k in p):
-            p = {k: col.gather_param(w, specs[k], mesh, whole=k == "ln") for k, w in p.items()}
-        else:  # mlp does not split over model: every model rank computes the whole block
-            p, mesh = gather_tree(p, mlp_specs(cfg), mesh), None
+    p, mesh, _ = tp_weights(p, mlp_specs(cfg), cfg.d_ff, [k for k in ("w_in", "w_gate") if k in p], ("w_out",))
     h = col.copy_to(rms_norm(x, p["ln"], cfg.norm_eps), mesh)
     up = h @ p["w_in"]
     act = activation(cfg.act, up, h @ p["w_gate"]) if cfg.act in GATED else activation(cfg.act, up)

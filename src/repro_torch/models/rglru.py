@@ -13,6 +13,19 @@ recurrence over the sequence with a log-depth doubling scan in torch ops
 the two agree to rounding, not bitwise.  Decode carries the f32 state
 ``h`` and the convolution's input tail, O(1) a token.  No Pallas kernel
 runs here in the reference.
+
+Under a mesh (``sharding.use_mesh``) the block runs tensor-parallel over
+``model`` on each rank's rows, one body with or without a mesh
+(``common.tp_weights``): a rank holds R/tp channels, its ``rnn`` columns of
+``w_main``, ``w_gate``, ``conv_w`` and ``conv_b`` and its rows of ``w_out``
+(row-parallel, followed by one sum over ``model``).  ``rg_wa`` and ``rg_wx``
+are ``("rnn", None)``: a rank holds their rows, so ``u_local @ rows`` is a
+partial sum of the R×R gate product, reduced over ``model`` and scattered
+to the rank's R/tp columns before the sigmoid (``collectives.scatter_sum``,
+in f32 where more than two ranks add, its gradient gathered backward; kind
+``rnn_gate``).  ``rg_ba``, ``rg_bx`` and ``lam`` (replicated) enter through
+``copy_to`` and are cut to the rank's channels; the scan runs on them.  The
+decode cache follows the rules: ``h`` and ``conv`` are the rank's channels.
 """
 from __future__ import annotations
 
@@ -20,12 +33,14 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import PSpec, causal_conv, conv_step, rms_norm
+from ..sharding import collectives as col
+from .common import PSpec, causal_conv, conv_step, rms_norm, tp_weights
 
 __all__ = [
     "rglru_specs",
     "linear_scan",
     "rglru_apply",
+    "rglru_prefill",
     "rglru_init_cache",
     "rglru_cache_axes",
     "rglru_decode",
@@ -51,11 +66,26 @@ def rglru_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _gates(p, u, cfg: ModelConfig):
-    """u (..., R) -> (a, scaled input b) in f32."""
-    r = torch.sigmoid((u @ p["rg_wa"]).float() + p["rg_ba"])
-    i = torch.sigmoid((u @ p["rg_wx"]).float() + p["rg_bx"])
-    a = torch.exp(-cfg.rglru.c * F.softplus(p["lam"]) * r)
+def _rglru_weights(p, cfg: ModelConfig):
+    """``tp_weights`` for RG-LRU, over its channels: the ``rnn`` columns of
+    the input side, the rows of ``rg_wa``, ``rg_wx`` and ``w_out``."""
+    return tp_weights(p, rglru_specs(cfg), cfg.d_rnn, ("w_main", "w_gate", "conv_w", "conv_b"),
+                      ("rg_wa", "rg_wx", "w_out"))
+
+
+def _gates(p, u, cfg: ModelConfig, mesh=None, chans=None):
+    """u (..., R) -> (a, scaled input b) in f32.  Under a mesh ``u`` is this
+    rank's channels ``chans`` = (c0, n) and ``p["rg_wa"]``/``p["rg_wx"]``
+    its rows: the products are summed over ``model`` and cut to the rank's
+    columns (``scatter_sum``)."""
+    sl = slice(chans[0], chans[0] + chans[1]) if chans else slice(None)
+
+    def gate(w, b):
+        return torch.sigmoid(col.scatter_sum(u @ w, -1, mesh, kind="rnn_gate").float() + col.copy_to(b, mesh)[sl])
+
+    r = gate(p["rg_wa"], p["rg_ba"])
+    i = gate(p["rg_wx"], p["rg_bx"])
+    a = torch.exp(-cfg.rglru.c * F.softplus(col.copy_to(p["lam"], mesh)[sl]) * r)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     return a, beta * (i * u.float())
 
@@ -75,19 +105,31 @@ def linear_scan(a, b):
 def rglru_apply(p, x, cfg: ModelConfig, *, return_state=False, state0=None):
     """Full-sequence Griffin recurrent block.  x (B, S, D).  ``state0``
     (B, R) enters before the first position; with ``return_state``, also
-    (the last f32 state, the convolution's input tail) for the cache."""
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    (the last f32 state, the convolution's input tail) for the cache (under
+    a mesh, this rank's channels of both)."""
+    p, mesh, chans = _rglru_weights(p, cfg)
+    h = col.copy_to(rms_norm(x, p["ln"], cfg.norm_eps), mesh)
     pre = h @ p["w_main"]
     u = causal_conv(pre, p["conv_w"], p["conv_b"])
     gate = F.gelu(h @ p["w_gate"], approximate="tanh")
 
-    a, b = _gates(p, u, cfg)  # (B,S,R) f32
+    a, b = _gates(p, u, cfg, mesh, chans)  # (B,S,R) f32
     if state0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * state0[:, None], b[:, 1:]], dim=1)
     hseq = linear_scan(a, b)
-    out = x + (hseq.to(x.dtype) * gate) @ p["w_out"]
+    out = x + col.reduce_from((hseq.to(x.dtype) * gate) @ p["w_out"], mesh)
     if return_state:
         return out, (hseq[:, -1], pre[:, -(cfg.rglru.conv_width - 1):])
+    return out
+
+
+def rglru_prefill(p, x, cache, cfg: ModelConfig):
+    """``rglru_apply`` over a prompt, writing its last state and the
+    convolution's tail into ``cache`` in place (under a mesh, this rank's
+    channels: the rules split ``h`` and ``conv`` over ``rnn``)."""
+    out, (state, tail) = rglru_apply(p, x, cfg, return_state=True)
+    cache["h"].copy_(state)
+    cache["conv"].copy_(tail)
     return out
 
 
@@ -105,14 +147,16 @@ def rglru_cache_axes():
 
 def rglru_decode(p, x, cache, step: int, cfg: ModelConfig):
     """One-token recurrent update.  x (B, D).  Writes the new state and tail
-    into ``cache`` in place and returns ``(x, cache)``."""
+    into ``cache`` in place and returns ``(x, cache)`` (under a mesh, this
+    rank's channels of both)."""
+    p, mesh, chans = _rglru_weights(p, cfg)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     u, tail = conv_step(cache["conv"], h @ p["w_main"], p["conv_w"], p["conv_b"])
     gate = F.gelu(h @ p["w_gate"], approximate="tanh")
 
-    a, b = _gates(p, u, cfg)
+    a, b = _gates(p, u, cfg, mesh, chans)
     h_new = a * cache["h"] + b
     y = (h_new.to(x.dtype) * gate) @ p["w_out"]
     cache["h"].copy_(h_new)
     cache["conv"].copy_(tail)
-    return x + y, cache
+    return x + col.reduce_from(y, mesh), cache

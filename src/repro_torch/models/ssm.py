@@ -11,6 +11,22 @@ reference runs the pass over chunk states as ``lax.associative_scan``;
 torch has none, and the pass is a loop over the S/l chunks (16 at S = 2048
 with l = 128) in chunk order, which rounds differently.  No Pallas kernel
 runs here in the reference; the products are ``torch.einsum``.
+
+Under a mesh (``sharding.use_mesh``) the block runs tensor-parallel over
+``model`` on each rank's rows, one body with or without a mesh
+(``common.tp_weights``): a rank holds nh/tp whole heads, its ``inner``
+columns of ``w_z``, ``w_x``, ``conv_x``, ``conv_b_x`` and ``norm``, and its
+rows of ``w_out`` (row-parallel, followed by one sum over ``model``).  The
+head-wise ``w_dt``, ``A_log``, ``D_skip`` and ``dt_bias`` (replicated by
+the rules) enter through ``collectives.copy_to`` and are cut to the rank's
+heads; ``w_B``, ``w_C`` and their convolutions (``state``, replicated)
+enter through ``copy_to`` and are computed whole on every rank.  The gated
+RMS norm normalizes over the whole d_inner: each rank's sum of squares is
+summed over ``model`` in f32 before the rsqrt (``all_sum``, kind
+``ssd_norm``).  The decode cache follows the rules: ``conv_x`` is the
+rank's columns; the state (``("batch", None, "head_dim", "state")``) is
+whole over ``model``, so each rank updates its heads and the new heads are
+gathered over ``model`` (kind ``state_gather``).
 """
 from __future__ import annotations
 
@@ -18,12 +34,14 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, SSMConfig
-from .common import PSpec, causal_conv, conv_step, rms_norm
+from ..sharding import collectives as col
+from .common import PSpec, causal_conv, conv_step, rms_norm, tp_weights
 
 __all__ = [
     "ssd_specs",
     "ssd_chunked",
     "ssd_apply",
+    "ssd_prefill",
     "ssd_init_cache",
     "ssd_cache_axes",
     "ssd_decode",
@@ -120,30 +138,80 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     return (y_diag + y_off).reshape(b, s, h, p), state
 
 
+def _ssd_weights(p, cfg: ModelConfig):
+    """``tp_weights`` for SSD, over its heads: the ``inner`` leaves
+    column-parallel, ``w_out`` row-parallel."""
+    return tp_weights(p, ssd_specs(cfg), _dims(cfg)[2], ("w_z", "w_x", "conv_x", "conv_b_x", "norm"), ("w_out",))
+
+
+def _head_leaves(p, mesh, heads):
+    """``w_dt``, ``dt_bias``, ``A_log`` and ``D_skip`` cut to this rank's
+    heads (through ``copy_to``)."""
+    sl = slice(heads[0], heads[0] + heads[1])
+    return (col.copy_to(p["w_dt"], mesh)[:, sl], col.copy_to(p["dt_bias"], mesh)[sl],
+            col.copy_to(p["A_log"], mesh)[sl], col.copy_to(p["D_skip"], mesh)[sl])
+
+
+def _gated_norm(y, z, scale, cfg: ModelConfig, mesh):
+    """rms_norm(y ⊙ SiLU(z)) over the whole d_inner, times 1 + ``scale``:
+    under a mesh ``y``, ``z`` and ``scale`` are this rank's columns and the
+    sum of squares is summed over ``model`` in f32 before the rsqrt."""
+    g = y * F.silu(z)
+    if mesh is None:
+        return rms_norm(g, scale, cfg.norm_eps)
+    d_inner = _dims(cfg)[1]
+    g32 = g.float()
+    var = col.all_sum((g32 * g32).sum(-1, keepdim=True), mesh, kind="ssd_norm") / d_inner
+    return (g32 * torch.rsqrt(var + cfg.norm_eps)).to(g.dtype) * (1.0 + scale.to(g.dtype))
+
+
 def ssd_apply(p, x, cfg: ModelConfig, *, return_state: bool = False, h0=None):
     """Full-sequence Mamba2 block (pre-norm, residual).  With
     ``return_state``, also (the final f32 state, the three convolutions'
-    input tails of the last W-1 positions) for the decode cache."""
-    s_cfg, d_inner, nh = _dims(cfg)
+    input tails of the last W-1 positions) for the decode cache: under a
+    mesh the state of this rank's heads and its columns of the x tail."""
+    return _ssd_block(*_ssd_weights(p, cfg), x, cfg, return_state, h0)
+
+
+def _ssd_block(p, mesh, heads, x, cfg: ModelConfig, return_state: bool, h0=None):
+    """``ssd_apply`` on the weights, mesh and heads of ``_ssd_weights``."""
+    s_cfg = cfg.ssm
     B_, S, D = x.shape
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    nh = heads[1]
+    h = col.copy_to(rms_norm(x, p["ln"], cfg.norm_eps), mesh)
+    w_dt, dt_bias, A_log, D_skip = _head_leaves(p, mesh, heads)
 
     z = h @ p["w_z"]
-    pre = {n: h @ p[f"w_{n}"] for n in "xBC"}
+    pre = {"x": h @ p["w_x"], "B": h @ col.copy_to(p["w_B"], mesh), "C": h @ col.copy_to(p["w_C"], mesh)}
     xin = _causal_conv(pre["x"], p["conv_x"], p["conv_b_x"])
-    Bv = _causal_conv(pre["B"], p["conv_B"], p["conv_b_B"])
-    Cv = _causal_conv(pre["C"], p["conv_C"], p["conv_b_C"])
-    dt = F.softplus((h @ p["w_dt"]).float() + p["dt_bias"])  # (B,S,nh)
-    A = -torch.exp(p["A_log"])  # (nh,)
+    Bv = _causal_conv(pre["B"], col.copy_to(p["conv_B"], mesh), col.copy_to(p["conv_b_B"], mesh))
+    Cv = _causal_conv(pre["C"], col.copy_to(p["conv_C"], mesh), col.copy_to(p["conv_b_C"], mesh))
+    dt = F.softplus((h @ w_dt).float() + dt_bias)  # (B,S,nh)
+    A = -torch.exp(A_log)  # (nh,)
 
     xh = xin.reshape(B_, S, nh, s_cfg.head_dim).float()
     y, h_fin = ssd_chunked(xh, dt, A, Bv.float(), Cv.float(), s_cfg.chunk, h0=h0)
-    y = y + p["D_skip"][None, None, :, None] * xh
-    y = y.reshape(B_, S, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = x + y @ p["w_out"]
+    y = y + D_skip[None, None, :, None] * xh
+    y = y.reshape(B_, S, nh * s_cfg.head_dim).to(x.dtype)
+    y = _gated_norm(y, z, p["norm"], cfg, mesh)
+    out = x + col.reduce_from(y @ p["w_out"], mesh)
     if return_state:
         return out, (h_fin, {n: t[:, -(s_cfg.d_conv - 1):] for n, t in pre.items()})
+    return out
+
+
+def ssd_prefill(p, x, cache, cfg: ModelConfig):
+    """``ssd_apply`` over a prompt (B, S, D), writing its final state and the
+    convolutions' tails into ``cache`` in place; under a mesh the new state
+    heads gathered over ``model`` (the state is held whole) and this rank's
+    columns of the x tail."""
+    w, mesh, heads = _ssd_weights(p, cfg)
+    out, (state, tails) = _ssd_block(w, mesh, heads, x, cfg, True)
+    if mesh is not None:
+        state = col.gather(state.contiguous(), 1, "model", mesh, kind="state_gather")
+    cache["state"].copy_(state)
+    for n, t in tails.items():
+        cache[f"conv_{n}"].copy_(t)
     return out
 
 
@@ -176,25 +244,33 @@ def _conv_step(tail, new, w, b):
 def ssd_decode(p, x, cache, step: int, cfg: ModelConfig):
     """One-token recurrent update.  x (B, D).  Writes the new state and
     tails into ``cache`` in place (the reference's functional update,
-    donated) and returns ``(x, cache)``."""
-    s_cfg, d_inner, nh = _dims(cfg)
+    donated) and returns ``(x, cache)``.  Under a mesh each rank updates its
+    heads of the state (held whole over ``model``, as the rules place it)
+    and the new heads are gathered over ``model``."""
+    s_cfg = cfg.ssm
     B_, D = x.shape
+    p, mesh, heads = _ssd_weights(p, cfg)
+    nh = heads[1]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    w_dt, dt_bias, A_log, D_skip = _head_leaves(p, mesh, heads)
 
     z = h @ p["w_z"]
     xin, t_x = _conv_step(cache["conv_x"], h @ p["w_x"], p["conv_x"], p["conv_b_x"])
     Bv, t_B = _conv_step(cache["conv_B"], h @ p["w_B"], p["conv_B"], p["conv_b_B"])
     Cv, t_C = _conv_step(cache["conv_C"], h @ p["w_C"], p["conv_C"], p["conv_b_C"])
-    dt = F.softplus((h @ p["w_dt"]).float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dt = F.softplus((h @ w_dt).float() + dt_bias)
+    A = -torch.exp(A_log)
 
     xh = xin.reshape(B_, nh, s_cfg.head_dim).float()
     dA = torch.exp(dt * A)  # (B, nh)
-    state = cache["state"] * dA[..., None, None] + (dt[..., None] * xh)[..., None] * Bv.float()[:, None, None, :]
+    state = cache["state"][:, heads[0]:heads[0] + nh]
+    state = state * dA[..., None, None] + (dt[..., None] * xh)[..., None] * Bv.float()[:, None, None, :]
     y = torch.einsum("bhpn,bn->bhp", state, Cv.float())
-    y = y + p["D_skip"][None, :, None] * xh
-    y = y.reshape(B_, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = y + D_skip[None, :, None] * xh
+    y = y.reshape(B_, nh * s_cfg.head_dim).to(x.dtype)
+    y = _gated_norm(y, z, p["norm"], cfg, mesh)
+    if mesh is not None:
+        state = col.gather(state, 1, "model", mesh, kind="state_gather")
     for name, new in (("state", state), ("conv_x", t_x), ("conv_B", t_B), ("conv_C", t_C)):
         cache[name].copy_(new)
-    return x + y @ p["w_out"], cache
+    return x + col.reduce_from(y @ p["w_out"], mesh), cache

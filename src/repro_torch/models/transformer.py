@@ -40,34 +40,41 @@ embeddings as ``batch["image_embeds"]``, and ``decode_step(img=)``).
 
 Under a mesh (``sharding.use_mesh``; the train step ``jit_train_step``)
 ``forward``, ``loss_fn`` and ``backbone`` take each rank's blocks and its
-rows of the batch.  Each layer gathers its own weights over ``data`` as it
-runs (ZeRO-3: one layer's weights at a time, again in the backward pass's
-recomputation under ``remat``).  GQA attention, the dense FFN and the MoE
-run tensor-parallel over ``model``; MLA, SSD, RG-LRU and cross-attention
-run on every model rank with their weights gathered whole (their state
-stays sharded by the rules).  The embedding table and the head are
-gathered whole before use, once a call (with tied embeddings the lookup
-and the head share the table); the final norm over ``data``.
+rows of the batch.  Each layer gathers its own weights over the data axes
+as it runs (ZeRO-3: one layer's weights at a time, again in the backward
+pass's recomputation under ``remat``), never over ``model``: every mixer
+(GQA, MLA, cross-attention, SSD, RG-LRU) and the dense and MoE FFNs run
+tensor-parallel over ``model`` (``attention``, ``ssm``, ``rglru``, ``mlp``,
+``moe``).  The tables are vocab-parallel where the rules split ``vocab``
+over ``model`` (``_tables``): each model rank holds V/tp rows of the
+embedding table (and columns of the head), gathered over the data axes
+only; the lookup takes the tokens in its range and zeroes the rest, one
+sum over ``model`` (kind ``vocab_sum``); the head computes each rank's
+columns of the logits, and the cross-entropy combines them in f32 over
+``model`` (the max, Σ exp and the label's logit, kind ``vocab_ce``), its
+chunks still recomputed in the backward pass.  ``forward``, ``prefill``
+and ``decode_step`` return every column of the logits, the ranks' columns
+gathered over ``model`` (kind ``vocab_gather``).  Where ``vocab`` does not
+divide over ``model`` (the rules' divisibility drop) the tables are used
+whole.  The final norm is gathered over the data axes.  With no mesh every
+one of these steps is the identity and the functions are the one-process
+port.
 
 ``prefill`` and ``decode_step`` take the same blocks and the rank's rows
 of the prompts (or tokens) under a mesh, and the caches are each rank's
-blocks (``init_cache``): its rows over the data axes and, for the GQA and
-MLA caches, its slice of the positions over ``model`` (the rules'
-``cache_seq``; a cache's length must divide over it).  The tables, the
-final norm and the replicated mixers are gathered as in ``backbone``; GQA
-attention runs tensor-parallel in prefill and over the split positions in
-decode (``attention``); the FFNs as in ``forward``.  One deviation from
-the rules: the SSD and RG-LRU states and conv tails are held whole over
-``model`` (the rules split ``conv_x`` over ``inner`` and ``h``/``conv``
-over ``rnn``), since those mixers run whole on every model rank until
-their true tensor parallelism (ROADMAP A14c, part 2).  Where the rules
-replicate the batch (a batch that does not divide over the data axes),
-every data rank serves all of it.
+blocks under the rules (``init_cache``, ``cache_specs``): its rows over the
+data axes; for the GQA and MLA caches its slice of the positions over
+``model`` (``cache_seq``; a cache's length must divide over it); SSD's
+``conv_x`` tail its ``inner`` columns and RG-LRU's ``h`` and ``conv`` its
+``rnn`` channels; SSD's state and its B/C tails whole over ``model`` (each
+rank updates its heads, the new heads gathered over ``model``).  Where the
+rules replicate the batch (a batch that does not divide over the data
+axes), every data rank serves all of it.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn as nn
@@ -83,8 +90,7 @@ from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .common import (DTYPES, PSpec, axes_tree, gather_tree, init_tree, is_shape, mesh_specs, rms_norm, shape_tree,
-                     tree_map)
+from .common import DTYPES, PSpec, axes_tree, init_tree, is_shape, mesh_specs, rms_norm, shape_tree, tree_map
 
 __all__ = [
     "layer_specs", "model_specs", "init_params", "params_axes", "params_shapes",
@@ -176,23 +182,9 @@ def _serve_ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
     return x
 
 
-# the mixers that run whole on every model rank under a mesh
-_REPLICATED_MIXERS = ("mla", "cross_attn", "ssd", "rglru")
-
-
-def _mixer_params(p, cfg: ModelConfig, spec: LayerSpec):
-    """The layer's mixer weights as its mixer takes them: under a mesh the
-    replicated mixers' gathered whole, GQA's this rank's blocks (it gathers
-    its own)."""
-    mesh = sharding.current_mesh()
-    if mesh is not None and spec.mixer in _REPLICATED_MIXERS:
-        return gather_tree(p["mixer"], _MIXER_SPECS[spec.mixer](cfg), mesh)
-    return p["mixer"]
-
-
 def apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, img=None, pos_offset=0):
     """Returns (x, aux); aux is 0 without an MoE FFN."""
-    mp = _mixer_params(p, cfg, spec)
+    mp = p["mixer"]
     if spec.mixer == "attn":
         x = attn.gqa_apply(mp, x, cfg, window=spec.window, pos_offset=pos_offset)
     elif spec.mixer == "mla":
@@ -235,14 +227,68 @@ def _period(tree, l: int):
 # ===========================================================================
 
 
-def _embed_inputs(cfg: ModelConfig, params, batch):
+class _Tables(NamedTuple):
+    """The embedding table and the head as a call uses them: with no mesh the
+    parameters; under a mesh where the rules split ``vocab`` over ``model``
+    each rank's V/tp rows of the table and columns of the head (gathered
+    over the data axes only), ``mesh`` the mesh and ``v0`` the rank's first
+    vocabulary entry; else both gathered whole (``mesh`` None)."""
+
+    embed: Any
+    head: torch.Tensor
+    mesh: Any
+    v0: int
+
+
+def _tables(cfg: ModelConfig, params) -> _Tables:
+    """The call's ``_Tables`` (with tied embeddings the lookup and the head
+    share one gathered table)."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return _Tables(params.get("embed"), params["embed"].T if cfg.tie_embeddings else params["head"], None, 0)
+    specs = mesh_specs(model_specs(cfg), mesh)
+    key, vdim = ("embed", 0) if "embed" in params else ("head", 1)
+    split = mesh.shape.get("model", 1) > 1 and specs[key].axes(vdim) == ("model",)
+    gathered = {k: col.gather_param(params[k], specs[k], mesh, whole=not split) for k in ("embed", "head")
+                if k in params}
+    head = gathered["embed"].T if cfg.tie_embeddings else gathered["head"]
+    if not split:
+        return _Tables(gathered.get("embed"), head, None, 0)
+    return _Tables(gathered.get("embed"), head, mesh, mesh.axis_index("model") * head.shape[1])
+
+
+def _lookup(t: _Tables, tokens):
+    """The embeddings of ``tokens``.  Vocab-parallel: each rank looks up the
+    tokens in its range, zeroes the rest, and the ranks' rows are summed
+    over ``model`` (exact: one rank adds a row, the others zeros; the
+    gradient reaches only the rows a rank holds)."""
+    ids = tokens.long()
+    if t.mesh is None:
+        return t.embed[ids]
+    n = t.embed.shape[0]
+    local = ids - t.v0
+    inside = (local >= 0) & (local < n)
+    rows = torch.where(inside[..., None], t.embed[local.clamp(0, n - 1)], 0)
+    return col.reduce_from(rows, t.mesh, kind="vocab_sum")
+
+
+def _logits(t: _Tables, x):
+    """The f32 logits of ``x`` (..., D): vocab-parallel, each rank's columns
+    gathered over ``model`` (``x`` enters through ``copy_to``)."""
+    if t.mesh is None:
+        return (x @ t.head).float()
+    local = (col.copy_to(x, t.mesh) @ t.head).float()
+    return col.gather_cut(local, -1, t.mesh, kind="vocab_gather")
+
+
+def _embed_inputs(cfg: ModelConfig, t: _Tables, batch):
     """(the input embeddings (B, S, D), the image embeddings or None), in
     the model's dtype."""
     dtype = DTYPES[cfg.dtype]
     if cfg.frontend == "frames":
         x = batch["embeds"].to(dtype)
     else:
-        x = params["embed"][batch["tokens"].long()].to(dtype)
+        x = _lookup(t, batch["tokens"]).to(dtype)
     img = batch.get("image_embeds")
     return x, None if img is None else img.to(dtype)
 
@@ -281,31 +327,12 @@ def _final_norm(cfg: ModelConfig, params, x):
     return rms_norm(x, final_ln, cfg.norm_eps)
 
 
-def _head_weight(cfg: ModelConfig, params):
-    return params["embed"].T if cfg.tie_embeddings else params["head"]
-
-
-def _whole_tables(cfg: ModelConfig, params):
-    """Under a mesh: ``params`` with the embedding table and the head
-    gathered whole (a vocab-parallel lookup and cross-entropy would keep
-    them split; they are gathered once a call here, 0.5 GB in bf16 at
-    llama3.2-1b)."""
-    mesh = sharding.current_mesh()
-    if mesh is None:
-        return params
-    specs = mesh_specs(model_specs(cfg), mesh)
-    out = dict(params)
-    for k in ("embed", "head"):
-        if k in params:
-            out[k] = col.gather_param(params[k], specs[k], mesh, whole=True)
-    return out
-
-
 def forward(cfg: ModelConfig, params, batch):
-    """Full logits, f32 (careful: (B,S,V) — use loss_fn for training)."""
-    params = _whole_tables(cfg, params)
-    x, _ = backbone(cfg, params, *_embed_inputs(cfg, params, batch))
-    return (x @ _head_weight(cfg, params)).float()
+    """Full logits, f32 (careful: (B,S,V) — use loss_fn for training).
+    Under a mesh, the rank's rows of them, every column."""
+    t = _tables(cfg, params)
+    x, _ = backbone(cfg, params, *_embed_inputs(cfg, t, batch))
+    return _logits(t, x)
 
 
 def _chunk_ce(xs, ls, w):
@@ -316,24 +343,45 @@ def _chunk_ce(xs, ls, w):
     return (lse - ll).sum()
 
 
+def _chunk_ce_vocab(xs, ls, w, v0: int, mesh):
+    """``_chunk_ce`` with the head's columns split over ``model``: each rank
+    computes the logits of its V/tp columns and the three pieces combine in
+    f32 over ``model``: the running max (an ``all_reduce`` MAX, held
+    constant: the result does not depend on it), Σ exp and the label's
+    logit, taken only on the rank that holds it (both sums
+    ``reduce_from``: each rank's gradient is its own columns' part)."""
+    logits = (xs @ w).float()  # (B, chunk, V/tp)
+    n = logits.shape[-1]
+    m = col.psum_over(logits.detach().amax(-1), "model", mesh, kind="vocab_ce", op="max")
+    sumexp = col.reduce_from(torch.exp(logits - m[..., None]).sum(-1), mesh, kind="vocab_ce")
+    local = ls - v0
+    inside = (local >= 0) & (local < n)
+    ll = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    ll = col.reduce_from(torch.where(inside, ll, 0.0), mesh, kind="vocab_ce")
+    return (torch.log(sumexp) + m - ll).sum()
+
+
 def loss_fn(cfg: ModelConfig, params, batch):
     """Seq-chunked softmax cross-entropy plus the MoE aux loss.  Returns
-    (loss, metrics)."""
-    params = _whole_tables(cfg, params)
-    x, aux = backbone(cfg, params, *_embed_inputs(cfg, params, batch))
-    w = _head_weight(cfg, params)
+    (loss, metrics).  Under a mesh with ``vocab`` split over ``model``, the
+    vocab-parallel cross-entropy (``_chunk_ce_vocab``)."""
+    t = _tables(cfg, params)
+    x, aux = backbone(cfg, params, *_embed_inputs(cfg, t, batch))
     labels = batch["labels"].long()
     B, S = labels.shape
 
     chunk = min(cfg.loss_chunk or S, S)
     while S % chunk:
         chunk -= 1
+    fn, extra = (_chunk_ce, ()) if t.mesh is None else (_chunk_ce_vocab, (t.v0, t.mesh))
+    if t.mesh is not None:
+        x = col.copy_to(x, t.mesh)
     # the chunk's logits are recomputed in the backward pass, never kept
-    ce = functools.partial(checkpoint, _chunk_ce, use_reentrant=False) if torch.is_grad_enabled() else _chunk_ce
+    ce = functools.partial(checkpoint, fn, use_reentrant=False) if torch.is_grad_enabled() else fn
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        total = total + ce(x[:, sl], labels[:, sl], w)
+        total = total + ce(x[:, sl], labels[:, sl], t.head, *extra)
     loss = total / (B * S) + aux
     return loss, {"ce": total / (B * S), "aux": aux}
 
@@ -376,18 +424,18 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, device=None):
 
 def cache_specs(cfg: ModelConfig, B: int, S: int, mesh, rules=None):
     """The caches' specs on ``mesh``: ``cache_axes`` through the rules with
-    each cache's shape, except that the SSD and RG-LRU states and tails
-    keep only their batch split (held whole over ``model``; ROADMAP A14c,
-    part 2).  A cache whose positions the rules split but whose length does
-    not divide over them raises: the decode reads a rank's positions from
-    the rules alone."""
+    each cache's shape.  So the GQA and MLA caches hold a rank's slice of
+    the positions (``cache_seq``), SSD's ``conv_x`` its ``inner`` columns,
+    RG-LRU's ``h`` and ``conv`` its ``rnn`` channels, and SSD's state
+    (``("batch", None, "head_dim", "state")``) and its B/C tails are whole
+    over ``model``.  A cache whose positions the rules split but whose
+    length does not divide over them raises: the decode reads a rank's
+    positions from the rules alone."""
     shapes, axes = _cache_shapes(cfg, B, S), cache_axes(cfg)
     seq_axes = logical_to_spec(("cache_seq",), mesh, rules).axes(0)
 
     def spec(sh, ax, mixer):
         out = logical_to_spec(ax, mesh, rules, shape=sh[0])
-        if mixer in ("ssd", "rglru"):
-            return PartitionSpec(*(e if a == "batch" else None for e, a in zip(out, ax)))
         if "cache_seq" in ax and seq_axes and out.axes(ax.index("cache_seq")) != seq_axes:
             raise ValueError(f"a {mixer} cache of {sh[0][ax.index('cache_seq')]} positions does not split "
                              f"over {seq_axes} ({mesh.axis_size(seq_axes)} ranks): choose a length that does")
@@ -443,7 +491,7 @@ def cache_axes(cfg: ModelConfig):
 
 
 def _decode_layer(p, x, c, step: int, cfg: ModelConfig, spec: LayerSpec, img=None):
-    mp = _mixer_params(p, cfg, spec)
+    mp = p["mixer"]
     if spec.mixer == "attn":
         x, c = attn.gqa_decode(mp, x, c, step, cfg, window=spec.window)
     elif spec.mixer == "mla":
@@ -470,8 +518,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, step, embeds=None, img=
     """
     step = int(step)
     dtype = DTYPES[cfg.dtype]
-    params = _whole_tables(cfg, params)
-    x = embeds.to(dtype) if cfg.frontend == "frames" else params["embed"][tokens.long()].to(dtype)
+    t = _tables(cfg, params)
+    x = embeds.to(dtype) if cfg.frontend == "frames" else _lookup(t, tokens).to(dtype)
     img = None if img is None else img.to(dtype)
     for spec, p, c in zip(cfg.prefix, params["prefix"], cache["prefix"]):
         x, _ = _decode_layer(p, x, c, step, cfg, spec, img)
@@ -482,7 +530,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, step, embeds=None, img=
     for spec, p, c in zip(cfg.suffix, params["suffix"], cache["suffix"]):
         x, _ = _decode_layer(p, x, c, step, cfg, spec, img)
     x = _final_norm(cfg, params, x)
-    return (x @ _head_weight(cfg, params)).float(), cache
+    return _logits(t, x), cache
 
 
 def _prefill_layer(p, x, c, cfg: ModelConfig, spec: LayerSpec, img=None):
@@ -490,33 +538,16 @@ def _prefill_layer(p, x, c, cfg: ModelConfig, spec: LayerSpec, img=None):
     a GQA layer's keys and values of the prompt's last ``L`` positions
     (position t at slot t % L), MLA's latent and k_rope of its first
     ``S_cache`` positions, the recurrent mixers' final state and tails.
-    Under a mesh a rank writes the positions its slots hold only."""
-    B, S, D = x.shape
-    mp = _mixer_params(p, cfg, spec)
+    Under a mesh a rank writes its blocks of the caches only."""
+    mp = p["mixer"]
     if spec.mixer == "attn":
         x = attn.gqa_prefill(mp, x, c, cfg, window=spec.window)
     elif spec.mixer == "mla":
-        # this rank's slots a … a + n − 1 of the S_cache; the prompt's first
-        # positions at slots of their own
-        _, _, i, parts = attn._seq_split()
-        n = c["latent"].shape[1]
-        a = i * n
-        end = min(a + n, S, n * parts)
-        if a < end:
-            h = rms_norm(x[:, a:end], mp["ln"], cfg.norm_eps)
-            latent, k_rope = attn.mla_latent(mp, h, cfg, torch.arange(a, end, device=x.device))
-            c["latent"][:, :end - a] = latent.to(c["latent"].dtype)
-            c["k_rope"][:, :end - a] = k_rope.to(c["k_rope"].dtype)
-        x = attn.mla_apply(mp, x, cfg)
+        x = attn.mla_prefill(mp, x, c, cfg)
     elif spec.mixer == "ssd":
-        x, (state, tails) = ssm_mod.ssd_apply(mp, x, cfg, return_state=True)
-        c["state"].copy_(state)
-        for n, t in tails.items():
-            c[f"conv_{n}"].copy_(t)
+        x = ssm_mod.ssd_prefill(mp, x, c, cfg)
     elif spec.mixer == "rglru":
-        x, (state, tail) = rglru_mod.rglru_apply(mp, x, cfg, return_state=True)
-        c["h"].copy_(state)
-        c["conv"].copy_(tail)
+        x = rglru_mod.rglru_prefill(mp, x, c, cfg)
     elif spec.mixer == "cross_attn":
         x = attn.cross_apply(mp, x, img, cfg)
     return _serve_ffn(p, x, cfg, spec)
@@ -527,8 +558,8 @@ def prefill(cfg: ModelConfig, params, batch, S_cache: int | None = None):
     """Process the prompt; returns (last-token logits (B, V) f32, cache).
     Under a mesh: the rank's blocks and its rows of the batch; the cache is
     the rank's blocks for those rows (``init_cache``)."""
-    params = _whole_tables(cfg, params)
-    x, img = _embed_inputs(cfg, params, batch)
+    t = _tables(cfg, params)
+    x, img = _embed_inputs(cfg, t, batch)
     B, S, _ = x.shape
     cache = _zero_caches(cfg, B, S_cache or S, x.device, split_batch=False)
     for spec, p, c in zip(cfg.prefix, params["prefix"], cache["prefix"]):
@@ -540,7 +571,7 @@ def prefill(cfg: ModelConfig, params, batch, S_cache: int | None = None):
     for spec, p, c in zip(cfg.suffix, params["suffix"], cache["suffix"]):
         x = _prefill_layer(p, x, c, cfg, spec, img)
     x = _final_norm(cfg, params, x)
-    return (x[:, -1] @ _head_weight(cfg, params)).float(), cache
+    return _logits(t, x[:, -1]), cache
 
 
 # ===========================================================================

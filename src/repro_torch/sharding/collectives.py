@@ -15,8 +15,12 @@ a ``jax.Array``'s shards.
   backward), :func:`copy_to` (identity forward, the sum over an axis
   backward: a tensor entering a tensor-parallel region), :func:`reduce_from`
   (the sum over an axis forward, identity backward: a row-parallel
-  product's partial sums leaving it) and :func:`pmean` (the mean over axes
-  both ways).
+  product's partial sums leaving it), :func:`all_sum` (the sum over an
+  axis both ways: a statistic every rank adds its part to and uses whole),
+  :func:`scatter_sum` (the sum over an axis and this rank's block forward,
+  the gradient gathered backward), :func:`gather_cut` (the gather along a
+  dimension forward, this rank's block of the gradient backward) and
+  :func:`pmean` (the mean over axes both ways).
 
 Every collective is an ``all_reduce`` or a ``broadcast`` (the collectives
 PyTorch documents gloo as running on CUDA tensors).  A gather is one
@@ -27,9 +31,19 @@ tensor (in f32 when more than two ranks add, ``_sum_dtype``), of which
 each rank keeps its block.
 
 ``BYTES`` counts the bytes each kind hands to ``all_reduce`` and
-``broadcast`` on this rank (``"gather"``, ``"reduce_scatter"``,
-``"model_sum"``, ``"mean"``, ``"norm"``, and ``"attn_combine"``: a decode
-step's combine of the ranks' attentions over a cache split by position);
+``broadcast`` on this rank: ``"gather"`` (the FSDP gathers),
+``"reduce_scatter"`` (their gradients), ``"model_sum"`` (Megatron's f/g),
+``"mean"``, ``"norm"``, ``"attn_combine"`` (a decode step's combine of the
+ranks' attentions over a cache split by position), ``"vocab_sum"`` (the
+vocab-parallel lookup's sum), ``"vocab_ce"`` (the vocab-parallel
+cross-entropy's max, sum of exponentials and label logit),
+``"vocab_gather"`` (the logits' columns gathered over ``model``),
+``"head_gather"`` (a decode step's queries of every head gathered over
+``model``), ``"ssd_norm"`` (SSD's gated norm's sum of squares),
+``"rnn_gate"`` (RG-LRU's gate products, reduce-scattered),
+``"state_gather"`` (SSD's new state heads gathered over ``model``),
+``"zero_grad"`` and ``"zero_param"`` (ZeRO-1's gradient and parameter
+blocks moved between the parameters' and the optimizer's layouts);
 ``CALLS`` the same calls by kind, collective, mesh axes and group size
 (the count and the bytes of each, which ``launch.collective_stats`` turns
 into ring traffic); ``reset_bytes()`` zeroes both.
@@ -58,10 +72,16 @@ __all__ = [
     "gather_param",
     "copy_to",
     "reduce_from",
+    "all_sum",
+    "scatter_sum",
+    "gather_cut",
+    "reshard",
     "pmean",
 ]
 
-BYTES = {"gather": 0, "reduce_scatter": 0, "model_sum": 0, "mean": 0, "norm": 0, "attn_combine": 0}
+BYTES = {k: 0 for k in ("gather", "reduce_scatter", "model_sum", "mean", "norm", "attn_combine", "vocab_sum",
+                        "vocab_ce", "vocab_gather", "head_gather", "ssd_norm", "rnn_gate", "state_gather",
+                        "zero_grad", "zero_param")}
 # kind -> {(collective, mesh axes, group size): [calls, bytes]}; collective
 # is "all_reduce" or "broadcast"
 CALLS: dict = {k: {} for k in BYTES}
@@ -183,9 +203,19 @@ def _one_dim_spec(ndim: int, dim: int, axis: str) -> PartitionSpec:
     return PartitionSpec(*(axis if i == dim else None for i in range(ndim)))
 
 
-def gather(t: torch.Tensor, dim: int, axis: str, mesh: Mesh) -> torch.Tensor:
+def gather(t: torch.Tensor, dim: int, axis: str, mesh: Mesh, *, kind: str = "gather") -> torch.Tensor:
     """The blocks of ``t`` over mesh axis ``axis`` concatenated along ``dim``."""
-    return unshard(t, _one_dim_spec(t.ndim, dim, axis), mesh, (axis,))
+    return unshard(t, _one_dim_spec(t.ndim, dim, axis), mesh, (axis,), kind=kind)
+
+
+def reshard(t: torch.Tensor, src, dst, mesh: Mesh, axes, *, kind: str) -> torch.Tensor:
+    """This rank's block under spec ``dst`` of the tensor of which ``t`` is
+    its block under ``src``, where the two differ only in how they split
+    dimensions over ``axes``: gathered along the dimensions ``src`` splits
+    over them, then cut (a block under ``dst`` need not lie inside the
+    block under ``src``: ``("pod", "data")`` splits pod-major)."""
+    whole = unshard(t, src, mesh, axes, kind=kind)
+    return whole[block_slices(whole.shape, dst, mesh, axes=axes)]
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -263,12 +293,46 @@ class _CopyTo(torch.autograd.Function):
 
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, mesh):
-        return psum_over(x, axis, mesh, kind="model_sum")
+    def forward(ctx, x, axis, mesh, kind):
+        return psum_over(x, axis, mesh, kind=kind)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, kind):
+        ctx.axis, ctx.mesh, ctx.kind = axis, mesh, kind
+        return psum_over(x, axis, mesh, kind=kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_over(g, ctx.axis, ctx.mesh, kind=ctx.kind), None, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, axis, mesh, kind):
+        ctx.dim, ctx.axis, ctx.mesh, ctx.kind, ctx.dtype = dim, axis, mesh, kind, t.dtype
+        total = psum_over(t, (axis,), mesh, kind=kind, dtype=_sum_dtype(t.dtype, mesh.axis_size(axis)))
+        return total[block_slices(total.shape, _one_dim_spec(t.ndim, dim, axis), mesh)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather(g.contiguous(), ctx.dim, ctx.axis, ctx.mesh, kind=ctx.kind).to(ctx.dtype), None, None, None, None
+
+
+class _GatherCut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, axis, mesh, kind):
+        ctx.dim, ctx.axis, ctx.mesh = dim, axis, mesh
+        return gather(t, dim, axis, mesh, kind=kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[block_slices(g.shape, _one_dim_spec(g.ndim, ctx.dim, ctx.axis), ctx.mesh)], None, None, None, None
 
 
 class _Pmean(torch.autograd.Function):
@@ -288,19 +352,54 @@ def copy_to(x: torch.Tensor, mesh: Mesh | None, axis: str = "model") -> torch.Te
     a region where each rank computes its own part; identity forward, the
     sum over ``axis`` backward, so ``x``'s gradient is whole on every rank.
     With no mesh (``None``), or one rank along ``axis``, ``x`` itself."""
-    if mesh is None or axis not in mesh.axis_names or mesh.axis_size(axis) == 1:
+    if not _tp(mesh, axis):
         return x
     return _CopyTo.apply(x, axis, mesh)
 
 
-def reduce_from(x: torch.Tensor, mesh: Mesh | None, axis: str = "model") -> torch.Tensor:
+def _tp(mesh, axis) -> bool:
+    """Whether ``mesh`` has more than one rank along ``axis``."""
+    return mesh is not None and axis in mesh.axis_names and mesh.axis_size(axis) > 1
+
+
+def reduce_from(x: torch.Tensor, mesh: Mesh | None, axis: str = "model", *, kind: str = "model_sum") -> torch.Tensor:
     """Megatron's *g*: the sum over ``axis`` of each rank's partial result
     forward; identity backward (the gradient is already the same on every
     rank).  With no mesh (``None``), or one rank along ``axis``, ``x``
     itself."""
-    if mesh is None or axis not in mesh.axis_names or mesh.axis_size(axis) == 1:
+    if not _tp(mesh, axis):
         return x
-    return _ReduceFrom.apply(x, axis, mesh)
+    return _ReduceFrom.apply(x, axis, mesh, kind)
+
+
+def all_sum(x: torch.Tensor, mesh: Mesh | None, axis: str = "model", *, kind: str) -> torch.Tensor:
+    """The sum over ``axis`` of each rank's part of a statistic that every
+    rank then uses whole (a norm's sum of squares over split columns):
+    forward and backward (each rank's gradient of it is its own part of the
+    whole's).  With no mesh, or one rank along ``axis``, ``x`` itself."""
+    if not _tp(mesh, axis):
+        return x
+    return _AllSum.apply(x, axis, mesh, kind)
+
+
+def scatter_sum(t: torch.Tensor, dim: int, mesh: Mesh | None, axis: str = "model", *, kind: str) -> torch.Tensor:
+    """Σ over ``axis`` of each rank's partial ``t`` (in f32 where more than
+    two ranks add, ``_sum_dtype``, and returned in that dtype), this rank's
+    block of it along ``dim``; backward, the gradient's blocks gathered
+    along ``dim``.  With no mesh, or one rank along ``axis``, ``t``
+    itself."""
+    if not _tp(mesh, axis):
+        return t
+    return _ScatterSum.apply(t, dim, axis, mesh, kind)
+
+
+def gather_cut(t: torch.Tensor, dim: int, mesh: Mesh | None, axis: str = "model", *, kind: str) -> torch.Tensor:
+    """The ranks' blocks of ``t`` along ``axis`` concatenated along ``dim``
+    (a result every rank then uses whole); backward, this rank's block of
+    the gradient.  With no mesh, or one rank along ``axis``, ``t`` itself."""
+    if not _tp(mesh, axis):
+        return t
+    return _GatherCut.apply(t, dim, axis, mesh, kind)
 
 
 def pmean(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:

@@ -13,9 +13,14 @@ the batch (``batch_pspec``).  Inside ``loss_fn`` each layer gathers its
 weights over ``data`` as it runs and the tensor-parallel modules sum over
 ``model`` (``sharding.collectives``); the backward pass reduce-scatters
 each weight's gradient to its block.  Micro-batches are accumulated in
-``cfg.grad_accum_dtype``, the gradients are the mean over ``data``, AdamW
-runs on the blocks with the global norm summed over the shards, and the
-loss is the mean over ``data`` (the same on every rank).
+``cfg.grad_accum_dtype``, the gradients are the mean over the data axes,
+AdamW runs on the optimizer's blocks with the global norm summed over the
+shards, and the loss is the mean over the data axes (the same on every
+rank).  On a mesh with a ``pod`` axis the optimizer state is split further
+than the parameters (ZeRO-1, ``OPT_RULES``): each gradient block is moved
+to the optimizer's block before the update and each new parameter block
+rebuilt from the optimizer's blocks after it
+(``collectives.reshard``).
 
 ``make_dp_train_step`` — pure data parallelism over a ``torch.distributed``
 group: every rank holds the whole state and passes its own rows of the
@@ -109,7 +114,9 @@ def state_shapes(cfg: ModelConfig) -> TrainState:
 def state_pspecs(cfg: ModelConfig, mesh, rules=None) -> TrainState:
     """The state's specs on ``mesh``: the parameters under ``rules`` (default
     ``DEFAULT_RULES``), the master and the moments under ``OPT_RULES``
-    (ZeRO-1 over ``pod``) unless ``rules`` is given."""
+    (ZeRO-1: the ``embed`` dimension split over ``("pod", "data")``, where
+    the parameters split it over ``data``) unless ``rules`` is given.  On a
+    mesh with no ``pod`` axis the two agree."""
     axes = tfm.params_axes(cfg)
     shapes = tfm.params_shapes(cfg)
     pspecs = tree_pspecs(axes, mesh, rules, shapes_tree=shapes)
@@ -129,9 +136,9 @@ def shard_state(cfg: ModelConfig, state: TrainState, mesh, rules=None, *, device
     """This rank's blocks of ``state`` (``state_pspecs``), each a copy on
     ``device`` (default: the leaf's own), made leaf by leaf; the caller
     drops the full state.  ``state.opt=None`` makes the optimizer state
-    from the parameter blocks (an f32 master copy and zero moments: the
-    blocks of ``adamw_init`` of the whole), so no rank ever holds the whole
-    state."""
+    from the parameters' blocks under the optimizer's specs (an f32 master
+    copy and zero moments: the blocks of ``adamw_init`` of the whole), so no
+    rank ever holds the whole state."""
     specs = state_pspecs(cfg, mesh, rules)
 
     def block(t, spec):
@@ -139,7 +146,8 @@ def shard_state(cfg: ModelConfig, state: TrainState, mesh, rules=None, *, device
 
     params = tree_map(block, state.params, specs.params)
     if state.opt is None:
-        opt = adamw_init(params, moments_dtype=DTYPES[cfg.opt_moments_dtype])
+        opt = adamw_init(tree_map(block, state.params, specs.opt["master"]),
+                         moments_dtype=DTYPES[cfg.opt_moments_dtype])
     else:
         opt = {k: tree_map(block, state.opt[k], specs.opt[k]) for k in state.opt}
     return TrainState(step=state.step.clone(), params=params, opt=opt)
@@ -149,14 +157,24 @@ def init_sharded_state(cfg: ModelConfig, key, mesh, rules=None, *, device=None) 
     """This rank's blocks of ``init_train_state(cfg, key, device=device)``,
     bit for bit: each parameter is drawn whole on ``device``, as
     ``init_params`` draws it, and cut to its block at once (one whole leaf
-    is held at a time); the master and the moments are made from the
-    blocks."""
-    specs = state_pspecs(cfg, mesh, rules).params
-    spec_of = dict(zip(tree_paths(specs, is_leaf=_is_spec), tree_leaves(specs, is_leaf=_is_spec)))
-    params = tfm.init_params(cfg, key, device=device,
-                             keep=lambda path, t: collectives.shard_block(t, spec_of[path], mesh))
-    return TrainState(step=torch.zeros((), dtype=torch.int32), params=params,
-                      opt=adamw_init(params, moments_dtype=DTYPES[cfg.opt_moments_dtype]))
+    is held at a time); the master and the moments are made from its
+    blocks under the optimizer's specs."""
+    specs = state_pspecs(cfg, mesh, rules)
+
+    def specs_of(tree):
+        return dict(zip(tree_paths(tree, is_leaf=_is_spec), tree_leaves(tree, is_leaf=_is_spec)))
+
+    p_of, o_of = specs_of(specs.params), specs_of(specs.opt["master"])
+
+    def keep(path, t):
+        block = collectives.shard_block(t, p_of[path], mesh)
+        return block, block if o_of[path] == p_of[path] else collectives.shard_block(t, o_of[path], mesh)
+
+    both = tfm.init_params(cfg, key, device=device, keep=keep)
+    pair = lambda x: isinstance(x, tuple) and len(x) == 2 and torch.is_tensor(x[0])  # noqa: E731
+    params = tree_map(lambda x: x[0], both, is_leaf=pair)
+    opt = adamw_init(tree_map(lambda x: x[1], both, is_leaf=pair), moments_dtype=DTYPES[cfg.opt_moments_dtype])
+    return TrainState(step=torch.zeros((), dtype=torch.int32), params=params, opt=opt)
 
 
 def _loss_and_grads(cfg: ModelConfig, params, batch):
@@ -222,43 +240,58 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, n_micro: int = 1)
 def jit_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, *, n_micro: int = 1, rules=None):
     """The FSDP × TP train step on ``mesh``: every rank calls ``step(state,
     batch) -> (state, metrics)`` with its blocks of the state
-    (``shard_state``) and its rows of the batch (``batch_pspec``; the rows
-    of its ``data`` coordinate), and updates its blocks in place.
+    (``shard_state``, ``init_sharded_state``) and its rows of the batch
+    (``batch_pspec``; the rows of its coordinates over the data axes), and
+    updates its blocks in place.
 
     A weight's gradient comes back from the backward pass summed over the
-    data ranks and cut to this rank's block; a weight replicated over
-    ``model`` is whole on every model rank, its uses inside a
-    tensor-parallel region summed over ``model`` once (``copy_to``).  The
-    parameters' and the optimizer state's specs must agree: the reference's
-    ZeRO-1 over ``pod`` (``OPT_RULES``) has no port and raises, as does a
-    dimension split over a data axis and ``model`` at once.  Metrics:
-    ``loss``, ``ce`` (the means over ``data`` and the micro-batches),
-    ``aux`` (the MoE layers' aux losses, each the mean of the data shards'),
-    ``grad_norm`` and ``lr``; the same on every rank."""
+    data ranks and cut to this rank's parameter block; a weight replicated
+    over ``model`` is whole on every model rank, its uses inside a
+    tensor-parallel region summed over ``model`` once (``copy_to``).  Where
+    the optimizer state is split otherwise than the parameters (ZeRO-1 over
+    ``pod``: ``OPT_RULES`` split ``embed`` over ``("pod", "data")``, or a
+    dimension the product does not divide, which the rules leave whole), the
+    gradient block is moved to the optimizer's block before the update
+    (kind ``zero_grad``) and the new parameter block rebuilt from the
+    optimizer's blocks after it, in the parameters' dtype (kind
+    ``zero_param``): both a gather over the data axes and a cut
+    (``collectives.reshard``), since a block split pod-major over ``("pod",
+    "data")`` need not lie inside a rank's ``data`` block.  The global norm
+    counts each entry once, under the optimizer's specs.  A dimension split
+    over a data axis and ``model`` at once (which no rule produces) raises.
+    Metrics: ``loss``, ``ce`` (the means over the data axes and the
+    micro-batches), ``aux`` (the MoE layers' aux losses, each the mean of
+    the data shards'), ``grad_norm`` and ``lr``; the same on every rank."""
     set_matmul_precision()
     specs = state_pspecs(cfg, mesh, rules)
     p_specs = tree_leaves(specs.params, is_leaf=_is_spec)
-    for name in ("master", "m", "v"):
-        if tree_leaves(specs.opt[name], is_leaf=_is_spec) != p_specs:
-            raise NotImplementedError(f"jit_train_step on {mesh}: the optimizer state is split otherwise than "
-                                      "the parameters (ZeRO-1 over 'pod'); the port's step needs them alike")
+    o_specs = tree_leaves(specs.opt["master"], is_leaf=_is_spec)
     dp = collectives.dp_axes(mesh)
-    for spec in p_specs:
+    for spec in p_specs + o_specs:
         for i in range(len(spec)):
             if set(spec.axes(i)) & set(dp) and set(spec.axes(i)) - set(dp):
                 raise NotImplementedError(f"a dimension split over {spec.axes(i)}: data and model axes at once")
+    moved = [ps != os for ps, os in zip(p_specs, o_specs)]
     n_dp = mesh.axis_size(dp)
 
     def step(state: TrainState, batch):
         with sharding.use_mesh(mesh, rules):
             loss, grads, metrics = _accumulated(cfg, state.params, batch, n_micro)
-            tree_map(lambda g: g.div_(n_dp), grads)  # the sums over the data ranks, to means
+            leaves = [collectives.reshard(g, ps, os, mesh, dp, kind="zero_grad") if z else g
+                      for g, ps, os, z in zip(tree_leaves(grads), p_specs, o_specs, moved)]
+            del grads
+            for g in leaves:
+                g.div_(n_dp)  # the sums over the data ranks, to means
             # the mean over data of the loss and the cross-entropy (the aux
             # loss is each MoE layer's mean over data already)
             both = collectives.psum_over(torch.stack([loss, metrics["ce"]]), dp, mesh, kind="mean") / n_dp
-            new_opt, om = adamw_update(opt_cfg, grads, state.opt, state.step, specs=specs.params, mesh=mesh)
+            grads = tree_rebuild(state.opt["master"], dict(zip(tree_paths(state.opt["master"]), leaves)),
+                                 torch.is_tensor)
+            new_opt, om = adamw_update(opt_cfg, grads, state.opt, state.step, specs=specs.opt["master"], mesh=mesh)
         with torch.no_grad():
-            tree_map(lambda p, m: p.copy_(m), state.params, new_opt["master"])
+            for p, m, ps, os, z in zip(tree_leaves(state.params), tree_leaves(new_opt["master"]), p_specs, o_specs,
+                                       moved):
+                p.copy_(collectives.reshard(m.to(p.dtype), os, ps, mesh, dp, kind="zero_param") if z else m)
         out = {"loss": both[0], "ce": both[1], "aux": metrics["aux"], **om}
         return TrainState(step=state.step + 1, params=state.params, opt=new_opt), out
 

@@ -12,9 +12,9 @@ and against the reference's ``dryrun``/``hlo_stats``.
 - The per-rank state bytes (``full.memory.state_bytes``) equal the sum of
   the blocks of ``state_pspecs``; the records carry the reference's keys.
 - Every arch × shape cell on 16×16 at smoke config ends ``ok``
-  (``--all --smoke``); on the multi-pod mesh the prefill and decode cells
-  end ``ok`` and the train cell records ``jit_train_step``'s ZeRO-1
-  refusal.
+  (``--all --smoke``); on the multi-pod mesh the prefill, decode and train
+  cells end ``ok``, the train cell with ZeRO-1 over ``pod`` (its
+  ``zero_grad`` and ``zero_param`` kinds counted, their links named).
 - ``collective_stats`` gives the reference ``collective_stats``'s ring
   bytes for an all-reduce and an all-gather of the same size and group.
 """
@@ -160,12 +160,29 @@ def test_dryrun_records_carry_the_references_keys(counted):
 
 
 def test_multi_pod_serves_and_refuses_the_train_step(counted):
+    """It no longer refuses: on the multi-pod mesh the train cell takes
+    ZeRO-1 over ``pod`` and ends ``ok``, beside the prefill and decode."""
     _, recs = counted
     assert recs["qwen3-0.6b/prefill/multi"]["status"] == "ok"
     assert recs["qwen3-0.6b/decode/multi"]["status"] == "ok"
     train = recs["qwen3-0.6b/train/multi"]
-    assert train["status"] == "error" and "ZeRO-1" in train["error"]
+    assert train["status"] == "ok", train.get("error")
+    kinds = train["full"]["coll_by_kind"]
+    assert kinds["zero_grad"]["axes"] == ["data"] and kinds["zero_param"]["axes"] == ["pod+data"]
+    assert train["full"]["handoff_by_kind"]["zero_grad"] > 0
     assert recs["qwen3-0.6b/prefill/multi"]["chips"] == 512
+
+
+def test_every_kind_names_its_link(counted):
+    """The roofline names the link of each kind's groups, the new kinds
+    too: on (2, 4) every group sits in one node."""
+    _, recs = counted
+    rec = recs["llama3.2-1b/decode/2x4"]
+    links = rec["roofline"]["kind_links"]
+    assert {"vocab_sum", "vocab_gather", "head_gather", "attn_combine"} <= set(links)
+    assert links["vocab_gather"] == {"model": "nvlink"}
+    train = recs["llama3.2-1b/train/2x4"]["roofline"]["kind_links"]
+    assert train["vocab_ce"] == {"model": "nvlink"} and "vocab_sum" in train
 
 
 def test_every_cell_at_smoke_config_ends_ok(tmp_path):

@@ -13,12 +13,14 @@ port's rows within 1e-5 relative (the largest difference over the largest
 logit).  The cases cover a query-head group split between ranks (qwen3:
 4 heads over tp 4, 2 KV heads), the MoE at the drop-free capacity 4.0 and
 the window's ring (mixtral: a 72-token prompt in a 64-slot ring), MLA's
-latent cache (deepseek), the whole-over-``model`` SSD and RG-LRU states
-(mamba2, recurrentgemma), the frames and vision front ends (musicgen, the
-vision model with its cross-attention gates opened).  Each rank's caches
-are its blocks of the one-process caches (``tfm.cache_specs``: the GQA and
-MLA positions split over ``model``, 1/8 of the bytes at (2, 4)), within
-the same tolerance.  No sharded reference is compared (ROADMAP §C); the
+latent cache (deepseek), the SSD and RG-LRU states as the rules place them
+(mamba2: the state whole over ``model``, ``conv_x`` split; recurrentgemma:
+``h`` and ``conv`` split), the frames and vision front ends (musicgen, the
+vision model with its cross-attention gates opened).  Every mixer runs
+tensor-parallel over ``model`` and the tables vocab-parallel.  Each rank's
+caches are its blocks of the one-process caches (``tfm.cache_specs``: the
+GQA and MLA positions split over ``model``, 1/8 of the bytes at (2, 4)),
+within the same tolerance.  No sharded reference is compared (ROADMAP §C); the
 one-process port is held to the JAX reference's ``prefill``/``decode_step``
 (under ``jax.jit``) on llama in f32 instead.
 """
@@ -71,7 +73,8 @@ for arch in %(archs)r:
         emb = rows(d["next_embeds"][:, i]) if d["next_embeds"] is not None else None
         logits, cache = decode(params, cache, tok, t, embeds=emb, img=img)
         out.append(logits)
-    results[arch] = dict(logits=out, cache=[c.clone() for c in tree_leaves(cache)], bytes=dict(col.BYTES))
+    results[arch] = dict(logits=out, cache=[c.clone() for c in tree_leaves(cache)], bytes=dict(col.BYTES),
+                         calls={k: {c: list(v) for c, v in d.items()} for k, d in col.CALLS.items()})
     if arch == "llama3.2-1b":
         with use_mesh(mesh):
             results["generate"] = generate(cfg, params, batch["tokens"], max_new=4)
@@ -179,12 +182,19 @@ def test_the_position_split_caches_are_an_eighth(served, arch):
 
 
 def test_the_recurrent_states_are_held_whole_over_model(served):
-    """mamba2's SSD states and conv tails: its rows only (the deviation of
-    ROADMAP A14c, part 2)."""
+    """Only what the rules hold whole over ``model`` is: mamba2's SSD state
+    (``("batch", None, "head_dim", "state")``) and its B/C tails are a
+    rank's rows (1/2), its ``conv_x`` tail its rows and ``inner`` columns
+    (1/8); recurrentgemma's RG-LRU ``h`` and ``conv`` its rows and ``rnn``
+    channels (1/8), as are its GQA caches."""
     ranks, one, _ = served
-    whole = sum(t.numel() * t.element_size() for t in tree_leaves(one["mamba2-2.7b"][1]))
-    for rank in ranks:
-        assert 2 * sum(t.numel() * t.element_size() for t in rank["mamba2-2.7b"]["cache"]) == whole
+    names = ["conv_B", "conv_C", "conv_x", "state"]  # a layer's leaves, in flatten order
+    share = {"conv_B": 2, "conv_C": 2, "conv_x": 8, "state": 2}
+    for r, rank in enumerate(ranks):
+        for i, (got, want) in enumerate(zip(rank["mamba2-2.7b"]["cache"], tree_leaves(one["mamba2-2.7b"][1]))):
+            assert share[names[i % 4]] * got.numel() == want.numel(), (r, names[i % 4])
+        whole = sum(t.numel() * t.element_size() for t in tree_leaves(one["recurrentgemma-9b"][1]))
+        assert 8 * sum(t.numel() * t.element_size() for t in rank["recurrentgemma-9b"]["cache"]) == whole
 
 
 def test_mesh_generate_and_prefill_step(served):
@@ -207,6 +217,30 @@ def test_decode_combines_over_model(served):
     assert all(rank["llama3.2-1b"]["bytes"]["attn_combine"] > 0 for rank in ranks)
     assert all(rank["deepseek-v2-236b"]["bytes"]["attn_combine"] > 0 for rank in ranks)
     assert all(rank["mamba2-2.7b"]["bytes"]["attn_combine"] == 0 for rank in ranks)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_no_weight_is_gathered_over_model(served, arch):
+    """Every FSDP gather runs over ``data`` only: each mixer's weights and
+    the tables stay a rank's ``model`` block (no ``gather`` call over a group
+    that spans ``model``), and the tables are vocab-parallel (the lookup's
+    sum and the logits' gather run over ``model``)."""
+    ranks, _, cases = served
+    for rank in ranks:
+        assert all("model" not in axes for _, axes, _ in rank[arch]["calls"]["gather"]), rank[arch]["calls"]["gather"]
+        assert rank[arch]["bytes"]["vocab_gather"] > 0
+        assert (rank[arch]["bytes"]["vocab_sum"] > 0) == (cases[arch]["cfg"].frontend != "frames")
+
+
+def test_each_family_takes_its_own_collectives(served):
+    """The decode steps gather their queries over ``model`` (GQA, MLA), SSD
+    sums its gated norm and gathers its state heads, RG-LRU reduce-scatters
+    its gate products."""
+    ranks, _, _ = served
+    for rank in ranks:
+        assert rank["llama3.2-1b"]["bytes"]["head_gather"] > 0 and rank["deepseek-v2-236b"]["bytes"]["head_gather"] > 0
+        assert rank["mamba2-2.7b"]["bytes"]["ssd_norm"] > 0 and rank["mamba2-2.7b"]["bytes"]["state_gather"] > 0
+        assert rank["recurrentgemma-9b"]["bytes"]["rnn_gate"] > 0
 
 
 def test_a_cache_that_does_not_split_raises():
