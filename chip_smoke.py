@@ -23,7 +23,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    "gaussian"`` (B4) and ``"uniform_dense"`` (B6), each also with
    ``fused=True`` (B5, B7), one uniform-dense ``precision="mixed"`` run
    at κ = 1e4 (B6 on bf16), warm wall times beside the CountSketch solve
-   at the same size, and the times of B4–B7 at those shapes;
+   at the same size, and the times of B4–B7 at those shapes, B6 and B7
+   also on bf16 (the half engine) and f32, B6 on bf16, f16 and f32 held
+   entry by entry within √m·u of the f64 product of its inputs, a limit
+   that two faults planted on its output read past;
 9. the SRHT and sparse sketches on the main problem (m = 2^20, run after
    phase 7, before that problem is freed): ``sketch="srht"`` plain (B8 on
    A and b) and fused (B8, then B2), ``"sparse_sign"`` and
@@ -77,11 +80,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It puts
    the main problem through the default call and ``saa`` (Sᵀ in panels,
    ``rmatmat`` under ``torch.vmap``); then a sparse problem (m = 2^20,
    n = 1000, 10 entries a row, κ ≈ 1e6): the coordinate scatter
-   (``countsketch_coo_apply``) at its entries for each bucket kind in f64
-   and f32, bitwise its plain version on the CPU, two calls bitwise equal,
-   within 2·γ·|S||A| of its plain version on the card, timed beside its
-   set-up (the stable sort), its bound, its plain version and one atomic
-   ``index_add_``; ``SparseOperator``'s products bitwise across two calls;
+   (``countsketch_coo_apply``) at its entries in f64 and f32, in row
+   order (its plan by row) for each bucket kind and shuffled (its plan by
+   product) for the sparse sign's, bitwise its plain version on the CPU,
+   two calls bitwise equal,
+   within 2·γ·|S||A| of its plain version on the card, timed for k = 1 and
+   8 beside its plan (B1's CSR and the row pointer, or the sort by
+   bucket), its bound, its plain version and one atomic ``index_add_``;
+   ``SparseOperator``'s products bitwise across two calls;
    the default call, ``saa`` with four kinds (the SRHT on A densified),
    ``sap`` and the certified tier (never its ``direct`` rung), each within
    1e-5 and 100x ``qr_solve``'s error on the densified A; and a session
@@ -222,7 +228,8 @@ half inputs (f32 out), at one, two and three passes and at n not a multiple
 of the panel width, checks that other panel widths, an unaligned A and a
 second call give the same bits and that rows out of range give NaN rows,
 the coordinate scatter at its edges (an empty column and bucket, repeated
-coordinates, unsorted entries, nnz = 0, a sparse vector b), and B1 bitwise
+coordinates, nnz = 0, a sparse vector b, each with the entries shuffled and
+in row order), and B1 bitwise
 against the CPU on the sparse-sign
 CSR (k·m entries) and on uniform weights.  It drives the f64 tensor-core
 engine of B6 and B2 (``csrc/dense_mma.cuh``) at each edge of its design
@@ -235,7 +242,12 @@ cluster; ragged d and n, m shorter than a stage, both sides of a split-plan
 change, n = 2..8, clusters of 1, 2, 3 and 8 blocks and a padded grid, an
 unaligned A), holding B4 to the plain product on its own S and B5's B
 bitwise to B4's, after checking that clusters of every size fit on the
-card.  Phases 7 and 8 print each kernel's TFLOP/s and its share of its
+card.  It holds B6 and B7 on bf16 and f16 inputs, the half engine
+(``csrc/half_mma.cuh``), at that engine's edges (ragged d, m and n, m and
+n not multiples of 8, n = 2..9, both sides of a split-plan change, grids
+padded to whole clusters, operands off 16-byte alignment), within
+2·γ_m·|S||A| with γ at f32, two calls bitwise equal, B7's B bitwise B6's
+and its G exactly symmetric.  Phases 7 and 8 print each kernel's TFLOP/s and its share of its
 bound beside its time; phase 8 also times B4's engine with clusters of 1.
 
 Phases 7 and 9 also time cuSPARSE's SpMM (``torch.sparse.mm`` on S as a
@@ -420,6 +432,40 @@ def _check_gram(torch, G, G_ref, B, what):
     return float(err.max())
 
 
+def _product_gate(torch, out, S, A, step, tile):
+    """Phase 8's hold of a product on half or f32 inputs at the main path's
+    shape, where 2·γ_m·|S||A| (≈ 1.4 typical |SA| entries at m = 2^16) is
+    too wide to see a fault: ``out`` against the f64 product of the same
+    inputs, entry by entry and normwise, each relative to |S||A|, within
+    √m·u (u at f32, 1.5e-5 at m = 2^16).  The same readings are taken of two
+    faults planted on ``out``: the reduction's first ``step`` rows left out
+    of one block tile (``tile`` = its rows and columns), and one stage in
+    16 left out of every tile.  Raises unless the sound readings are within
+    the limit and each fault's entrywise reading is past it; returns the
+    readings."""
+    m = A.shape[0]
+    S64, A64 = S.to(torch.float64), A.to(torch.float64)
+    sound = out.to(torch.float64) - S64 @ A64
+    mag = (S64.abs() @ A64.abs()).clamp_min(torch.finfo(torch.float64).tiny)  # 0/0 reads 0
+    norm = float(torch.linalg.norm(mag))
+    limit = math.sqrt(m) * torch.finfo(torch.float32).eps / 2
+
+    def reading(delta):
+        return {"entry": float((delta.abs() / mag).max()), "norm": float(torch.linalg.norm(delta)) / norm}
+
+    rows, cols = tile
+    one_stage = sound.clone()
+    one_stage[:rows, :cols] -= S64[:rows, :step] @ A64[:step, :cols]
+    every_16th = (torch.arange(m, device=A.device) // step) % 16 == 15
+    got = {"limit": limit, "sound": reading(sound), "stage_left_out": reading(one_stage),
+           "sixteenth_left_out": reading(sound - S64[:, every_16th] @ A64[every_16th])}
+    if not max(got["sound"].values()) <= limit:  # a NaN reading fails too
+        raise AssertionError(f"{out.dtype} product at S{tuple(S.shape)}: past √m·u of the f64 product: {got}")
+    if not min(got["stage_left_out"]["entry"], got["sixteenth_left_out"]["entry"]) > limit:
+        raise AssertionError(f"{out.dtype} product at S{tuple(S.shape)}: a planted fault reads within √m·u: {got}")
+    return got
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
@@ -516,6 +562,7 @@ def main() -> int:
     errs = {f.__name__: 0.0 for f in KERNELS}
 
     # ---- phase 2: every kernel against its plain version ------------------
+    t_phase2 = time.perf_counter()
     # B1: bitwise against the plain version on the CPU (same summation
     # order, exact ±1 products); within 2·γ_k·|S||A| of the plain version
     # on the card, whose index_add_ adds with atomics in any order (k = the
@@ -733,6 +780,49 @@ def main() -> int:
            f"(slab, parts) {gram_split(torch.float64, s_rows, n, sms)[:2]}: max|Δ| vs card plain {err:.3e} "
            f"(tol 2γ_s|B|ᵀ|B|), exactly symmetric, two calls bitwise equal")
 
+    # B6 and B7 on bf16 and f16 inputs run on the half engine
+    # (csrc/half_mma.cuh): wgmma with f32 accumulators, operands by TMA in
+    # thread-block clusters of 2.  Its edges: d and n not multiples of its
+    # 256 x 128 tile, m not a multiple of its 64-row stage (nor of 16), n
+    # not a multiple of 8 (a padded copy of A; S too where m is not), n =
+    # 2..9, m shorter than a stage, both sides of a change of its split
+    # plan, a grid padded to whole clusters (3 and 5 n-tiles), operands 2
+    # bytes past a 16-byte boundary.  Each call within 2·γ_m·|S||A| of the
+    # plain product with γ at f32 (the products of half inputs are exact in
+    # f32), two calls bitwise equal, B7's B bitwise B6's and its G exactly
+    # symmetric.  The inputs come from a generator of their own, so the
+    # draws of every later phase (and the passes of its iterative solves)
+    # do not depend on these checks.
+    gen_half = torch.Generator(device=dev).manual_seed(2)
+    half_shapes = [(300, 1007, 130), (37, 5, 3), (200, 9, 17), (257, 4096, 257), (129, 300, 640)]
+    half_shapes += [(100, 300, n) for n in range(2, 10)]
+    half_shapes += [(300, m, 130) for m in plan_edge(
+        lambda m: sketch_split(torch.bfloat16, 300, m, 130, sms).parts, 4000)]
+    for dtype in (torch.bfloat16, torch.float16):
+        for d, m, n in half_shapes + [("misaligned", 504, 40)]:
+            if d == "misaligned":
+                d = 77
+                S = torch.randn(d * m + 1, generator=gen_half, dtype=torch.float64, device=dev).to(dtype)[1:].view(d, m)
+                A = torch.randn(m * n + 1, generator=gen_half, dtype=torch.float64, device=dev).to(dtype)[1:].view(m, n)
+            else:
+                S = torch.randn((d, m), generator=gen_half, dtype=torch.float64, device=dev).to(dtype)
+                A = torch.randn((m, n), generator=gen_half, dtype=torch.float64, device=dev).to(dtype)
+            out = sketch_matmul(S, A)
+            err6 = check_product(f"B6 half engine {dtype} S({d}, {m}) A({m}, {n})", out,
+                                 sketch_matmul_ref(S, A), S, A, m)
+            if not torch.equal(out, sketch_matmul(S, A)):
+                raise AssertionError(f"B6 half engine {dtype} S({d}, {m}) A({m}, {n}): two calls differ")
+            errs["sketch_matmul"] = max(errs["sketch_matmul"], err6)
+            B, G = matmul_gram(S, A)
+            if not torch.equal(B, out):
+                raise AssertionError(f"B7 half engine {dtype} S({d}, {m}) A({m}, {n}): B differs from B6's")
+            errs["matmul_gram"] = max(errs["matmul_gram"], _check_gram(torch, G, panel_gram_ref(B), B, "B7 G"))
+            split = sketch_split(dtype, d, m, n, sms)
+            _p(f"phase 2: B6 half engine S({d}, {m}) A({m}, {n}) {str(dtype)[6:]}"
+               f"{' misaligned' if S.data_ptr() % 16 else ''}, split (slab, parts) {split[:2]}: max|Δ| vs card "
+               f"plain {err6:.3e} (tol 2γ_m|S||A|, γ at f32); two calls bitwise equal; B7's B bitwise B6's, "
+               f"its G exactly symmetric")
+
     # B4 and B5 in f64 run on the generating engine (csrc/dense_mma.cuh):
     # S made in the ring by a producing warpgroup, shared by a
     # thread-block cluster of gen_cluster(n) blocks along n.  First, that
@@ -900,6 +990,7 @@ def main() -> int:
     del bad, good, keep
     errs["countsketch_coo_apply"] = _coo_edges(torch, dev, gen)
     _p(f"phase 2: kernels {json.dumps({f.__name__: {'launches': f.launches, 'match': True} for f in KERNELS})}")
+    _p(f"phase 2: {time.perf_counter() - t_phase2:.1f} s")
     del A, S, B, G, B_ref, S_k, G_k, out, B5_eye, eye64, e5, b0, b1, card0, card1
     del h, s, B_cpu, cpu, card, hk, sk, vu, signs, rows
     torch.cuda.empty_cache()
@@ -1380,6 +1471,62 @@ def main() -> int:
     _p(f"phase 8: kernel times (ms, TFLOP/s, share of the bound; f64, m=2^16, n=1000, d=4000; "
        f"B4's library_ms is S @ A on an S "
        f"generated beforehand, the product half only; card: {smi}): {json.dumps(t_dense)}")
+    # B6 and B7 on bf16, f16 and f32 inputs at the same shapes (S_u and A8
+    # rounded to the dtype): half inputs on the half engine
+    # (csrc/half_mma.cuh), f32 on the FMA tile kernel.  Each held as phase 2
+    # holds them (γ at f32) and by _product_gate against the f64 product
+    # (its limit between the sound reading and two planted faults'), then
+    # bf16 and f32 timed beside the plain version, the bound at the dtype's
+    # peak (kernels/autotune.py: 989 TFLOP/s bf16, 67 f32) and one library
+    # call, S @ A in the dtype (bf16 in, bf16 out; f32 in full f32).
+    from repro_torch.kernels.autotune import bound as dtype_bound
+    from repro_torch.kernels.autotune import work
+    from repro_torch.kernels.common import HALF_MMA_COLS, HALF_MMA_ROWS, HALF_MMA_STEP
+
+    t_half, gates, t0_half = {}, {}, time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        S_x, A_x = S_u.to(dtype), A8.to(dtype)
+        name = str(dtype).removeprefix("torch.")
+        out6 = sketch_matmul(S_x, A_x)
+        err6 = check_product(f"B6 {name} at A(2^16, 1000) d=4000", out6, sketch_matmul_ref(S_x, A_x), S_x, A_x,
+                             M_DENSE)
+        # the engine's stage and block tile; the FMA tile kernel's 16 and 128 x 128
+        step, tile = ((16, (128, 128)) if dtype == torch.float32
+                      else (HALF_MMA_STEP, (HALF_MMA_ROWS, HALF_MMA_COLS)))
+        gates[name] = _product_gate(torch, out6, S_x, A_x, step, tile)
+        B, G = matmul_gram(S_x, A_x)
+        if not torch.equal(B, out6) or not torch.equal(out6, sketch_matmul(S_x, A_x)):
+            raise AssertionError(f"B6/B7 {name} at A(2^16, 1000): two calls, or B7's B, differ from B6's")
+        err7 = _check_gram(torch, G, panel_gram_ref(B), B, f"B7 {name} G at A(2^16, 1000)")
+        errs["sketch_matmul"] = max(errs["sketch_matmul"], err6)
+        errs["matmul_gram"] = max(errs["matmul_gram"], err7)
+        del out6, B, G
+        if dtype == torch.float16:
+            del S_x, A_x
+            continue
+        ops6, bytes6 = work("sketch_matmul", M_DENSE, N_MAIN, d8, dtype)
+        rows_t = {}
+        for kname, fn, plain, library, ops, nbytes in [
+            ("sketch_matmul", lambda: sketch_matmul(S_x, A_x), lambda: sketch_matmul_ref(S_x, A_x),
+             lambda: S_x @ A_x, ops6, bytes6),
+            ("matmul_gram", lambda: matmul_gram(S_x, A_x), lambda: matmul_gram_ref(S_x, A_x), None,
+             ops6 + ops_g, bytes6 + N_MAIN * N_MAIN * 4),
+        ]:
+            bound_ms, bound_by = dtype_bound(ops, nbytes, name)
+            rows_t[kname] = _rates(dict(
+                ms=_event_ms(torch, fn), plain_ms=_event_ms(torch, plain),
+                library_ms=None if library is None else _event_ms(torch, library),
+                bound_ms=bound_ms, bound_by=bound_by,
+            ), ops)
+        t_half[name] = rows_t
+        del S_x, A_x
+    _p(f"phase 8: B6 at A(2^16, 1000) d=4000 against the f64 product of the same inputs, max |Δ|/(|S||A|) "
+       f"entrywise and ‖Δ‖/‖|S||A|‖ normwise, within √m·u(f32), beside two planted faults (one stage left out of "
+       f"one tile: 64 rows of a 256 x 128 tile on half inputs, 16 rows of a 128 x 128 tile on f32; one stage in 16 "
+       f"left out of every tile): {json.dumps(gates)}")
+    _p(f"phase 8: B6/B7 on bf16 (half engine) and f32 (FMA tile kernel) inputs at A(2^16, 1000) d=4000 (ms, "
+       f"TFLOP/s, share of the bound at the dtype's peak; library: S @ A in the dtype; card: {smi}): "
+       f"{json.dumps(t_half)}; checked and timed in {time.perf_counter() - t0_half:.1f} s")
     del S_g, S_u, p8, A8, b8
     torch.cuda.empty_cache()
 
@@ -1467,6 +1614,11 @@ def main() -> int:
         if name == "countsketch_apply":  # phase 14's serving parts and phase 15's cluster parts
             rows[-1]["serve_launches"] = {part: v["launches"] for part, v in phase14.b1.items()}
             rows[-1]["cluster_launches"] = dict(phase15.b1)
+        if name in ("sketch_matmul", "matmul_gram"):  # bf16 (the half engine) and f32, phase 8
+            # launches a solve: B6 on bf16 in the mixed uniform-dense solve;
+            # no solve of the script takes B7 on bf16 or either on f32
+            rows[-1]["by_dtype"] = {dt: dict(t_half[dt][name], launches=paths["uniform_dense_mixed"][name]
+                                             if dt == "bfloat16" else 0) for dt in t_half}
         if name in ("countsketch_apply", "sketch_matmul"):  # phase 16's parts, a rank each
             rows[-1]["dist_launches"] = {part: v[name] for part, v in phase16.launches.items() if name in v}
         if name == "countsketch_apply":  # phase 17's compressed train steps, a step (and a rank)
@@ -2143,7 +2295,8 @@ def _coo_check(torch, rows, cols, vals, shape, h, w, d, what):
     the CPU, two calls bitwise equal, and within 2·γ_K·|S||A| of its plain
     version on the card (index_add_'s atomics; K = the most products in a
     cell).  Returns (out, max|Δ| from the card's plain version)."""
-    from repro_torch.kernels import countsketch_coo_apply, countsketch_coo_plan, countsketch_coo_ref
+    from repro_torch.kernels import countsketch_coo_apply, countsketch_coo_ref
+    from repro_torch.kernels.countsketch.ref import coo_keys
 
     out = countsketch_coo_apply(rows, cols, vals, shape, h, w, d)
     again = countsketch_coo_apply(rows, cols, vals, shape, h, w, d)
@@ -2157,7 +2310,7 @@ def _coo_check(torch, rows, cols, vals, shape, h, w, d, what):
     if not torch.equal(out, again):
         raise AssertionError(f"coordinate scatter {what}: two calls differ")
     n = shape[1] if len(shape) == 2 else 1
-    K = int(countsketch_coo_plan(rows, cols, n, h, d).offsets.diff().max()) if vals.numel() else 0
+    K = int(torch.bincount(coo_keys(rows, cols, n, h), minlength=d * n).max()) if vals.numel() else 0
     mag = countsketch_coo_ref(rows, cols, vals.abs(), shape, h, w.abs(), d)
     err = (out - card).abs()
     if not bool((err <= 2 * _gamma(torch, K, vals.dtype) * mag).all()):
@@ -2179,10 +2332,18 @@ def _coo_sketch(torch, gen, dev, kind, m, d):
     return h, w
 
 
+def _by_row(torch, rows, *rest):
+    """The same entries in row order, each row's in their given order (a
+    stable sort by row: the order a coalesced COO or a CSR holds)."""
+    order = torch.sort(rows, stable=True).indices
+    return (rows[order],) + tuple(t[order] for t in rest)
+
+
 def _coo_edges(torch, dev, gen):
     """Phase 2's checks of the coordinate scatter at its edges, for each
-    bucket kind in f64 and f32: an empty column and an empty bucket,
-    repeated coordinates, unsorted entries, nnz = 0 and a sparse vector b.
+    bucket kind in f64 and f32, on the entries shuffled (its plan by
+    product) and in row order (its plan by row): an empty column and an
+    empty bucket, repeated coordinates, nnz = 0 and a sparse vector b.
     Returns the largest max|Δ| from the card's plain version."""
     m, n, d = 1000, 37, 64
     worst = 0.0
@@ -2199,24 +2360,29 @@ def _coo_edges(torch, dev, gen):
             rows, cols = torch.cat([rows, rows[dup]]), torch.cat([cols, cols[dup]])
             vals = torch.cat([vals, torch.randn(dup.numel(), generator=gen, dtype=torch.float64,
                                                 device=dev).to(dtype)])
-            out, err = _coo_check(torch, rows, cols, vals, (m, n), h, w, d, f"{kind} {dtype} edges")
             k = h.numel() // m
-            if bool(out.reshape(d, n)[3].any()) or bool(out.reshape(d, n)[:, 5].any()):
-                raise AssertionError(f"coordinate scatter {kind} {dtype}: an empty bucket or column is not 0")
-            worst = max(worst, err)
-            empty = rows[:0]
-            out0, _ = _coo_check(torch, empty, empty, vals[:0], (m, n), h, w, d, f"{kind} {dtype} nnz=0")
-            if bool(out0.any()):
-                raise AssertionError(f"coordinate scatter {kind} {dtype}: nnz = 0 is not all 0")
-            vec_rows = torch.randperm(m, generator=gen, device=dev)[: m // 3]  # unsorted, sparse b
+            vec_rows = torch.randperm(m, generator=gen, device=dev)[: m // 3]  # a sparse b
             vec_vals = torch.randn(vec_rows.numel(), generator=gen, dtype=torch.float64, device=dev).to(dtype)
-            _, err = _coo_check(torch, vec_rows, torch.zeros_like(vec_rows), vec_vals, (m,), h, w, d,
-                                f"{kind} {dtype} vector")
-            worst = max(worst, err)
+            for order, (r, c, v, vr, vv) in (
+                ("shuffled", (rows, cols, vals, vec_rows, vec_vals)),
+                ("in row order", _by_row(torch, rows, cols, vals) + _by_row(torch, vec_rows, vec_vals)),
+            ):
+                out, err = _coo_check(torch, r, c, v, (m, n), h, w, d, f"{kind} {dtype} edges {order}")
+                if bool(out.reshape(d, n)[3].any()) or bool(out.reshape(d, n)[:, 5].any()):
+                    raise AssertionError(f"coordinate scatter {kind} {dtype} {order}: an empty bucket or column "
+                                         f"is not 0")
+                worst = max(worst, err)
+                empty = r[:0]
+                out0, _ = _coo_check(torch, empty, empty, v[:0], (m, n), h, w, d, f"{kind} {dtype} nnz=0")
+                if bool(out0.any()):
+                    raise AssertionError(f"coordinate scatter {kind} {dtype}: nnz = 0 is not all 0")
+                _, err = _coo_check(torch, vr, torch.zeros_like(vr), vv, (m,), h, w, d,
+                                    f"{kind} {dtype} vector {order}")
+                worst = max(worst, err)
             _p(f"phase 2: coordinate scatter {kind} (k = {k}) {str(dtype)[6:]} A({m}, {n}) d={d}: "
-               f"{rows.numel()} unsorted entries with {dup.numel()} repeated coordinates, an empty column "
-               f"and an empty bucket, nnz = 0, a sparse vector b: bitwise = CPU plain, two calls bitwise; "
-               f"max|Δ| vs card plain {worst:.3e}")
+               f"{rows.numel()} entries with {dup.numel()} repeated coordinates, shuffled and in row order, an "
+               f"empty column and an empty bucket, nnz = 0, a sparse vector b: bitwise = CPU plain, two calls "
+               f"bitwise; max|Δ| vs card plain {worst:.3e}")
     return worst
 
 
@@ -2261,50 +2427,65 @@ class _Phase12:
 
     # ---- (a) ---------------------------------------------------------------
     def kernel(self, rows, cols, vals, shape):
-        """The coordinate scatter at the sparse problem's entries (shuffled:
-        unsorted), d = 4000, for each bucket kind in f64 and f32; its times
-        in f64 beside its set-up, bound, plain version and index_add_."""
+        """The coordinate scatter at the sparse problem's entries, d = 4000,
+        in f64 and f32, for each bucket kind in row order (as the problem
+        holds them: the plan by row, B1's bucket CSR of the sketch and a row
+        pointer over the entries) and for the sparse sign's (k = 8) also
+        shuffled (the plan by product, a stable sort of the products by
+        bucket).  Its times in f64 beside its plan, bound, plain version
+        and index_add_; the kernel row of the kernels line is the
+        CountSketch's in row order, the sparse solves' case."""
         from repro_torch.kernels import countsketch_coo_apply, countsketch_coo_plan, countsketch_coo_ref
+        from repro_torch.kernels.autotune import bound
+        from repro_torch.kernels.countsketch import coo_rowptr, countsketch_csr
         from repro_torch.kernels.countsketch.ref import coo_keys
 
         torch, gen, dev = self.torch, self.gen, self.dev
         m, n = shape
         d = 4 * n
-        ordered = rows, cols, vals  # in row order, as the sparse problem holds them
         shuffle = torch.randperm(rows.numel(), generator=gen, device=dev)
-        rows, cols, vals = rows[shuffle], cols[shuffle], vals[shuffle]
+        forms = {"by_row": (rows, cols, vals), "shuffled": (rows[shuffle], cols[shuffle], vals[shuffle])}
         times = {}
         for kind in ("clarkson_woodruff", "uniform_sparse", "sparse_sign"):
             h, w = _coo_sketch(torch, gen, dev, kind, m, d)
             k = h.numel() // m
-            for dtype in (torch.float64, torch.float32):
-                v = vals.to(dtype)
-                _, err = _coo_check(torch, rows, cols, v, shape, h, w, d, f"{kind} {dtype} A{shape}")
-                self.err_coo = max(self.err_coo, err)
-                _p(f"phase 12: coordinate scatter {kind} (k = {k}) {str(dtype)[6:]} A{shape} nnz={rows.numel()} "
-                   f"d={d}: bitwise = CPU plain, two calls bitwise; max|Δ| vs card plain {err:.3e}")
-            plan = countsketch_coo_plan(rows, cols, n, h, d)
-            keys = coo_keys(rows, cols, n, h)
-            prods = (w.reshape(k, m)[:, rows] * vals).reshape(-1)
-            out_lib = torch.zeros(d * n, dtype=vals.dtype, device=dev)
-            nprod = k * rows.numel()
-            t = dict(
-                ms=_event_ms(torch, lambda: countsketch_coo_apply(rows, cols, vals, shape, h, w, d, plan=plan)),
-                setup_ms=_event_ms(torch, lambda: countsketch_coo_plan(rows, cols, n, h, d)),
-                plain_ms=_event_ms(torch, lambda: countsketch_coo_ref(rows, cols, vals, shape, h, w, d)),
-                library_ms=_event_ms(torch, lambda: out_lib.zero_().index_add_(0, keys, prods)),
-            )
-            # read once: each sorted product's id, value and weight; write the d·n cells
-            t["bound_ms"], t["bound_by"] = _bound(2 * nprod, nprod * 24 + d * n * 8)
-            plan_o = countsketch_coo_plan(ordered[0], ordered[1], n, h, d)
-            t["row_order_ms"] = _event_ms(
-                torch, lambda: countsketch_coo_apply(*ordered, shape, h, w, d, plan=plan_o))
-            times[kind] = t
-            del plan, plan_o, keys, prods, out_lib
-        _p(f"phase 12: coordinate scatter times at A{shape} nnz={rows.numel()} d={d} f64, entries shuffled "
-           f"(ms; set-up = the stable sort and offsets; library = one index_add_ of the precomputed products, "
-           f"atomic; row_order = the kernel on the entries in row order; card: {self.smi}): {json.dumps(times)}")
-        self.t_coo = times["clarkson_woodruff"]
+            for form, (r, c, v) in forms.items():
+                # shuffled entries checked for one kind, the sparse sign's
+                # k = 8 (phase 2 holds every kind in both orders at its edges)
+                for dtype in (torch.float64, torch.float32) if form == "by_row" or k == 8 else ():
+                    _, err = _coo_check(torch, r, c, v.to(dtype), shape, h, w, d, f"{kind} {dtype} A{shape} {form}")
+                    self.err_coo = max(self.err_coo, err)
+                    _p(f"phase 12: coordinate scatter {kind} (k = {k}) {str(dtype)[6:]} A{shape} nnz={r.numel()} "
+                       f"d={d} {form}: bitwise = CPU plain, two calls bitwise; max|Δ| vs card plain {err:.3e}")
+                if kind == "uniform_sparse":
+                    continue  # timed for k = 1 (the CountSketch) and k = 8
+                build = lambda: countsketch_coo_plan(r, h, w, d, v.dtype)  # noqa: E731
+                plan = build()
+                if (plan.rowptr is not None) != (form == "by_row"):
+                    raise AssertionError(f"coordinate scatter {form}: took the other plan")
+                keys = coo_keys(r, c, n, h)
+                prods = (w.reshape(k, m)[:, r] * v).reshape(-1)
+                out_lib = torch.zeros(d * n, dtype=v.dtype, device=dev)
+                t = dict(
+                    ms=_event_ms(torch, lambda: countsketch_coo_apply(r, c, v, shape, h, w, d, plan=plan)),
+                    plan_ms=_event_ms(torch, build),
+                    plain_ms=_event_ms(torch, lambda: countsketch_coo_ref(r, c, v, shape, h, w, d)),
+                    library_ms=_event_ms(torch, lambda: out_lib.zero_().index_add_(0, keys, prods)),
+                )
+                if form == "by_row":  # the plan's parts: the sketch's CSR, the entries' row pointer
+                    t["csr_ms"] = _event_ms(torch, lambda: countsketch_csr(h, w, d, v.dtype))
+                    t["rowptr_ms"] = _event_ms(torch, lambda: coo_rowptr(r, m))
+                # each input read once (the entries' rows, columns and values;
+                # the sketch's int32 buckets and f64 weights), the d·n cells
+                # written once; a multiply and an add a product
+                t["bound_ms"], t["bound_by"] = bound(2 * k * r.numel(), r.numel() * 24 + k * m * 12 + d * n * 8)
+                times[f"k{k}_{form}"] = t
+                del plan, keys, prods, out_lib
+        _p(f"phase 12: coordinate scatter times at A{shape} nnz={rows.numel()} d={d} f64 (ms; ms = the wrapper "
+           f"on a plan built beforehand, its checks included; plan = countsketch_coo_plan, by row B1's CSR + the "
+           f"row pointer (csr_ms, rowptr_ms), shuffled the stable sort by bucket; library = one index_add_ of the "
+           f"precomputed products, atomic; card: {self.smi}): {json.dumps(times)}")
+        self.t_coo = times["k1_by_row"]
 
     # ---- (b) and (e) sparse ------------------------------------------------
     def sparse(self):
@@ -2320,7 +2501,8 @@ class _Phase12:
         scale = torch.logspace(0, -6, n, dtype=torch.float64, device=dev)
         vals = torch.randn(m * per, generator=gen, dtype=torch.float64, device=dev) * scale[cols]
         (A, t_op) = _sync_time(torch, lambda: SparseOperator.from_entries(rows, cols, vals, (m, n), device=dev))
-        self.kernel(rows, cols, vals, (m, n))
+        _, t_kernel = _sync_time(torch, lambda: self.kernel(rows, cols, vals, (m, n)))
+        _p(f"phase 12: the coordinate scatter's checks and times took {t_kernel:.1f} s")
         del rows, cols, vals
         x_true = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
         Ax = A.matvec(x_true)

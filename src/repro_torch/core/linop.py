@@ -42,6 +42,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.countsketch.ops import coo_rowptr
 from .backend import as_generator, as_tensor, resolve_device
 
 __all__ = [
@@ -232,6 +233,7 @@ class SparseOperator(LinearOperator):
     op_shape: tuple[int, int]
     csr: CSR = dataclasses.field(repr=False)
     csr_t: CSR = dataclasses.field(repr=False)
+    _cache: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @classmethod
     def from_entries(cls, rows, cols, vals, shape, *, device=None) -> "SparseOperator":
@@ -297,6 +299,16 @@ class SparseOperator(LinearOperator):
     @property
     def device(self):
         return self.vals.device
+
+    def row_pointer(self) -> torch.Tensor | None:
+        """The (m + 1,) int64 row pointer of the entries when they are in
+        row order (rows nondecreasing; row r's are ``[ptr[r], ptr[r+1])``,
+        in their stored order), else None; built once.  The bucket
+        sketches' coordinate scatter walks the entries through it
+        (``kernels/countsketch/ops.py:countsketch_coo_plan``)."""
+        if "rowptr" not in self._cache:
+            self._cache["rowptr"] = coo_rowptr(self.rows, self.shape[0])
+        return self._cache["rowptr"]
 
     @property
     def nse(self) -> int:

@@ -46,6 +46,7 @@ from ..kernels.common import key_to_u32, sqrt_tensor
 from ..kernels.countsketch import (
     countsketch_apply,
     countsketch_coo_apply,
+    countsketch_coo_plan,
     countsketch_coo_ref,
     countsketch_csr,
     countsketch_ref,
@@ -224,9 +225,19 @@ class _BucketSketch(_OperatorApply):
 
     def _apply_bcoo(self, A, *, backend: str = "auto"):
         """SA from A's entries: the coordinate scatter (its kernel on the
-        card), or its plain version on the reference backend."""
-        scatter = countsketch_coo_apply if backend_lib.uses_kernels(backend) else countsketch_coo_ref
-        return scatter(A.rows, A.cols, A.vals, A.shape, self.buckets, self._weights(), self.d)
+        card), or its plain version on the reference backend.  On the card
+        the scatter's plan for entries in row order is this operator's
+        cached CSR and A's cached row pointer, so nothing is sorted."""
+        args = (A.rows, A.cols, A.vals, A.shape, self.buckets, self._weights(), self.d)
+        if not backend_lib.uses_kernels(backend):
+            return countsketch_coo_ref(*args)
+        plan = None
+        if A.device.type == "cuda":
+            rowptr = A.row_pointer()
+            csr = self.csr(A.dtype) if rowptr is not None else None
+            plan = countsketch_coo_plan(A.rows, self.buckets, self._weights(), self.d, A.dtype,
+                                        csr=csr, rowptr=rowptr)
+        return countsketch_coo_apply(*args, plan=plan)
 
     def _dense_t_panel(self, p0: int, p1: int):
         """Rows p0..p1 of S, transposed: each of the k blocks of entries set

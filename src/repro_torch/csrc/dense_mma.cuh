@@ -587,21 +587,41 @@ __device__ __forceinline__ void mbar_init(uint32_t addr, uint32_t count) {
 }
 // One arrival on an mbarrier of any block of the cluster; the writes that
 // precede it (this block's, through the __syncthreads before it) are
-// released to the cluster.
+// released to the cluster.  kCluster = false arrives at the default CTA
+// scope, releasing nothing to the cluster: for handshakes whose data
+// another mechanism orders (TMA's complete_tx, wgmma.wait_group), where the
+// cluster-scope release costs a wait on every arrival.
+template <bool kCluster = true>
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_addr) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-                   cluster_addr)
-               : "memory");
+  if (kCluster)
+    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                     cluster_addr)
+                 : "memory");
+  else
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(cluster_addr) : "memory");
 }
+// Whether the phase of parity `parity` of this block's mbarrier `addr` has
+// completed, acquiring at cluster scope (or, kCluster = false, the
+// default CTA scope).
+template <bool kCluster = true>
 __device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
   uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(addr), "r"(parity)
-      : "memory");
+  if (kCluster)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  else
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   return done != 0;
 }
 __device__ __forceinline__ uint64_t global_ns() {
@@ -613,10 +633,11 @@ __device__ __forceinline__ uint64_t global_ns() {
 // A phase that has not completed after kBarrierTimeoutNs is a fault of
 // the protocol: the launch fails rather than hanging the card.
 constexpr uint64_t kBarrierTimeoutNs = 10000000000ull;
+template <bool kCluster = true>
 __device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
-  if (mbar_try_wait(addr, parity)) return;
+  if (mbar_try_wait<kCluster>(addr, parity)) return;
   const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(addr, parity))
+  while (!mbar_try_wait<kCluster>(addr, parity))
     if (global_ns() - t0 > kBarrierTimeoutNs) __trap();
 }
 

@@ -13,6 +13,12 @@
 // with 128 x 128 block tiles, sixteen warps of 32 x 32, and a 4-stage
 // cp.async ring (X = S^T, whose tile is read along m).
 //
+// B6 on bf16 or f16 inputs (n >= 2; f32 sums and output) runs on the bf16
+// and f16 tensor cores: half_mma.cuh's engine, wgmma m64n256k16 with f32
+// accumulators, both operands in shared memory, fed by multicast TMA in
+// thread-block clusters of 2, 256 x 128 block tiles.  B7's product half
+// takes the same route, so its B is bitwise B6's.
+//
 // B4 in f64 (n >= 2) runs on the same tensor cores through the engine's
 // generating producer (dense_mma.cuh, dmma_gen_sketch_kernel): 96 x 128
 // tiles, twelve warps of 32 x 32 that only multiply, and a warpgroup that
@@ -20,28 +26,30 @@
 // same bits as the FMA route) and copies A's.  S is generated once per
 // thread-block cluster of up to 8 blocks along n, which share it through
 // distributed shared memory: at n = 1000 each element once, where the FMA
-// route generated it once per n-block (8 times).  The f64 sums of both may
-// be split along m by the wrapper's plan; the partials are added in a
-// fixed order, so the results are deterministic.
+// route generated it once per n-block (8 times).  The sums of every
+// tensor-core route may be split along m by the wrapper's plan; the
+// partials are added in a fixed order, so the results are deterministic.
 //
 // Every other route runs dense_sketch_tile_kernel below on the FMA pipes:
-// f32, because the tensor cores have no f32 product that keeps f32
-// accuracy (TF32 would break the 2*gamma_m*|S||A| bound), and bf16/f16
-// inputs (f32 sums), for B4 and B6.  Each block owns one 128 x 128 output
-// tile and loops over m itself, in chunks of 16: it stages the (128 x 16) S
-// tile and the (16 x 128) A tile in shared memory and every thread keeps
-// an 8 x 8 register micro-tile, with the rows and columns of a micro-tile
-// 16 apart so that shared-memory reads and global stores of a warp fall on
+// B6 and B4 in f32, because the tensor cores have no f32 product that
+// keeps f32 accuracy (TF32 would break the 2*gamma_m*|S||A| bound), and
+// B4 on bf16/f16 inputs (f32 sums; its S is generated in the loop, and
+// the tensor-core route with the generating producer at half precision is
+// not written yet).  Each block owns one 128 x 128 output tile and loops
+// over m itself, in chunks of 16: it stages the (128 x 16) S tile and the
+// (16 x 128) A tile in shared memory and every thread keeps an 8 x 8
+// register micro-tile, with the rows and columns of a micro-tile 16 apart
+// so that shared-memory reads and global stores of a warp fall on
 // consecutive addresses.  Each output is one FMA chain over k = 0 .. m-1
 // in order: no atomics, no split of m, and the result is deterministic.
 // It does not overlap the loads of the next chunk with the products of
-// this one, and its generated S tile is stored transposed (Ss[kk][r]), so
-// the 16 threads of a half-warp that share a row store 128 doubles apart,
-// on one bank; PERF.md has its times against the bound.  Index arithmetic
-// is 64-bit.
+// this one, and its S tile is stored transposed (Ss[kk][r]), so the 16
+// threads of a half-warp that share a row store 128 elements apart, on
+// one bank; PERF.md has its times against the bound.  Index arithmetic is
+// 64-bit.
 //
 // Where the S tile of that loop comes from is the template argument Src:
-//  - MatrixTile (B6): S row-major in A's dtype, read once per n-block.
+//  - MatrixTile (B6 in f32): S row-major in A's dtype, read once per n-block.
 //  - GaussianTile (B4): element (i, j) from threefry2x32(k0, k1, i, col0 + j)
 //    and Box-Muller in f32, times the f32 scale, then cast to A's dtype (bf16
 //    A: S rounded to bf16, products summed in f32).  The counter is the
@@ -58,6 +66,7 @@
 
 #include "common.cuh"
 #include "dense_mma.cuh"
+#include "half_mma.cuh"
 #include "threefry.cuh"
 
 namespace {
@@ -219,15 +228,23 @@ cudaError_t launch_dense_sketch(Src src, const void* A, void* out, int64_t d,
 }
 
 // dtype code of A -> (input type, accumulator type): half inputs sum in
-// f32.  S is in A's dtype.  An f64 matrix goes to the tensor-core engine,
-// its sum over m cut into `parts` slabs of `slab` rows (partials in
-// `scratch` when parts > 1).
+// f32.  S is in A's dtype.  An f64 matrix goes to the FP64 tensor-core
+// engine and a bf16 or f16 one to the half engine, each with its sum over m
+// cut into `parts` slabs of `slab` rows (partials in `scratch` when parts
+// > 1: f64 words, read as f32 by the half engine).  lds and lda are the row
+// pitches of S and A in elements: the half engine's operands may be padded
+// to 16-byte pitches by the wrapper; every other route takes contiguous
+// operands (lds = m, lda = n).
 inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S, const void* A, void* out,
                                           void* scratch, int64_t d, int64_t m, int64_t n,
-                                          int64_t slab, int64_t parts, cudaStream_t stream) {
+                                          int64_t slab, int64_t parts, cudaStream_t stream,
+                                          int64_t lds, int64_t lda) {
+  const bool matrix = d > 0 && n > 1;
+  const bool half = dtype == kBF16 || dtype == kF16;
+  if (!(half && matrix) && (lds != m || lda != n)) return cudaErrorInvalidValue;
   switch (dtype) {
     case kF64:
-      if (d > 0 && n > 1)
+      if (matrix)
         return launch_dmma_sketch<SketchMma>(
             static_cast<const double*>(S), static_cast<const double*>(A),
             static_cast<double*>(out), static_cast<double*>(scratch), d, m, n, slab, parts,
@@ -238,10 +255,19 @@ inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S, const void* 
       return launch_dense_sketch<float, float>(
           MatrixTile<float>{static_cast<const float*>(S), m}, A, out, d, m, n, stream);
     case kBF16:
+      if (matrix)
+        return launch_hmma_sketch<__nv_bfloat16>(
+            static_cast<const __nv_bfloat16*>(S), static_cast<const __nv_bfloat16*>(A),
+            static_cast<float*>(out), static_cast<float*>(scratch), d, m, n, lds, lda, slab, parts,
+            stream);
       return launch_dense_sketch<__nv_bfloat16, float>(
           MatrixTile<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(S), m}, A, out, d, m, n,
           stream);
     case kF16:
+      if (matrix)
+        return launch_hmma_sketch<__half>(
+            static_cast<const __half*>(S), static_cast<const __half*>(A), static_cast<float*>(out),
+            static_cast<float*>(scratch), d, m, n, lds, lda, slab, parts, stream);
       return launch_dense_sketch<__half, float>(
           MatrixTile<__half>{static_cast<const __half*>(S), m}, A, out, d, m, n, stream);
     default:

@@ -34,9 +34,9 @@ KINDS = ("countsketch", "sketch_matmul", "gaussian", "srht", "tsqr")
 _ALIASES = {"uniform_dense": "sketch_matmul", "clarkson_woodruff": "countsketch"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bandwidth and the
-# FP64 (tensor core) and FP32 rates.
+# FP64 (tensor core), FP32 and dense bf16/fp16 tensor-core rates.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 H100_SMS = 132  # streaming multiprocessors of the H100 SXM (data sheet)
 
 
@@ -60,18 +60,20 @@ def work(kind: str, m: int, n: int, d: int, dtype=torch.float64) -> tuple[float,
     (int32) and sign, and SA once; B6 and B4 2·d·m·n (S read by B6,
     generated by B4); B8 (log2 m_pad + 1)·m·n + d·n, A, D, the d sampled
     rows and SA once; B2 d·n·(n + 1) on the (d, n) sketch and its (n, n)
-    Gram."""
+    Gram.  Inputs count at ``dtype``'s size, outputs at the accumulation
+    dtype's: a bf16/f16 launch writes f32, 4 bytes a cell."""
     kind, esz = _kind(kind), torch.empty((), dtype=dtype).element_size()
+    osz = 4 if dtype in (torch.bfloat16, torch.float16) else esz
     if kind == "countsketch":
-        return m * n, m * n * esz + m * (4 + esz) + d * n * esz
+        return m * n, m * n * esz + m * (4 + esz) + d * n * osz
     if kind == "sketch_matmul":
-        return 2 * d * m * n, (d * m + m * n + d * n) * esz
+        return 2 * d * m * n, (d * m + m * n) * esz + d * n * osz
     if kind == "gaussian":
-        return 2 * d * m * n, (m * n + d * n) * esz
+        return 2 * d * m * n, m * n * esz + d * n * osz
     if kind == "srht":
         p_bits = max(m - 1, 1).bit_length()
-        return (p_bits + 1) * m * n + d * n, (m * n + m + d + d * n) * esz
-    return d * n * (n + 1), (d * n + n * n) * esz
+        return (p_bits + 1) * m * n + d * n, (m * n + m + d) * esz + d * n * osz
+    return d * n * (n + 1), d * n * esz + n * n * osz
 
 
 def predict_cost(kind: str, m: int, n: int, d: int, dtype=torch.float64) -> float:

@@ -3,10 +3,10 @@
 Port of ``repro/kernels/common.py``: ``cdiv``, ``pad_to``, the counter-based
 ``threefry2x32`` behind the Gaussian sketch, ``bits_to_gaussian`` and
 ``key_to_u32``; plus ``sqrt_tensor``, the divisor of the SRHT and
-sparse-sign scales, and the plan of the f64 tensor-core engine
-(``csrc/dense_mma.cuh``) behind kernels B6, B4 and B2: :func:`split_plan`,
-:func:`sketch_split`, :func:`gen_cluster`, :func:`gaussian_split` and
-:func:`gram_split`; and the schedule of kernel B8 (``csrc/hadamard.cuh``):
+sparse-sign scales, and the plan of the tensor-core engines behind kernels
+B6, B4 and B2 (f64: ``csrc/dense_mma.cuh``; B6 on bf16/f16 inputs:
+``csrc/half_mma.cuh``): :func:`split_plan`, :func:`sketch_split`,
+:func:`gen_cluster`, :func:`gaussian_split` and :func:`gram_split`; and the schedule of kernel B8 (``csrc/hadamard.cuh``):
 :func:`hadamard_passes` and :func:`hadamard_panel`.
 
 PyTorch has no uint32 ``+``, ``<<`` or ``>>`` on CPU tensors, so the plain
@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "cdiv", "pad_to", "sqrt_tensor", "threefry2x32", "bits_to_gaussian", "key_to_u32",
-    "MMA_STEP", "SKETCH_MMA_TILE", "GRAM_MMA_TILE", "GAUSS_MMA_ROWS", "GEN_CLUSTER_MAX", "Split", "split_plan",
+    "MMA_STEP", "SKETCH_MMA_TILE", "GRAM_MMA_TILE", "GAUSS_MMA_ROWS", "GEN_CLUSTER_MAX",
+    "HALF_MMA_ROWS", "HALF_MMA_COLS", "HALF_MMA_STEP", "Split", "split_plan",
     "sketch_split", "gen_cluster", "gen_grid", "gaussian_split", "gram_split", "sm_count",
     "scratch_for", "HAD_MAX_BITS", "HAD_SEGMENT_BYTES", "hadamard_passes", "hadamard_panel",
 ]
@@ -58,6 +59,12 @@ SKETCH_MMA_TILE = 128
 GRAM_MMA_TILE = 64
 GAUSS_MMA_ROWS = 96
 GEN_CLUSTER_MAX = 8
+# B6's bf16/f16 engine (csrc/half_mma.cuh; the tests hold these equal to
+# kHalfBD, kHalfBN and kHalfBK): the rows (of S) and columns (of A) of its
+# block tile and the rows of the reduction in one ring stage.
+HALF_MMA_ROWS = 256
+HALF_MMA_COLS = 128
+HALF_MMA_STEP = 64
 # Bounds of the plan: at most MAX_PARTS slabs; each block pays about
 # PART_OVERHEAD stages of set-up (the ring's fill, the partial's store);
 # one more slab must gain at least PART_GAIN of the modelled time, since
@@ -72,7 +79,7 @@ class Split(NamedTuple):
 
     slab: int  # rows of the reduction in each slab (a multiple of MMA_STEP)
     parts: int  # slabs; the last one may be shorter
-    scratch: int  # f64 elements of partial tiles the call needs (0 when parts == 1)
+    scratch: int  # f64 words of partial tiles the call needs (0 when parts == 1; f32 partials take half a word)
 
 
 def split_plan(length: int, tiles: int, sms: int, step: int = MMA_STEP) -> tuple[int, int]:
@@ -110,11 +117,20 @@ def _split(length: int, tiles: int, tile: int, sms: int) -> Split:
 
 
 def sketch_split(dtype: torch.dtype, d: int, m: int, n: int, sms: int) -> Split:
-    """The split of B6's sum over m (the engine runs f64 with n ≥ 2)."""
-    if dtype != torch.float64 or d < 1 or n < 2:
+    """The split of B6's sum over m: the f64 engine's (128 x 128 tiles,
+    16-row stages) or, on bf16/f16 inputs, the half engine's (256 x 128
+    tiles, 64-row stages, f32 partials).  Both run where n ≥ 2; f32 and the
+    vector b take no split."""
+    if d < 1 or n < 2:
         return _NO_SPLIT
-    tiles = cdiv(d, SKETCH_MMA_TILE) * cdiv(n, SKETCH_MMA_TILE)
-    return _split(m, tiles, SKETCH_MMA_TILE, sms)
+    if dtype == torch.float64:
+        tiles = cdiv(d, SKETCH_MMA_TILE) * cdiv(n, SKETCH_MMA_TILE)
+        return _split(m, tiles, SKETCH_MMA_TILE, sms)
+    if dtype in (torch.bfloat16, torch.float16):
+        tiles = cdiv(d, HALF_MMA_ROWS) * cdiv(n, HALF_MMA_COLS)
+        slab, parts = split_plan(m, tiles, sms, HALF_MMA_STEP)
+        return Split(slab, parts, cdiv(parts * tiles * HALF_MMA_ROWS * HALF_MMA_COLS, 2) if parts > 1 else 0)
+    return _NO_SPLIT
 
 
 def gen_cluster(n: int) -> int:

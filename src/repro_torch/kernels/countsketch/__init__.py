@@ -5,12 +5,14 @@ from .ops import (
     countsketch_coo_apply,
     countsketch_coo_plan,
     countsketch_csr,
+    coo_rowptr,
 )
 from .ref import countsketch_coo_ref, countsketch_fold_ref, countsketch_ref
 
 __all__ = [
     "CooPlan",
     "CountSketchCSR",
+    "coo_rowptr",
     "countsketch_apply",
     "countsketch_coo_apply",
     "countsketch_coo_plan",

@@ -37,14 +37,16 @@ kernel: the reference scatters with a jnp ``.at[].add``
 (``repro/core/sketch.py:506–518``, ``:577–590``, ``:641–650``), whose
 counterpart on CUDA, ``index_add_``, sums with atomics in an order that
 changes from run to run.  Here each entry's k products go to the cells
-(h_j(r), c); :func:`countsketch_coo_plan` sorts them by cell (a stable
-sort of the int64 keys h·n + c in the reference's j-major, entry-order
-ravel, plus d·n + 1 segment offsets: index set-up, a library call as the
-CSR's build is), and the kernel gives one thread to each cell, which sums
-its segment in that order, gathering v and w through the sort's
-permutation.  Every cell is written once, empty ones as 0; the result is
-bitwise the plain version run on the CPU.  f64 and f32 only: half inputs
-never reach it (``precision="mixed"`` raises for a sparse A).
+(h_j(r), c), and :func:`countsketch_coo_plan` groups them by bucket, each
+bucket's in the reference's j-major, entry-order ravel.  For entries in
+row order it sorts nothing over the entries: it is B1's bucket CSR of the
+sketch (cached on the operator) and a row pointer over the entries (cached
+on the ``SparseOperator``).  For entries in any other order it is a stable
+sort of the k·nnz products by their int32 bucket id.  The kernel gives one
+warp to each bucket, which adds the bucket's products in that order into
+its output row in shared memory and writes the row once, empty cells as 0;
+the result is bitwise the plain version run on the CPU.  f64 and f32 only:
+half inputs never reach it (``precision="mixed"`` raises for a sparse A).
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .ref import acc_dtype, coo_keys, countsketch_coo_ref, countsketch_fold_ref, countsketch_ref
+from .ref import acc_dtype, countsketch_coo_ref, countsketch_fold_ref, countsketch_ref
 
 __all__ = [
     "countsketch_apply",
@@ -61,6 +63,7 @@ __all__ = [
     "CountSketchCSR",
     "countsketch_coo_apply",
     "countsketch_coo_plan",
+    "coo_rowptr",
     "CooPlan",
 ]
 
@@ -213,20 +216,96 @@ countsketch_apply.launches = 0
 
 
 class CooPlan(NamedTuple):
-    """The coordinate scatter's products grouped by output cell."""
+    """The coordinate scatter's products grouped by bucket: bucket b's are
+    those of ``items[offsets[b]:offsets[b + 1]]``, in the reference's
+    j-major, entry-order ravel (product p = j·nnz + e).
 
-    perm: torch.Tensor  # (k·nnz,) int64 — product ids (j·nnz + e), sorted by cell (stable)
-    offsets: torch.Tensor  # (d·n + 1,) int64 — cell q owns perm[off[q]:off[q+1]]
+    By row (``rowptr`` given; entries in row order): ``items`` and
+    ``weights`` are B1's bucket CSR of the sketch, each bucket's (j, r) in
+    (j, r) order with its weight w_j(r), and row r's entries are
+    ``[rowptr[r], rowptr[r + 1])``.  By product (``rowptr`` None):
+    ``items`` are the product ids p, sorted by bucket (stable)."""
+
+    offsets: torch.Tensor  # (d + 1,) int64
+    items: torch.Tensor  # by row: (k·m,) int32 rows; by product: (k·nnz,) int64 ids
+    weights: torch.Tensor | None  # by row: (k·m,) in the values' dtype
+    rowptr: torch.Tensor | None  # by row: (m + 1,) int64
 
 
-def countsketch_coo_plan(rows, cols, n: int, buckets, d: int) -> CooPlan:
-    """Sort the k·nnz products of the entries (rows, cols) by their cell
-    h_j(r)·n + c, keeping the j-major, entry-order ravel within a cell."""
-    keys = coo_keys(rows, cols, n, buckets)
-    perm = torch.sort(keys, stable=True).indices
-    offsets = torch.zeros(d * n + 1, dtype=torch.int64, device=keys.device)
-    torch.cumsum(torch.bincount(keys, minlength=d * n), 0, out=offsets[1:])
-    return CooPlan(perm=perm, offsets=offsets)
+def coo_rowptr(rows: torch.Tensor, m: int) -> torch.Tensor | None:
+    """The (m + 1,) int64 row pointer of entries in row order (``rows``
+    nondecreasing), or None where a row id decreases somewhere."""
+    return _rowptr(rows, m) if _facts({"ordered": _ordered(rows)})["ordered"] else None
+
+
+def _rowptr(rows: torch.Tensor, m: int) -> torch.Tensor:
+    # a binary search a row over the sorted ids: no atomics on the hot bins
+    # that a bincount of sorted ids would hit
+    return torch.searchsorted(rows, torch.arange(m + 1, dtype=rows.dtype, device=rows.device))
+
+
+def _ordered(rows: torch.Tensor) -> torch.Tensor | None:
+    """On the device: whether ``rows`` is nondecreasing (None: trivially)."""
+    return (rows[1:] >= rows[:-1]).all() if rows.numel() > 1 else None
+
+
+def _in_range(t: torch.Tensor, hi: int) -> torch.Tensor | None:
+    """On the device: whether every id of ``t`` lies in [0, hi) (None: empty)."""
+    if not t.numel():
+        return None
+    lo, top = torch.aminmax(t)
+    return (lo >= 0) & (top < hi)
+
+
+def _facts(facts: dict) -> dict:
+    """The device booleans of ``facts`` read back at once (None: True)."""
+    known = [k for k, v in facts.items() if v is not None]
+    read = dict(zip(known, torch.stack([facts[k] for k in known]).tolist())) if known else {}
+    return {k: bool(read.get(k, True)) for k in facts}
+
+
+def countsketch_coo_plan(rows, buckets, weights, d: int, dtype: torch.dtype, *,
+                         csr: CountSketchCSR | None = None, rowptr=None) -> CooPlan:
+    """Group the k·nnz products of the entries with row ids ``rows`` by
+    bucket, for the bucket sketch (buckets, weights), each (m,) or (k, m),
+    and values of ``dtype``.
+
+    Entries in row order take the plan by row: ``csr`` (the operator's
+    :func:`countsketch_csr` in ``dtype``) and ``rowptr``
+    (:func:`coo_rowptr`), each built here when not given; no sort over the
+    entries.  Any other order takes the plan by product: a stable sort of
+    the products' int32 bucket ids.  Without ``rowptr`` the order is worked
+    out here, and the rows and buckets are checked to lie in range
+    (ValueError), in one read from the device."""
+    m = buckets.shape[-1]
+    if rowptr is None:
+        facts = _facts({"ordered": _ordered(rows), "rows": _in_range(rows, m),
+                        "buckets": _in_range(buckets, d)})
+        _raise_unless(facts, m, 0, d)
+        rowptr = _rowptr(rows, m) if facts["ordered"] else None
+    return _plan(rows, buckets, weights, d, dtype, csr, rowptr)
+
+
+def _plan(rows, buckets, weights, d, dtype, csr, rowptr) -> CooPlan:
+    """The plan by row where ``rowptr`` is given, else by product; the
+    caller has checked the rows and buckets to lie in range."""
+    if rowptr is not None:
+        if csr is None:
+            csr = countsketch_csr(buckets, weights, d, dtype)
+        return CooPlan(offsets=csr.offsets, items=csr.rows, weights=csr.signs, rowptr=rowptr)
+    m = buckets.shape[-1]
+    ids = buckets.reshape(-1, m)[:, rows].reshape(-1)
+    offsets = torch.zeros(d + 1, dtype=torch.int64, device=ids.device)
+    torch.cumsum(torch.bincount(ids, minlength=d), 0, out=offsets[1:])
+    return CooPlan(offsets=offsets, items=torch.sort(ids, stable=True).indices, weights=None, rowptr=None)
+
+
+def _raise_unless(facts: dict, m: int, n: int, d: int) -> None:
+    for name, hi in (("rows", m), ("cols", n), ("buckets", d)):
+        if not facts.get(name, True):
+            raise ValueError(f"countsketch_coo_apply: {name} must lie in [0, {hi})")
+    if not facts.get("rowptr", True):
+        raise ValueError("plan rowptr does not cover the entries")
 
 
 def countsketch_coo_apply(
@@ -244,8 +323,8 @@ def countsketch_coo_apply(
     the sparse A of ``shape`` (m, n) — or (m,), with ``cols`` all 0 —
     given by its entries (rows, cols, vals), through the coordinate scatter
     kernel on CUDA.  The result is (d, n) (or (d,)) in the values' dtype.
-    ``plan`` is :func:`countsketch_coo_plan` of these entries; it is built
-    here when not given."""
+    ``plan`` is :func:`countsketch_coo_plan` of these entries and this
+    sketch in the values' dtype; it is built here when not given."""
     shape = tuple(int(s) for s in shape)
     if len(shape) not in (1, 2):
         raise ValueError(f"countsketch_coo_apply: shape must be (m,) or (m, n), got {shape}")
@@ -273,34 +352,62 @@ def countsketch_coo_apply(
     return _coo_launch(rows, cols, vals, shape, buckets, weights, d, plan)
 
 
+def _check_plan(plan: CooPlan, vals, k: int, m: int, d: int) -> None:
+    """The plan's form, shapes, dtypes and device."""
+    nnz = vals.shape[0]
+    by_row = plan.rowptr is not None
+    want = (
+        [("offsets", (d + 1,), torch.int64), ("items", (k * m,), torch.int32),
+         ("weights", (k * m,), vals.dtype), ("rowptr", (m + 1,), torch.int64)]
+        if by_row else [("offsets", (d + 1,), torch.int64), ("items", (k * nnz,), torch.int64)]
+    )
+    if not by_row and plan.weights is not None:
+        raise ValueError("a plan by product carries no weights")
+    for name, shape, dtype in want:
+        t = getattr(plan, name)
+        if t is None or tuple(t.shape) != shape:
+            raise ValueError(f"plan {name} does not match these entries and this sketch")
+        if t.dtype != dtype or t.device != vals.device or not t.is_contiguous():
+            raise ValueError(f"plan {name} must be contiguous {dtype} on {vals.device}")
+
+
 def _coo_launch(rows, cols, vals, shape, buckets, weights, d, plan):
-    """The CUDA branch of :func:`countsketch_coo_apply` (arguments checked)."""
+    """The CUDA branch of :func:`countsketch_coo_apply` (arguments checked).
+
+    The kernel reads the ids it is handed without bounds: the rows (where
+    it reads them), columns and buckets are checked to lie in range, and a
+    given plan's row pointer to cover the entries, on the device, and read
+    back once before the launch (ValueError), so that out-of-range ids
+    never read or write outside the buffers."""
     if vals.dtype not in (torch.float64, torch.float32):
         raise TypeError(f"the coordinate scatter takes f64 or f32 values, got {vals.dtype}")
     m, nnz = shape[0], vals.shape[0]
     n = shape[1] if len(shape) == 2 else 1
     k = buckets.numel() // m if m else 1
-    # the kernel gathers w[j, rows[i]] and the plan's keys index d·n cells:
-    # out-of-range ids would read and write outside the buffers
-    for name, t, hi in (("rows", rows, m), ("cols", cols, n), ("buckets", buckets, d)):
-        if t.numel() and not bool((t.min() >= 0) & (t.max() < hi)):
-            raise ValueError(f"countsketch_coo_apply: {name} must lie in [0, {hi})")
+    facts = {"cols": _in_range(cols, n), "buckets": _in_range(buckets, d)}
     if plan is None:
-        plan = countsketch_coo_plan(rows, cols, n, buckets, d)
-    if plan.perm.shape != (k * nnz,) or plan.offsets.shape != (d * n + 1,):
-        raise ValueError("plan does not match these entries and this sketch")
-    for name, t in plan._asdict().items():
-        if t.dtype != torch.int64 or t.device != vals.device or not t.is_contiguous():
-            raise ValueError(f"plan {name} must be contiguous int64 on {vals.device}")
-    w = weights.reshape(-1, m).to(vals.dtype).contiguous()
-    rows, vals = rows.contiguous(), vals.contiguous()
+        facts.update(rows=_in_range(rows, m), ordered=_ordered(rows))
+    else:
+        _check_plan(plan, vals, k, m, d)
+        if plan.rowptr is None:  # the kernel reads the rows
+            facts["rows"] = _in_range(rows, m)
+        else:
+            facts["rowptr"] = (plan.rowptr[0] == 0) & (plan.rowptr[-1] == nnz)
+    facts = _facts(facts)
+    _raise_unless(facts, m, n, d)
+    if plan is None:
+        plan = _plan(rows, buckets, weights, d, vals.dtype, None, _rowptr(rows, m) if facts["ordered"] else None)
+    by_row = plan.rowptr is not None
+    w = None if by_row else weights.reshape(-1, m).to(vals.dtype).contiguous()
+    rows, cols, vals = rows.contiguous(), cols.contiguous(), vals.contiguous()
     out = torch.empty(d * n, dtype=vals.dtype, device=vals.device)
     lib = _build.load()
     with torch.cuda.device(vals.device):
         err = lib.repro_coo_scatter(
-            _build.dtype_code(vals.dtype), plan.perm.data_ptr(), rows.data_ptr(),
-            vals.data_ptr(), w.data_ptr(), plan.offsets.data_ptr(), out.data_ptr(),
-            d * n, nnz, m, _build.stream_ptr(vals.device),
+            _build.dtype_code(vals.dtype), plan.offsets.data_ptr(), plan.items.data_ptr(),
+            _build.ptr(plan.weights), _build.ptr(plan.rowptr), rows.data_ptr(), cols.data_ptr(),
+            vals.data_ptr(), _build.ptr(w), out.data_ptr(), d, n, nnz, m,
+            _build.stream_ptr(vals.device),
         )
     _build.check(err, "countsketch_coo_apply")
     _build.count_launch(countsketch_coo_apply)

@@ -11,9 +11,14 @@ in slab order.  B6 copies its S tiles into the engine's ring; B4 generates
 them there from the threefry counter (i, j) and Box–Muller, so S never
 reaches device memory, and generates each once per thread-block cluster of
 :func:`~repro_torch.kernels.common.gen_cluster` blocks along n, which share
-it through distributed shared memory.  f32, half inputs and the vector b
-run tiled FMA kernels (``csrc/dense_sketch.cuh``), templated on where the
-S tile comes from.  No atomics anywhere: the result is deterministic.
+it through distributed shared memory.  B6 on bf16/f16 inputs (n ≥ 2) runs
+on the bf16/f16 tensor cores: ``csrc/half_mma.cuh``, wgmma with f32
+accumulators fed by TMA in clusters of two blocks that share S's tile, its
+split from the same plan; its operands need 16-byte row pitches
+(:func:`engine_operands` pads a copy where m or n is not a multiple of 8).
+f32, B4 on half inputs and the vector b run tiled FMA kernels
+(``csrc/dense_sketch.cuh``), templated on where the S tile comes from.  No
+atomics anywhere: the result is deterministic.
 
 Contract (as the reference's): A is (m, n) or (m,); the result is (d, n)
 or (d,); f64 and f32 keep their dtype, half inputs give f32.  S is rounded
@@ -87,6 +92,32 @@ def _check_key(key, d):
     return int(k0), int(k1)
 
 
+def pitched(X: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """A contiguous (rows, cols) ``X`` with its rows on 16-byte pitches from
+    a 16-byte aligned base, as the half engine's TMA reads them, and that
+    pitch in elements: ``X`` itself where it already is, else a copy into a
+    padded buffer (the pad is never read)."""
+    rows, cols = X.shape
+    esz = X.element_size()
+    if (cols * esz) % 16 == 0 and X.data_ptr() % 16 == 0:
+        return X, cols
+    pitch = -(-cols * esz // 16) * 16 // esz
+    buf = torch.empty((rows, pitch), dtype=X.dtype, device=X.device)
+    buf[:, :cols].copy_(X)
+    return buf, pitch
+
+
+def engine_operands(S: torch.Tensor, A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int, int]:
+    """(S, A, lds, lda) for the C entries of B6 and B7: a bf16/f16 matrix
+    (d ≥ 1, n ≥ 2) runs the half engine and gets 16-byte row pitches
+    (:func:`pitched`); every other route takes contiguous operands."""
+    (d, m), n = S.shape, A.shape[1]
+    if A.dtype in (torch.bfloat16, torch.float16) and d > 0 and n > 1:
+        (S, lds), (A, lda) = pitched(S), pitched(A)
+        return S, A, lds, lda
+    return S, A, m, n
+
+
 def sketch_matmul(S: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """S (d, m) · A, through kernel B6 on CUDA."""
     prepared = _prepare("sketch_matmul", A, (1, 2))
@@ -99,11 +130,12 @@ def sketch_matmul(S: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     out = torch.empty((d, n), dtype=acc_dtype(A.dtype), device=A.device)
     split = sketch_split(A.dtype, d, m, n, sm_count(A.device))
     scratch = scratch_for([split], A.device)
+    S, A2, lds, lda = engine_operands(S, A2)
     lib = _build.load()
     with torch.cuda.device(A.device):
         err = lib.repro_sketch_matmul(
             code, S.data_ptr(), A2.data_ptr(), out.data_ptr(), _build.ptr(scratch), d, m, n,
-            split.slab, split.parts, _build.stream_ptr(A.device),
+            split.slab, split.parts, lds, lda, _build.stream_ptr(A.device),
         )
     _build.check(err, "sketch_matmul")
     _build.count_launch(sketch_matmul)

@@ -33,8 +33,11 @@ Gram (B2) reads it once.  B is bitwise that sketch kernel's output and G is
 exactly symmetric.  The extra read of B is d·n elements against A's m·n.
 In f64, B6, B4 and B2 run on the FP64 tensor cores with the split plans
 of ``kernels/common.py`` (B4 generating S in the engine's ring, once per
-thread-block cluster); when a plan splits a sum, the C entry also launches
-the kernel that adds the partials, so each fused wrapper stays one C call.
+thread-block cluster); on bf16/f16 inputs B7's product half runs on B6's
+half engine (the bf16/f16 tensor cores) with its own plan, and the Gram of
+its f32 B on the FMA pipes; when a plan splits a sum, the C entry also
+launches the kernel that adds the partials, so each fused wrapper stays
+one C call.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from .. import _build
 from ..common import gaussian_split, gram_split, scratch_for, sketch_split, sm_count
 from ..countsketch.ops import _prepare
 from ..countsketch.ref import acc_dtype
-from ..sketch_matmul.ops import _check_key, _check_S
+from ..sketch_matmul.ops import _check_key, _check_S, engine_operands
 from ..sketch_matmul.ops import _prepare as _prepare_dense
 from ..sketch_matmul.ref import default_scale
 from ..srht.ops import srht_apply
@@ -104,11 +107,12 @@ def matmul_gram(S, A):
     sms = sm_count(A.device)
     split_b, split_g = sketch_split(A.dtype, d, m, n, sms), gram_split(B.dtype, d, n, sms)
     scratch = scratch_for([split_b, split_g], A.device)
+    S, A, lds, lda = engine_operands(S, A)
     lib = _build.load()
     with torch.cuda.device(A.device):
         err = lib.repro_matmul_gram(
             code, S.data_ptr(), A.data_ptr(), B.data_ptr(), G.data_ptr(), _build.ptr(scratch),
-            d, m, n, split_b.slab, split_b.parts, split_g.slab, split_g.parts,
+            d, m, n, split_b.slab, split_b.parts, split_g.slab, split_g.parts, lds, lda,
             _build.stream_ptr(A.device),
         )
     _build.check(err, "matmul_gram")

@@ -6,6 +6,9 @@ kernels' own plans.
 time, from the same formula ``chip_smoke.py`` uses (``_bound`` imports it):
 B1 2.517 ms at A (2^20, 1000) sketched to 4000 rows, B2 0.060 ms on the
 (4000, 1000) sketch, B6 7.825 ms at A (2^16, 1000), held within 0.5%.
+A bf16/f16 launch is bounded at the dense tensor-core rate (989 TFLOP/s)
+and writes its f32 output at 4 bytes a cell: B6 at A (2^16, 1000) in bf16
+is 0.530 ms, against 7.825 ms at the FP32 rate.
 ``best_blocks`` returns the plans the kernels take (``kernels/common.py``),
 and ``kernel_blocks`` is ``best_blocks``.  The reference's kind names are
 kept.
@@ -54,3 +57,26 @@ def test_kinds_are_the_references():
     assert set(autotune.KINDS) == set(reference.KINDS)
     with pytest.raises(ValueError, match="unknown kind"):
         autotune.best_blocks("pallas", M, N, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_launches_are_bounded_at_the_tensor_core_rate(dtype):
+    ops, nbytes = autotune.work("sketch_matmul", 2**16, N, D, dtype)
+    assert ops == 2 * D * 2**16 * N
+    assert nbytes == (D * 2**16 + 2**16 * N) * 2 + D * N * 4
+    assert autotune.bound(ops, nbytes, str(dtype).removeprefix("torch."))[1] == "operations"
+    assert autotune.predict_cost("sketch_matmul", 2**16, N, D, dtype) * 1e3 == pytest.approx(0.530, rel=5e-3)
+    assert autotune.predict_cost("sketch_matmul", 2**16, N, D, torch.float32) * 1e3 == pytest.approx(7.825, rel=5e-3)
+
+
+@pytest.mark.parametrize("kind", ["countsketch", "sketch_matmul", "gaussian", "srht", "tsqr"])
+def test_half_outputs_count_four_bytes_a_cell(kind):
+    """A bf16 launch reads its input elements at 2 bytes and writes its f32
+    output at 4, as an f32 launch does: the two differ by 2 bytes an input
+    element (B1's int32 buckets count alike in both)."""
+    m, n, d = 2**12, 33, 130
+    inputs = {"countsketch": m * n + m, "sketch_matmul": d * m + m * n, "gaussian": m * n,
+              "srht": m * n + m + d, "tsqr": d * n}[kind]
+    _, b16 = autotune.work(kind, m, n, d, torch.bfloat16)
+    _, b32 = autotune.work(kind, m, n, d, torch.float32)
+    assert b32 - b16 == 2 * inputs

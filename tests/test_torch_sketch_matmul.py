@@ -269,3 +269,65 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(TypeError):
         gaussian_gram(np.zeros((10, 2)), (0, 0), 3)
     assert sketch_matmul_ref(torch.zeros(3, 10), A).dtype == torch.float64
+
+
+class _RecordingLib:
+    """A kernel library that records each C entry's arguments."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        if not name.startswith("repro_"):
+            raise AttributeError(name)
+
+        def record(*args):
+            self.calls[name] = args
+            return 0
+
+        return record
+
+
+@pytest.mark.parametrize("half", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,m,n,sms", [(300, 2048, 300, 132), (300, 2048, 300, 1), (1000, 1000, 2, 132),
+                                       (37, 100, 3, 132)])
+def test_half_route_hands_b6_and_b7_the_half_split(monkeypatch, half, d, m, n, sms):
+    """The CUDA branches of B6 and B7 on half inputs, run on CPU tensors
+    against a recording library: both pass the half engine's split of the
+    sum over m (``sketch_split`` at the half dtype), with scratch for its
+    f32 partials exactly when it splits, and its operands on 16-byte row
+    pitches (a padded copy where m or n is not a multiple of 8)."""
+    import contextlib
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import sketch_split
+    from repro_torch.kernels.sketch_matmul import ops as sm_ops
+    from repro_torch.kernels.tsqr import fused
+
+    lib = _RecordingLib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    launched = lambda name, A, ndims: (_build.dtype_code(A.dtype), A.contiguous())  # noqa: E731
+    for mod in (sm_ops, fused):
+        monkeypatch.setattr(mod, "sm_count", lambda device: sms)
+    monkeypatch.setattr(sm_ops, "_prepare", launched)
+    monkeypatch.setattr(fused, "_prepare_dense", launched)
+    S = torch.randn(d, m, dtype=torch.float64)
+    A = torch.randn(m, n, dtype=torch.float64).to(half)
+    split = sketch_split(half, d, m, n, sms)
+    out = sm_ops.sketch_matmul(S, A)
+    B, G = fused.matmul_gram(S, A)
+    assert out.dtype == B.dtype == G.dtype == torch.float32
+    b6, b7 = lib.calls["repro_sketch_matmul"], lib.calls["repro_matmul_gram"]
+    assert b6[0] == b7[0] == _build.dtype_code(half)
+    assert b6[5:10] == (d, m, n, split.slab, split.parts) == b7[6:11]
+    assert (b6[4] is not None) == (split.parts > 1) == (b7[5] is not None)
+    assert split.parts > 1 or split.slab >= m
+    pitch = lambda k: -(-k // 8) * 8  # noqa: E731
+    assert b6[10:12] == (pitch(m), pitch(n)) == b7[13:15]
+    # a padded operand holds the matrix in its first columns
+    S_t, lds = sm_ops.pitched(S.to(half).contiguous())
+    assert lds == pitch(m) and torch.equal(S_t[:, :m], S.to(half))
+    f64 = torch.randn(m, n, dtype=torch.float64)
+    assert sm_ops.engine_operands(S, f64)[2:] == (m, n)  # the other routes: contiguous, unpadded

@@ -13,9 +13,12 @@ Tolerances:
   ``_apply_bcoo`` for the CountSketch and the uniform-sparse sketch (XLA's
   CPU scatter adds in that order too) and for the sparse-sign sketch, each
   checked also within 2·γ_K·|S||A| (K = the most products in one cell);
-- the kernel's order (a stable sort of the cell keys, each cell summed in
-  that order, each product rounded on its own), emulated on the CPU from
-  ``countsketch_coo_plan``: **bitwise** the plain version;
+- the kernel's order, emulated on the CPU from ``countsketch_coo_plan``
+  (bucket by bucket, each bucket's products in plan order into per-column
+  sums, each product rounded on its own): **bitwise** the plain version,
+  for k = 1 and 8, on row-ordered entries (the plan by row: B1's bucket
+  CSR and a row pointer, no sort over the entries), on shuffled entries
+  with repeated coordinates (the plan by product), nnz = 0 and a vector;
 - ``apply_op`` for every kind on every form: within 1e-12 of the
   reference's on the converted S (a Gaussian S within 3 f32 ulps of the
   reference's, so 1e-6 there); the bucket kinds on a sparse A bitwise;
@@ -25,6 +28,7 @@ Tolerances:
   within 1e-10 of the reference's x;
 - ``extend_sketch`` on a sparse A: bitwise a fresh ``apply_op``.
 """
+import dataclasses
 import re
 
 import numpy as np
@@ -50,11 +54,13 @@ from repro_torch.core import (  # noqa: E402
     select_method,
 )
 from repro_torch.core import sketch as tsketch  # noqa: E402
+from repro_torch.core.linop import SparseOperator  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
     countsketch_coo_apply,
     countsketch_coo_plan,
     countsketch_coo_ref,
+    countsketch_csr,
 )
 from repro_torch.kernels.countsketch import ops as cs_ops  # noqa: E402
 
@@ -171,27 +177,126 @@ def test_apply_bcoo_matches_reference(kind):
     assert np.array_equal(top._apply_bcoo(sp, backend="reference").numpy(), got)
 
 
+def _walk(plan, rows, cols, vals, weights, n, d):
+    """The kernel's order on the CPU: (cell, product) of every product,
+    bucket by bucket, each bucket's products in plan order (one warp a
+    bucket adds its batch's products to a column in lane order, so each
+    cell sums its products in this order)."""
+    bucket_of = torch.repeat_interleave(torch.arange(d), plan.offsets.diff())  # of each item
+    if plan.rowptr is not None:
+        r = plan.items.long()
+        span = plan.rowptr[r + 1] - plan.rowptr[r]
+        item = torch.repeat_interleave(torch.arange(r.numel()), span)
+        first = torch.cumsum(span, 0) - span
+        e = plan.rowptr[r][item] + torch.arange(item.numel()) - first[item]
+        prod = plan.weights[item] * vals[e]
+        return (bucket_of[item] * n + cols[e]).numpy(), prod.numpy()
+    nnz = vals.numel()
+    j, e = plan.items // nnz, plan.items % nnz
+    m = weights.shape[-1]
+    prod = weights.reshape(-1, m).to(vals.dtype)[j, rows[e]] * vals[e]
+    return (bucket_of * n + cols[e]).numpy(), prod.numpy()
+
+
+def _emulate(plan, rows, cols, vals, weights, n, d):
+    cell, prod = _walk(plan, rows, cols, vals, weights, n, d)
+    out = np.zeros(d * n, dtype=prod.dtype)
+    np.add.at(out, cell, prod)  # sequential, in the walk's order
+    return out
+
+
+def _row_ordered(rows, cols, vals):
+    """The same entries in row order, each row's in their given order (a
+    stable sort by row: what a coalesced COO or a CSR hands over)."""
+    order = np.argsort(rows, kind="stable")
+    return rows[order], cols[order], vals[order]
+
+
 @pytest.mark.parametrize("kind", BUCKETS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_order_emulated_is_bitwise_the_plain_version(kind, dtype):
-    """The kernel's arithmetic on the CPU: the plan's stable order, one cell
-    at a time, each product rounded on its own."""
+    """Shuffled entries with repeated coordinates: the plan by product (a
+    stable sort of the k·nnz products by bucket), walked bucket by bucket,
+    is bitwise the plain version."""
     m, n, d = 400, 19, 32
     rows, cols, vals, _ = _entries(5, m, n, 1200)
     top = _convert(jsketch.sample(kind, jax.random.key(6), d, m))
     rows_t, cols_t, vals_t = torch.as_tensor(rows), torch.as_tensor(cols), torch.as_tensor(vals).to(dtype)
     h, w = top.buckets, top._weights()
-    plan = countsketch_coo_plan(rows_t, cols_t, n, h, d)
+    plan = countsketch_coo_plan(rows_t, h, w, d, dtype)
     nnz = rows.size
     k = h.numel() // m
-    assert plan.perm.shape == (k * nnz,) and plan.offsets.shape == (d * n + 1,)
-    j, i = plan.perm // nnz, plan.perm % nnz
-    prods = (w.reshape(k, m).to(dtype)[j, rows_t[i]] * vals_t[i]).numpy()
-    cell = np.repeat(np.arange(d * n), plan.offsets.diff().numpy())
-    emulated = np.zeros(d * n, dtype=prods.dtype)
-    np.add.at(emulated, cell, prods)  # each cell in the plan's order
+    assert plan.rowptr is None and plan.weights is None
+    assert plan.items.shape == (k * nnz,) and plan.offsets.shape == (d + 1,)
+    assert torch.equal(torch.sort(plan.items).values, torch.arange(k * nnz))  # every product once
+    emulated = _emulate(plan, rows_t, cols_t, vals_t, w, n, d)
     plain = countsketch_coo_ref(rows_t, cols_t, vals_t, (m, n), h, w, d)
     assert np.array_equal(emulated, plain.numpy().ravel())
+
+
+@pytest.mark.parametrize("kind", BUCKETS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bucket_plan_by_row_is_bitwise_the_plain_version(kind, dtype):
+    """Entries in row order, repeated coordinates included: the plan is B1's
+    bucket CSR and a row pointer (nothing sorted over the entries), and its
+    walk is bitwise the plain version."""
+    m, n, d = 400, 19, 32
+    rows, cols, vals = _row_ordered(*_entries(11, m, n, 1200)[:3])
+    top = _convert(jsketch.sample(kind, jax.random.key(12), d, m))
+    rows_t, cols_t, vals_t = torch.as_tensor(rows), torch.as_tensor(cols), torch.as_tensor(vals).to(dtype)
+    h, w = top.buckets, top._weights()
+    plan = countsketch_coo_plan(rows_t, h, w, d, dtype)
+    csr = countsketch_csr(h, w, d, dtype)
+    assert plan.rowptr is not None and plan.rowptr.shape == (m + 1,) and int(plan.rowptr[-1]) == rows.size
+    assert torch.equal(plan.items, csr.rows) and torch.equal(plan.weights, csr.signs)
+    assert torch.equal(plan.offsets, csr.offsets)
+    emulated = _emulate(plan, rows_t, cols_t, vals_t, w, n, d)
+    plain = countsketch_coo_ref(rows_t, cols_t, vals_t, (m, n), h, w, d)
+    assert np.array_equal(emulated, plain.numpy().ravel())
+    # the same entries shuffled give the plan by product, and its walk the same bits
+    order = np.random.default_rng(13).permutation(rows.size)
+    shuffled = [torch.as_tensor(a[order]) for a in (rows, cols)] + [vals_t[torch.as_tensor(order)]]
+    plan_p = countsketch_coo_plan(shuffled[0], h, w, d, dtype)
+    assert plan_p.rowptr is None
+    assert np.array_equal(_emulate(plan_p, *shuffled, w, n, d),
+                          countsketch_coo_ref(*shuffled, (m, n), h, w, d).numpy().ravel())
+
+
+@pytest.mark.parametrize("kind", BUCKETS)
+@pytest.mark.parametrize("edge", ["nnz0", "vector_by_row", "vector_shuffled"])
+def test_bucket_plan_edges_are_bitwise_the_plain_version(kind, edge):
+    m, d = 300, 24
+    top = _convert(jsketch.sample(kind, jax.random.key(14), d, m))
+    h, w = top.buckets, top._weights()
+    rng = np.random.default_rng(15)
+    if edge == "nnz0":
+        rows, n = np.zeros(0, dtype=np.int64), 7
+    else:
+        rows, n = rng.permutation(m)[: m // 3], 1
+        if edge == "vector_by_row":
+            rows = np.sort(rows)
+    rows_t = torch.as_tensor(rows)
+    cols_t = torch.zeros_like(rows_t) if n == 1 else torch.as_tensor(rng.integers(0, n, rows.size))
+    vals_t = torch.as_tensor(rng.standard_normal(rows.size))
+    plan = countsketch_coo_plan(rows_t, h, w, d, torch.float64)
+    assert (plan.rowptr is None) == (edge == "vector_shuffled")
+    shape = (m, n) if n > 1 else (m,)
+    plain = countsketch_coo_ref(rows_t, cols_t, vals_t, shape, h, w, d)
+    assert np.array_equal(_emulate(plan, rows_t, cols_t, vals_t, w, n, d), plain.numpy().ravel())
+    if edge == "nnz0":
+        assert not plain.any()
+
+
+def test_sparse_operator_caches_its_row_pointer():
+    rows, cols, vals = _row_ordered(*_entries(16, 50, 6, 200)[:3])
+    A = SparseOperator.from_entries(rows, cols, vals, (50, 6), device=CPU)
+    ptr = A.row_pointer()
+    assert ptr is A.row_pointer()  # built once
+    assert torch.equal(ptr.diff(), torch.bincount(torch.as_tensor(rows), minlength=50))
+    shuffled = SparseOperator.from_entries(rows[::-1].copy(), cols[::-1].copy(), vals[::-1].copy(), (50, 6),
+                                           device=CPU)
+    assert shuffled.row_pointer() is None
+    assert A == dataclasses.replace(A)  # the cache takes no part in equality
 
 
 def test_coo_apply_on_the_cpu_is_its_plain_version():
@@ -250,9 +355,15 @@ def _c_args(name):
 
 
 @pytest.mark.parametrize("k,shape", [(1, (300, 7)), (8, (300, 7)), (1, (300,))])
-def test_coo_launch_hands_the_c_entry_its_arguments(monkeypatch, k, shape):
+@pytest.mark.parametrize("order", ["shuffled", "by_row"])
+def test_coo_launch_hands_the_c_entry_its_arguments(monkeypatch, k, shape, order):
     """The CUDA branch, run on CPU tensors against a recording library: its
-    argument list has the C entry's length and its sizes are d·n, nnz, m."""
+    argument list has the C entry's length, its sizes are d, n, nnz, m, and
+    the plan's form decides the pointers: by row the CSR's rows and weights
+    and the row pointer, and no (k, m) weights; by product the ids and the
+    weights, and no row pointer.  Rows, columns and buckets out of range,
+    and a given plan's row pointer that does not cover the entries, raise
+    before the launch."""
     import contextlib
 
     lib = _Lib()
@@ -262,6 +373,8 @@ def test_coo_launch_hands_the_c_entry_its_arguments(monkeypatch, k, shape):
     m, d = shape[0], 16
     n = shape[1] if len(shape) == 2 else 1
     rows, cols, vals, _ = _entries(9, m, n, 500)
+    if order == "by_row":
+        rows, cols, vals = _row_ordered(rows, cols, vals)
     h = torch.randint(0, d, (k, m) if k > 1 else (m,), dtype=torch.int32)
     w = torch.ones(h.shape, dtype=torch.float64)
     before = countsketch_coo_apply.launches
@@ -270,7 +383,9 @@ def test_coo_launch_hands_the_c_entry_its_arguments(monkeypatch, k, shape):
     args = lib.calls["repro_coo_scatter"]
     assert len(args) == len(_build._SIGNATURES["repro_coo_scatter"]) == len(_c_args("repro_coo_scatter"))
     assert args[0] == _build.dtype_code(torch.float64)
-    assert args[7:10] == (d * n, rows.size, m)
+    assert args[10:14] == (d, n, rows.size, m)
+    by_row = order == "by_row"
+    assert (args[3] is not None, args[4] is not None, args[8] is not None) == (by_row, by_row, not by_row)
     assert out.shape == ((d, n) if len(shape) == 2 else (d,))
     assert countsketch_coo_apply.launches == before + 1
     with pytest.raises(TypeError):
@@ -283,6 +398,16 @@ def test_coo_launch_hands_the_c_entry_its_arguments(monkeypatch, k, shape):
     with pytest.raises(ValueError, match="buckets"):
         cs_ops._coo_launch(torch.as_tensor(rows), torch.as_tensor(cols), torch.as_tensor(vals),
                            shape, h, w, int(h.max()), None)
+    # a plan of other entries or another dtype is refused
+    other = countsketch_coo_plan(torch.as_tensor(rows[:-1]), h, w, d, torch.float64)
+    with pytest.raises(ValueError, match="plan"):
+        cs_ops._coo_launch(torch.as_tensor(rows), torch.as_tensor(cols), torch.as_tensor(vals),
+                           shape, h, w, d, other)
+    f32 = countsketch_coo_plan(torch.as_tensor(rows), h, w, d, torch.float32)
+    if by_row:
+        with pytest.raises(ValueError, match="plan weights"):
+            cs_ops._coo_launch(torch.as_tensor(rows), torch.as_tensor(cols), torch.as_tensor(vals),
+                               shape, h, w, d, f32)
 
 
 def test_coo_scatter_signature_types():

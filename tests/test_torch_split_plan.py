@@ -5,8 +5,10 @@ kernel library, checked without a card.
   [0, length) exactly, in order, none empty, every one but the last a whole
   number of ring stages; the number of slabs is bounded and depends on the
   arguments alone;
-- ``sketch_split`` / ``gram_split`` give the engine's dtype (f64) a plan and
-  its scratch size, and every other route no split;
+- ``sketch_split`` / ``gram_split`` give the f64 engine a plan and its
+  scratch size; ``sketch_split`` gives B6's bf16/f16 engine its own plan
+  (64-row stages, 256 x 128 tiles, f32 partials in half an f64 word each),
+  whose slabs cover m exactly once, in order; f32 takes no split;
 - the engine's shapes in ``kernels/common.py`` are the ones the CUDA sources
   set;
 - every ``extern "C" int repro_*(`` entry of ``csrc/*.cu`` takes as many
@@ -27,6 +29,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.common import (  # noqa: E402
     GRAM_MMA_TILE,
+    HALF_MMA_COLS,
+    HALF_MMA_ROWS,
+    HALF_MMA_STEP,
     MAX_PARTS,
     MMA_STEP,
     SKETCH_MMA_TILE,
@@ -99,8 +104,38 @@ def test_plan_rejects_bad_arguments(length, tiles, sms, step):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_only_f64_is_split(dtype):
-    assert sketch_split(dtype, 4000, 2**16, 1000, 132) == Split(MMA_STEP, 1, 0)
+    """The Gram splits only in f64, and B6 never in f32; B6's half engine at
+    d = 4000, n = 1000 has 128 tiles for 132 SMs, so it keeps one slab."""
+    if dtype == torch.float32:
+        assert sketch_split(dtype, 4000, 2**16, 1000, 132) == Split(MMA_STEP, 1, 0)
+    else:
+        assert sketch_split(dtype, 4000, 2**16, 1000, 132) == Split(2**16, 1, 0)
     assert gram_split(dtype, 4000, 1000, 132) == Split(MMA_STEP, 1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,m,n", [(4000, 2**16, 1000), (4000, 2**16, 2), (300, 1007, 130), (37, 5, 3),
+                                   (100, 17, 2), (129, 4096, 257), (7, 0, 9)])
+def test_half_sketch_split_covers_m_once_in_order(dtype, d, m, n):
+    split = sketch_split(dtype, d, m, n, 132)
+    tiles = cdiv(d, HALF_MMA_ROWS) * cdiv(n, HALF_MMA_COLS)
+    assert (split.slab, split.parts) == split_plan(m, tiles, 132, HALF_MMA_STEP)
+    assert split.slab % HALF_MMA_STEP == 0 and split.slab >= HALF_MMA_STEP
+    slabs = _slabs(m, split.slab, split.parts)
+    covered = [k for lo, hi in slabs for k in range(lo, hi)]
+    assert covered == list(range(m))  # every row of the reduction once, in slab order
+    assert all(hi > lo for lo, hi in slabs) or m == 0
+    # f32 partial tiles, two to an f64 word of scratch
+    want = cdiv(split.parts * tiles * HALF_MMA_ROWS * HALF_MMA_COLS, 2) if split.parts > 1 else 0
+    assert split.scratch == want
+    assert sketch_split(dtype, d, m, n, 132) == split  # a function of its arguments
+
+
+def test_half_sketch_split_fills_the_card_on_narrow_outputs():
+    # n = 2: 16 tiles on 132 SMs, so the sum over m is cut into slabs
+    split = sketch_split(torch.bfloat16, 4000, 2**16, 2, 132)
+    assert split.parts > 1 and cdiv(2**16, split.slab) == split.parts
+    assert sketch_split(torch.bfloat16, 4000, 2**16, 1, 132) == Split(MMA_STEP, 1, 0)  # b: the vector kernel
 
 
 @pytest.mark.parametrize("d,m,n", [(4000, 2**16, 1000), (300, 1007, 130), (37, 5, 3), (100, 17, 2)])
@@ -149,6 +184,10 @@ def test_engine_shapes_match_the_cuda_sources():
     gram = (CSRC / "gram.cuh").read_text()
     assert int(_constexpr(_constexpr("kGramMmaTile", gram), gram)) == GRAM_MMA_TILE
     assert "MmaShape<kGramMmaTile, kGramMmaTile," in gram
+    half = (CSRC / "half_mma.cuh").read_text()
+    assert int(_constexpr("kHalfBD", half)) == HALF_MMA_ROWS
+    assert int(_constexpr("kHalfBN", half)) == HALF_MMA_COLS
+    assert int(_constexpr("kHalfBK", half)) == HALF_MMA_STEP
 
 
 _CTYPES = {
