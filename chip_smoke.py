@@ -432,7 +432,7 @@ def _check_gram(torch, G, G_ref, B, what):
     return float(err.max())
 
 
-def _product_gate(torch, out, S, A, step, tile):
+def _product_gate(torch, out, S, A, step, tile, shortcut=None):
     """Phase 8's hold of a product on half or f32 inputs at the main path's
     shape, where 2·γ_m·|S||A| (≈ 1.4 typical |SA| entries at m = 2^16) is
     too wide to see a fault: ``out`` against the f64 product of the same
@@ -442,7 +442,10 @@ def _product_gate(torch, out, S, A, step, tile):
     of one block tile (``tile`` = its rows and columns), and one stage in
     16 left out of every tile.  Raises unless the sound readings are within
     the limit and each fault's entrywise reading is past it; returns the
-    readings."""
+    readings.  ``shortcut``, a third fault (f32: the product as one TF32
+    product would give it), is read and reported but not held: at this
+    size it may read within the limit, and phase 2's exact probe is what
+    catches it."""
     m = A.shape[0]
     S64, A64 = S.to(torch.float64), A.to(torch.float64)
     sound = out.to(torch.float64) - S64 @ A64
@@ -459,10 +462,74 @@ def _product_gate(torch, out, S, A, step, tile):
     every_16th = (torch.arange(m, device=A.device) // step) % 16 == 15
     got = {"limit": limit, "sound": reading(sound), "stage_left_out": reading(one_stage),
            "sixteenth_left_out": reading(sound - S64[:, every_16th] @ A64[every_16th])}
+    del one_stage
+    if shortcut is not None:
+        got["one_tf32"] = reading(shortcut - S64 @ A64)
     if not max(got["sound"].values()) <= limit:  # a NaN reading fails too
         raise AssertionError(f"{out.dtype} product at S{tuple(S.shape)}: past √m·u of the f64 product: {got}")
     if not min(got["stage_left_out"]["entry"], got["sixteenth_left_out"]["entry"]) > limit:
         raise AssertionError(f"{out.dtype} product at S{tuple(S.shape)}: a planted fault reads within √m·u: {got}")
+    return got
+
+
+
+def _one_tf32(torch, X, Y):
+    """X·Y as one TF32 product would give it, with exact sums: X and Y
+    rounded to TF32 (the big parts of ``tf32_split``), the product in f64.
+    The shortcut the f32 engines must not take; its readings stand beside
+    theirs."""
+    from repro_torch.kernels.common import tf32_split
+
+    return tf32_split(X)[0].double() @ tf32_split(Y)[0].double()
+
+
+def _tf32_probe(torch, dev, gen, sketch_matmul, matmul_gram, panel_gram):
+    """The exact probe of the f32 engines: an S with one ±1 a row gives ±rows
+    of A, whose random full 24-bit significands the three TF32 products keep
+    within 2^-20·|A| (at most about 2^-22: A's rounded split) and one TF32
+    product does not (up to 2^-11); an A with one ±1 a column gives ±columns
+    of S, kept within 2^-20·|S| (at most about 2^-21: S's truncated split,
+    its big part S's own word as the tensor cores read it); a B with one
+    full-mantissa nonzero a row has a Gram whose off-diagonal is exactly 0
+    and whose diagonal is each column's sum of squares, held within 2^-20
+    of the f64 sums.  Raises unless the engines' readings are within 2^-20
+    and one TF32 product's past it; returns the readings."""
+    limit = 2.0**-20
+    m, n, d = 4096, 256, 512
+    A = torch.randn((m, n), generator=gen, dtype=torch.float64, device=dev).float()
+    rows = torch.randint(0, m, (d,), generator=gen, device=dev)
+    sign = (torch.randint(0, 2, (d,), generator=gen, device=dev) * 2 - 1).float()
+    S = torch.zeros((d, m), device=dev)
+    S[torch.arange(d, device=dev), rows] = sign
+    want, scale = sign[:, None].double() * A[rows].double(), A[rows].abs().double()
+    reading = lambda got: float(((got.double() - want).abs() / scale).max())  # noqa: E731
+    got = {"selection_b6": reading(sketch_matmul(S, A)), "selection_b7": reading(matmul_gram(S, A)[0]),
+           "selection_one_tf32": reading(_one_tf32(torch, S, A))}
+    d, n = 256, 300
+    S = torch.randn((d, m), generator=gen, dtype=torch.float64, device=dev).float()
+    cols = torch.randint(0, m, (n,), generator=gen, device=dev)
+    sign = (torch.randint(0, 2, (n,), generator=gen, device=dev) * 2 - 1).float()
+    A = torch.zeros((m, n), device=dev)
+    A[cols, torch.arange(n, device=dev)] = sign
+    want, scale = S[:, cols].double() * sign[None, :].double(), S[:, cols].abs().double()
+    got.update(columns_b6=reading(sketch_matmul(S, A)), columns_b7=reading(matmul_gram(S, A)[0]),
+               columns_one_tf32=reading(_one_tf32(torch, S, A)))
+    s_rows, cols_n = 4000, 300
+    cols = torch.randint(0, cols_n, (s_rows,), generator=gen, device=dev)
+    vals = torch.randn(s_rows, generator=gen, dtype=torch.float64, device=dev).float()
+    B = torch.zeros((s_rows, cols_n), device=dev)
+    B[torch.arange(s_rows, device=dev), cols] = vals
+    sums = torch.zeros(cols_n, dtype=torch.float64, device=dev).index_add_(0, cols, vals.double() ** 2)
+    G = panel_gram(B)
+    diag = lambda g: float(((g.diagonal().double() - sums).abs() / sums).max())  # noqa: E731
+    off = G - torch.diag(G.diagonal())
+    got.update(gram_diagonal=diag(G), gram_off_diagonal_max=float(off.abs().max()),
+               gram_diagonal_one_tf32=diag(_one_tf32(torch, B.T, B)), limit=limit)
+    if not (max(got["selection_b6"], got["selection_b7"], got["columns_b6"], got["columns_b7"],
+                got["gram_diagonal"]) <= limit and got["gram_off_diagonal_max"] == 0 and torch.equal(G, G.T)):
+        raise AssertionError(f"the f32 engines read past 2^-20 on the exact probe: {got}")
+    if not min(got["selection_one_tf32"], got["columns_one_tf32"], got["gram_diagonal_one_tf32"]) > limit:
+        raise AssertionError(f"one TF32 product reads within the probe's limit: {got}")
     return got
 
 
@@ -822,6 +889,78 @@ def main() -> int:
                f"{' misaligned' if S.data_ptr() % 16 else ''}, split (slab, parts) {split[:2]}: max|Δ| vs card "
                f"plain {err6:.3e} (tol 2γ_m|S||A|, γ at f32); two calls bitwise equal; B7's B bitwise B6's, "
                f"its G exactly symmetric")
+
+    # B6 and B7 in f32 run on the split-TF32 engine (csrc/tf32_mma.cuh):
+    # A^T's two parts written by a split kernel, then wgmma TF32 with both
+    # operands K-major from shared memory, S's small part written beside its
+    # tile each stage, operands by TMA in clusters of 2; the f32 Gram of B2,
+    # B3, B5 and B7 on mma.sync TF32.  Its edges: d and n ragged (d = 1, n =
+    # 2..9), m shorter than its 32-row stage, m not a multiple of 4 (S's
+    # padded copy), both sides of a split-plan change, padded cluster grids,
+    # operands 4 bytes past a 16-byte boundary, an inf and a NaN in A; the
+    # Gram at ragged s and n (s = 1 and 2 too, where 2·γ_s leaves about an
+    # ulp) and both sides of its plan's change.  Each within 2·γ_m·|S||A|
+    # (γ at f32), two calls bitwise equal, B7's B bitwise B6's and its G
+    # exactly symmetric.  Then the exact probe, which separates the split
+    # products from one TF32 product.  A generator of its own.
+    gen_f32 = torch.Generator(device=dev).manual_seed(3)
+    f32_shapes = [(300, 1007, 130), (37, 20, 3), (200, 9, 17), (257, 4096, 257), (129, 300, 640), (1, 300, 2)]
+    f32_shapes += [(100, 300, n) for n in range(2, 10)]
+    f32_shapes += [(300, m, 130) for m in plan_edge(
+        lambda m: sketch_split(torch.float32, 300, m, 130, sms).parts, 4000)]
+    for d, m, n in f32_shapes + [("misaligned", 502, 41)]:
+        if d == "misaligned":
+            d = 77
+            S = torch.randn(d * m + 1, generator=gen_f32, dtype=torch.float64, device=dev).float()[1:].view(d, m)
+            A = torch.randn(m * n + 1, generator=gen_f32, dtype=torch.float64, device=dev).float()[1:].view(m, n)
+        else:
+            S = torch.randn((d, m), generator=gen_f32, dtype=torch.float64, device=dev).float()
+            A = torch.randn((m, n), generator=gen_f32, dtype=torch.float64, device=dev).float()
+        out = sketch_matmul(S, A)
+        err6 = check_product(f"B6 f32 engine S({d}, {m}) A({m}, {n})", out, sketch_matmul_ref(S, A), S, A, m)
+        if not torch.equal(out, sketch_matmul(S, A)):
+            raise AssertionError(f"B6 f32 engine S({d}, {m}) A({m}, {n}): two calls differ")
+        errs["sketch_matmul"] = max(errs["sketch_matmul"], err6)
+        B, G = matmul_gram(S, A)
+        if not torch.equal(B, out):
+            raise AssertionError(f"B7 f32 engine S({d}, {m}) A({m}, {n}): B differs from B6's")
+        errs["matmul_gram"] = max(errs["matmul_gram"], _check_gram(torch, G, panel_gram_ref(B), B, "B7 f32 G"))
+        _p(f"phase 2: B6 f32 engine S({d}, {m}) A({m}, {n}){' misaligned' if S.data_ptr() % 16 else ''}, split "
+           f"(slab, parts) {sketch_split(torch.float32, d, m, n, sms)[:2]}: max|Δ| vs card plain {err6:.3e} (tol "
+           f"2γ_m|S||A|); two calls bitwise equal; B7's B bitwise B6's, its G exactly symmetric")
+    S = torch.randn((64, 200), generator=gen_f32, device=dev)
+    A = torch.randn((200, 40), generator=gen_f32, device=dev)
+    A[7, 3], A[9, 4] = float("inf"), float("nan")
+    out, plain = sketch_matmul(S, A), sketch_matmul_ref(S, A)
+    B, _ = matmul_gram(S, A)
+    finite, infinite = plain.isfinite(), plain.isinf()
+    if not (torch.equal(out.isnan(), plain.isnan()) and torch.equal(out[infinite], plain[infinite])
+            and torch.equal(B.nan_to_num(), out.nan_to_num()) and bool(plain[:, 3].isinf().all())):
+        raise AssertionError("B6/B7 f32 engine with an inf and a NaN in A: not the plain version's inf and NaN")
+    check_product("B6 f32 engine, the finite columns", out[:, finite.all(0)], plain[:, finite.all(0)], S,
+                  A[:, finite.all(0)], 200)
+    _p("phase 2: B6/B7 f32 engine with an inf and a NaN in A: the plain version's ±inf and NaN entries, its "
+       "finite columns within 2γ_m|S||A|")
+    gram_f32 = [(4000, 130), (1007, 777), (3, 5), (9, 70), (333, 1), (31, 64), (33, 65), (1, 130), (2, 65)]
+    gram_f32 += [(300, n) for n in range(2, 9)]
+    gram_f32 += [(s_rows, n) for n, start in ((130, 500), (1000, 4000)) for s_rows in plan_edge(
+        lambda s_rows: gram_split(torch.float32, s_rows, n, sms).parts, start)]
+    for s_rows, n in gram_f32 + [("misaligned", 65)]:
+        if s_rows == "misaligned":
+            s_rows = 1001
+            B = torch.randn(s_rows * n + 1, generator=gen_f32, dtype=torch.float64, device=dev).float()[1:].view(s_rows, n)
+        else:
+            B = torch.randn((s_rows, n), generator=gen_f32, dtype=torch.float64, device=dev).float()
+        G = panel_gram(B)
+        err = _check_gram(torch, G, panel_gram_ref(B), B, f"B2 f32 engine B({s_rows}, {n})")
+        if not torch.equal(G, panel_gram(B)):
+            raise AssertionError(f"B2 f32 engine B({s_rows}, {n}): two calls differ")
+        errs["panel_gram"] = max(errs["panel_gram"], err)
+        _p(f"phase 2: B2 f32 engine B({s_rows}, {n}){' misaligned' if B.data_ptr() % 16 else ''}, split (slab, "
+           f"parts) {gram_split(torch.float32, s_rows, n, sms)[:2]}: max|Δ| vs card plain {err:.3e} (tol "
+           f"2γ_s|B|ᵀ|B|), exactly symmetric, two calls bitwise equal")
+    probe = _tf32_probe(torch, dev, gen_f32, sketch_matmul, matmul_gram, panel_gram)
+    _p(f"phase 2: the exact probe (limit 2^-20; one TF32 product of the same inputs beside it): {json.dumps(probe)}")
 
     # B4 and B5 in f64 run on the generating engine (csrc/dense_mma.cuh):
     # S made in the ring by a producing warpgroup, shared by a
@@ -1473,15 +1612,19 @@ def main() -> int:
        f"generated beforehand, the product half only; card: {smi}): {json.dumps(t_dense)}")
     # B6 and B7 on bf16, f16 and f32 inputs at the same shapes (S_u and A8
     # rounded to the dtype): half inputs on the half engine
-    # (csrc/half_mma.cuh), f32 on the FMA tile kernel.  Each held as phase 2
+    # (csrc/half_mma.cuh), f32 on the split-TF32 engine (csrc/tf32_mma.cuh),
+    # the f32 Gram of either on B2's split-TF32 engine.  Each held as phase 2
     # holds them (γ at f32) and by _product_gate against the f64 product
-    # (its limit between the sound reading and two planted faults'), then
-    # bf16 and f32 timed beside the plain version, the bound at the dtype's
-    # peak (kernels/autotune.py: 989 TFLOP/s bf16, 67 f32) and one library
-    # call, S @ A in the dtype (bf16 in, bf16 out; f32 in full f32).
-    from repro_torch.kernels.autotune import bound as dtype_bound
-    from repro_torch.kernels.autotune import work
-    from repro_torch.kernels.common import HALF_MMA_COLS, HALF_MMA_ROWS, HALF_MMA_STEP
+    # (its limit between the sound reading and two planted faults'; on f32
+    # one TF32 product beside them), then bf16 and f32 timed beside the
+    # plain version, the bound (kernels/autotune.py: the product at 989
+    # TFLOP/s on bf16, three TF32 products at 495 on f32; B7's Gram six
+    # TF32 products) and one library call, S @ A in the dtype (bf16 in,
+    # bf16 out; f32 in full f32: allow_tf32 is printed).
+    from repro_torch.kernels.autotune import PEAK_BYTES_PER_S, peak, work
+    from repro_torch.kernels.common import (
+        HALF_MMA_COLS, HALF_MMA_ROWS, HALF_MMA_STEP, TF32_MMA_COLS, TF32_MMA_ROWS, TF32_MMA_STEP,
+    )
 
     t_half, gates, t0_half = {}, {}, time.perf_counter()
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
@@ -1490,10 +1633,11 @@ def main() -> int:
         out6 = sketch_matmul(S_x, A_x)
         err6 = check_product(f"B6 {name} at A(2^16, 1000) d=4000", out6, sketch_matmul_ref(S_x, A_x), S_x, A_x,
                              M_DENSE)
-        # the engine's stage and block tile; the FMA tile kernel's 16 and 128 x 128
-        step, tile = ((16, (128, 128)) if dtype == torch.float32
+        # the engine's stage and block tile
+        f32 = dtype == torch.float32
+        step, tile = ((TF32_MMA_STEP, (TF32_MMA_ROWS, TF32_MMA_COLS)) if f32
                       else (HALF_MMA_STEP, (HALF_MMA_ROWS, HALF_MMA_COLS)))
-        gates[name] = _product_gate(torch, out6, S_x, A_x, step, tile)
+        gates[name] = _product_gate(torch, out6, S_x, A_x, step, tile, _one_tf32(torch, S_x, A_x) if f32 else None)
         B, G = matmul_gram(S_x, A_x)
         if not torch.equal(B, out6) or not torch.equal(out6, sketch_matmul(S_x, A_x)):
             raise AssertionError(f"B6/B7 {name} at A(2^16, 1000): two calls, or B7's B, differ from B6's")
@@ -1504,28 +1648,36 @@ def main() -> int:
         if dtype == torch.float16:
             del S_x, A_x
             continue
+        # the product on A's dtype's units, B7's f32 Gram on the TF32 ones
+        # (its f32 B read once, G written once); B7's time on its operations
+        # is the sum of the two halves'
         ops6, bytes6 = work("sketch_matmul", M_DENSE, N_MAIN, d8, dtype)
+        ops_g32, _ = work("tsqr", M_DENSE, N_MAIN, d8, torch.float32)
+        t_ops6 = ops6 / PEAK_FLOPS[peak("sketch_matmul", dtype)]
+        t_ops7 = t_ops6 + ops_g32 / PEAK_FLOPS[peak("tsqr", torch.float32)]
         rows_t = {}
-        for kname, fn, plain, library, ops, nbytes in [
+        for kname, fn, plain, library, ops, t_ops, nbytes in [
             ("sketch_matmul", lambda: sketch_matmul(S_x, A_x), lambda: sketch_matmul_ref(S_x, A_x),
-             lambda: S_x @ A_x, ops6, bytes6),
+             lambda: S_x @ A_x, ops6, t_ops6, bytes6),
             ("matmul_gram", lambda: matmul_gram(S_x, A_x), lambda: matmul_gram_ref(S_x, A_x), None,
-             ops6 + ops_g, bytes6 + N_MAIN * N_MAIN * 4),
+             ops6 + ops_g32, t_ops7, bytes6 + N_MAIN * N_MAIN * 4),
         ]:
-            bound_ms, bound_by = dtype_bound(ops, nbytes, name)
+            t_bytes = nbytes / PEAK_BYTES_PER_S
             rows_t[kname] = _rates(dict(
                 ms=_event_ms(torch, fn), plain_ms=_event_ms(torch, plain),
                 library_ms=None if library is None else _event_ms(torch, library),
-                bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if t_ops >= t_bytes else "bytes",
             ), ops)
         t_half[name] = rows_t
         del S_x, A_x
     _p(f"phase 8: B6 at A(2^16, 1000) d=4000 against the f64 product of the same inputs, max |Δ|/(|S||A|) "
        f"entrywise and ‖Δ‖/‖|S||A|‖ normwise, within √m·u(f32), beside two planted faults (one stage left out of "
-       f"one tile: 64 rows of a 256 x 128 tile on half inputs, 16 rows of a 128 x 128 tile on f32; one stage in 16 "
-       f"left out of every tile): {json.dumps(gates)}")
-    _p(f"phase 8: B6/B7 on bf16 (half engine) and f32 (FMA tile kernel) inputs at A(2^16, 1000) d=4000 (ms, "
-       f"TFLOP/s, share of the bound at the dtype's peak; library: S @ A in the dtype; card: {smi}): "
+       f"one tile: 64 rows of a 256 x 128 tile on half inputs, 32 of a 128 x 128 tile on f32; one stage in 16 left out of every tile; "
+       f"on f32 one TF32 product of the same inputs, read, not held): {json.dumps(gates)}")
+    _p(f"phase 8: B6/B7 on bf16 (half engine) and f32 (split-TF32 engine) inputs at A(2^16, 1000) d=4000 (ms, "
+       f"TFLOP/s counting the TF32 engines' products, three a product for B6 and six for the Gram, share of the "
+       f"bound; library: S @ A in the dtype, "
+       f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; card: {smi}): "
        f"{json.dumps(t_half)}; checked and timed in {time.perf_counter() - t0_half:.1f} s")
     del S_g, S_u, p8, A8, b8
     torch.cuda.empty_cache()
@@ -1553,6 +1705,38 @@ def main() -> int:
         raise AssertionError("mixed precision did not feed bf16 to B6")
     _p(f"phase 8: B6 ran on bf16 input (B bitwise B6 on bf16 A); warm wall {walls['uniform_dense_mixed']:.3f} s")
     del p9, res9, op9, B9
+    torch.cuda.empty_cache()
+
+    # The f32 uniform-dense solve: the solvers work in A's dtype, so an f32
+    # A runs B6 (and, fused, B7) on the split-TF32 engine, b on the vector
+    # kernel.  κ = 1e3, A and b rounded to f32 from the f64 problem; each
+    # route within 10× qr_solve's error on the same f32 data, with no
+    # fallback and no iteration-limit stop.  A generator of its own, so no
+    # later draw moves.
+    gen32 = torch.Generator(device=dev).manual_seed(30)
+    p32 = generate_problem(gen32, M_DENSE, N_MAIN, cond=1e3, beta=BETA, device=dev)
+    A32, b32, x32 = p32.A.float(), p32.b.float(), p32.x_true
+    del p32
+    e_qr32 = _rel(qr_solve(A32, b32).double(), x32)
+    for name, kw, kernel in [("uniform_dense_f32", {}, "sketch_matmul"),
+                             ("uniform_dense_f32_fused", dict(fused=True), "matmul_gram")]:
+        call = lambda: lstsq(A32, b32, gen32, method="saa", sketch="uniform_dense", **kw)  # noqa: E731
+        res32 = run_path(name, call)
+        e32 = _rel(res32.x.double(), x32)
+        _p(f"phase 8: lstsq(A f32, sketch='uniform_dense'{', fused=True' if kw else ''}) cond=1e3 m=2^16: itn "
+           f"{int(res32.itn)} istop {int(res32.istop)} used_fallback {bool(res32.used_fallback)} x {res32.x.dtype} "
+           f"rel.err {e32:.3e}; qr_solve (f32) rel.err {e_qr32:.3e}; launches {paths[name]}")
+        if not e32 <= 10 * e_qr32 or bool(res32.used_fallback) or int(res32.istop) == 7:
+            raise AssertionError(f"{name}: rel.err {e32} against qr_solve's {e_qr32}, or a fallback or limit stop")
+        if paths[name][kernel] < (1 if kw else 2) or paths[name]["sketch_matmul"] < 1:
+            raise AssertionError(f"{name} path did not launch its kernels: {paths[name]}")
+        _, walls[name] = _sync_time(torch, call)
+    _, op32, B32 = SketchedFactor.build_full(A32, gen32, sketch="uniform_dense")
+    if not torch.equal(B32, sketch_matmul(op32.S, A32)) or B32.dtype != torch.float32:
+        raise AssertionError("the f32 solve did not feed f32 to B6")
+    _p(f"phase 8: f32 solves: B bitwise B6 on the f32 A; warm walls (s) {walls['uniform_dense_f32']:.4f} "
+       f"unfused, {walls['uniform_dense_f32_fused']:.4f} fused")
+    del A32, b32, x32, res32, op32, B32
     torch.cuda.empty_cache()
 
     # ---- phase 14: serving, last, on problems of its own -------------------
@@ -1615,10 +1799,14 @@ def main() -> int:
             rows[-1]["serve_launches"] = {part: v["launches"] for part, v in phase14.b1.items()}
             rows[-1]["cluster_launches"] = dict(phase15.b1)
         if name in ("sketch_matmul", "matmul_gram"):  # bf16 (the half engine) and f32, phase 8
-            # launches a solve: B6 on bf16 in the mixed uniform-dense solve;
-            # no solve of the script takes B7 on bf16 or either on f32
-            rows[-1]["by_dtype"] = {dt: dict(t_half[dt][name], launches=paths["uniform_dense_mixed"][name]
-                                             if dt == "bfloat16" else 0) for dt in t_half}
+            # launches a solve: B6 on bf16 in the mixed uniform-dense solve,
+            # on f32 in the f32 solve; B7 on f32 in the fused f32 solve; no
+            # solve of the script takes B7 on bf16
+            by_path = {("bfloat16", "sketch_matmul"): "uniform_dense_mixed",
+                       ("float32", "sketch_matmul"): "uniform_dense_f32",
+                       ("float32", "matmul_gram"): "uniform_dense_f32_fused"}
+            rows[-1]["by_dtype"] = {dt: dict(t_half[dt][name], launches=paths[by_path[dt, name]][name]
+                                             if (dt, name) in by_path else 0) for dt in t_half}
         if name in ("countsketch_apply", "sketch_matmul"):  # phase 16's parts, a rank each
             rows[-1]["dist_launches"] = {part: v[name] for part, v in phase16.launches.items() if name in v}
         if name == "countsketch_apply":  # phase 17's compressed train steps, a step (and a rank)

@@ -13,9 +13,11 @@ one card can time an earlier tree unpacked beside this one and this one in
 turns (the two entries take the same arguments in every tree since B6's
 f64 engine).  Each time is ``chip_smoke.py``'s ``_event_ms`` (CUDA events,
 the mean of 5 calls after a warm-up), beside the plain version and one
-library call, ``S @ A`` in the dtype (bf16/f16 in, bf16/f16 out).  The
-bounds and the checks are ``chip_smoke.py``'s (phases 2 and 8).  It prints
-one JSON line and writes it to ``--json`` if given.
+library call, ``S @ A`` in the dtype (bf16/f16 in, bf16/f16 out; f32 in
+full f32, ``allow_tf32`` off and printed); and kernel B2 (``panel_gram``) on
+the f32 B, beside ``B.T @ B``.  The bounds and the checks are
+``chip_smoke.py``'s (phases 2 and 8).  It prints one JSON line and writes it
+to ``--json`` if given.
 """
 from __future__ import annotations
 
@@ -45,7 +47,9 @@ def main() -> int:
         print("redesign_times.py: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.kernels import matmul_gram, matmul_gram_ref, sketch_matmul, sketch_matmul_ref
+    from repro_torch.kernels import (
+        matmul_gram, matmul_gram_ref, panel_gram, panel_gram_ref, sketch_matmul, sketch_matmul_ref,
+    )
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -64,7 +68,14 @@ def main() -> int:
             "matmul_gram": dict(ms=_event_ms(torch, lambda: matmul_gram(S, A)),
                                 plain_ms=_event_ms(torch, lambda: matmul_gram_ref(S, A))),
         }
+        if dtype == torch.float32:  # B2 on the f32 B: the Gram half of B7 on every input
+            B = sketch_matmul(S, A)
+            out["float32"]["panel_gram"] = dict(ms=_event_ms(torch, lambda: panel_gram(B)),
+                                                plain_ms=_event_ms(torch, lambda: panel_gram_ref(B)),
+                                                library_ms=_event_ms(torch, lambda: B.T @ B))
+            del B
         del S, A
+    out["allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
     line = json.dumps(out)
     print(line, flush=True)
     if args.json:

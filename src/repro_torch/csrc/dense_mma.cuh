@@ -364,8 +364,9 @@ __device__ __forceinline__ void store_rect(const double (&acc)[Shape::MT][Shape:
 // G (n, n) from the upper tile (ti, tj): each value is written at (i, j)
 // and (j, i); a diagonal tile keeps only its entries with i <= j, so G is
 // exactly symmetric whatever the tensor cores round.
-__device__ __forceinline__ void store_sym(double* G, int64_t n, int64_t i, int64_t j,
-                                          bool diagonal, double v) {
+template <typename T>
+__device__ __forceinline__ void store_sym(T* G, int64_t n, int64_t i, int64_t j, bool diagonal,
+                                          T v) {
   if (i < n && j < n && (!diagonal || i <= j)) {
     G[i * n + j] = v;
     G[j * n + i] = v;
@@ -437,11 +438,11 @@ dmma_gram_kernel(const double* __restrict__ B, double* __restrict__ G,
 
 // The split's second kernel: tile blockIdx.x of `tiles` is the sum of its
 // `parts` partials, added in slab order.
-template <int BM, int BN>
-__device__ __forceinline__ double sum_parts(const double* __restrict__ part, int64_t tiles,
-                                            int64_t parts, int e) {
+template <int BM, int BN, typename T = double>
+__device__ __forceinline__ T sum_parts(const T* __restrict__ part, int64_t tiles, int64_t parts,
+                                       int e) {
   const int64_t tile_elems = (int64_t)BM * BN;
-  double acc = part[(int64_t)blockIdx.x * tile_elems + e];
+  T acc = part[(int64_t)blockIdx.x * tile_elems + e];
   for (int64_t p = 1; p < parts; ++p) acc += part[(p * tiles + blockIdx.x) * tile_elems + e];
   return acc;
 }
@@ -459,14 +460,14 @@ dmma_sum_rect_kernel(const double* __restrict__ part, double* __restrict__ out, 
   }
 }
 
-template <int T>
+// (f64 partials; f32 for the TF32 Gram of tf32_mma.cuh)
+template <int T, typename V = double>
 __global__ void __launch_bounds__(256)
-dmma_sum_sym_kernel(const double* __restrict__ part, double* __restrict__ G, int64_t n,
-                    int64_t parts) {
+dmma_sum_sym_kernel(const V* __restrict__ part, V* __restrict__ G, int64_t n, int64_t parts) {
   int64_t ti, tj;
   upper_tile(blockIdx.x, cdiv(n, T), ti, tj);
   for (int e = threadIdx.x; e < T * T; e += blockDim.x) {
-    const double v = sum_parts<T, T>(part, gridDim.x, parts, e);
+    const V v = sum_parts<T, T, V>(part, gridDim.x, parts, e);
     store_sym(G, n, ti * T + e / T, tj * T + e % T, ti == tj, v);
   }
 }

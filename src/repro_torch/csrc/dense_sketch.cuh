@@ -16,8 +16,13 @@
 // B6 on bf16 or f16 inputs (n >= 2; f32 sums and output) runs on the bf16
 // and f16 tensor cores: half_mma.cuh's engine, wgmma m64n256k16 with f32
 // accumulators, both operands in shared memory, fed by multicast TMA in
-// thread-block clusters of 2, 256 x 128 block tiles.  B7's product half
-// takes the same route, so its B is bitwise B6's.
+// thread-block clusters of 2, 256 x 128 block tiles.  B6 in f32 (n >= 2)
+// runs on the TF32 tensor cores in split TF32 (three TF32 products a
+// product, within the 2*gamma_m*|S||A| bound of the f32 sums):
+// tf32_mma.cuh's engine: A^T's two TF32 parts written by a first kernel,
+// then the half engine's design with both operands K-major and S's small
+// part written beside its tile in each stage.  B7's product half takes the
+// same routes, so its B is bitwise B6's.
 //
 // B4 in f64 (n >= 2) runs on the same tensor cores through the engine's
 // generating producer (dense_mma.cuh, dmma_gen_sketch_kernel): 96 x 128
@@ -30,12 +35,10 @@
 // tensor-core route may be split along m by the wrapper's plan; the
 // partials are added in a fixed order, so the results are deterministic.
 //
-// Every other route runs dense_sketch_tile_kernel below on the FMA pipes:
-// B6 and B4 in f32, because the tensor cores have no f32 product that
-// keeps f32 accuracy (TF32 would break the 2*gamma_m*|S||A| bound), and
-// B4 on bf16/f16 inputs (f32 sums; its S is generated in the loop, and
-// the tensor-core route with the generating producer at half precision is
-// not written yet).  Each block owns one 128 x 128 output tile and loops
+// B4 in f32 and on bf16/f16 inputs (f32 sums) runs dense_sketch_tile_kernel
+// below on the FMA pipes: its S is generated in the loop, and the
+// tensor-core route with the generating producer at those precisions is
+// not written yet.  Each block owns one 128 x 128 output tile and loops
 // over m itself, in chunks of 16: it stages the (128 x 16) S tile and the
 // (16 x 128) A tile in shared memory and every thread keeps an 8 x 8
 // register micro-tile, with the rows and columns of a micro-tile 16 apart
@@ -48,25 +51,25 @@
 // one bank; PERF.md has its times against the bound.  Index arithmetic is
 // 64-bit.
 //
-// Where the S tile of that loop comes from is the template argument Src:
-//  - MatrixTile (B6 in f32): S row-major in A's dtype, read once per n-block.
-//  - GaussianTile (B4): element (i, j) from threefry2x32(k0, k1, i, col0 + j)
-//    and Box-Muller in f32, times the f32 scale, then cast to A's dtype (bf16
-//    A: S rounded to bf16, products summed in f32).  The counter is the
-//    reference's, so the values do not depend on the tiling.  Rows >= d
-//    and columns >= m are never generated.  S never reaches device
-//    memory; on this route each block regenerates its rows of S once for
-//    each n-block.
+// The S tile of that loop comes from the template argument Src,
+// GaussianTile (B4): element (i, j) from threefry2x32(k0, k1, i, col0 + j)
+// and Box-Muller in f32, times the f32 scale, then cast to A's dtype (bf16
+// A: S rounded to bf16, products summed in f32).  The counter is the
+// reference's, so the values do not depend on the tiling.  Rows >= d and
+// columns >= m are never generated.  S never reaches device memory; on
+// this route each block regenerates its rows of S once for each n-block.
 //
 // A vector (n = 1, the right-hand side b) uses dense_sketch_vec_kernel
-// instead, in every dtype: one warp per output row sums its row in a fixed
-// lane-strided order and a fixed xor-butterfly, so b is not padded to a
-// 128-wide tile.
+// instead, in every dtype, with S from either source (MatrixTile: S
+// row-major in A's dtype, for B6): one warp per output row sums its row in
+// a fixed lane-strided order and a fixed xor-butterfly, so b is not padded
+// to a 128-wide tile.
 #pragma once
 
 #include "common.cuh"
 #include "dense_mma.cuh"
 #include "half_mma.cuh"
+#include "tf32_mma.cuh"
 #include "threefry.cuh"
 
 namespace {
@@ -206,15 +209,26 @@ dense_sketch_vec_kernel(Src src, const T* __restrict__ x,
   if (lane == 0) out[i] = acc;
 }
 
+// The vector kernel for n = 1; nothing for d = 0 or n = 0 (n > 1 is a
+// matrix, which the caller routes elsewhere).
+template <typename T, typename Acc, typename Src>
+cudaError_t launch_dense_vec(Src src, const void* A, void* out, int64_t d, int64_t m, int64_t n,
+                             cudaStream_t stream) {
+  if (d > 0 && n == 1) {
+    const int64_t blocks = cdiv(d, kSketchThreads / 32);
+    if (blocks > 2147483647) return cudaErrorInvalidConfiguration;
+    dense_sketch_vec_kernel<T, Acc, Src><<<(unsigned)blocks, kSketchThreads, 0, stream>>>(
+        src, static_cast<const T*>(A), static_cast<Acc*>(out), d, m);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, typename Acc, typename Src>
 cudaError_t launch_dense_sketch(Src src, const void* A, void* out, int64_t d,
                                 int64_t m, int64_t n, cudaStream_t stream) {
   if (d > 0 && n > 0) {
     if (n == 1) {
-      const int64_t blocks = cdiv(d, kSketchThreads / 32);
-      if (blocks > 2147483647) return cudaErrorInvalidConfiguration;
-      dense_sketch_vec_kernel<T, Acc, Src><<<(unsigned)blocks, kSketchThreads, 0, stream>>>(
-          src, static_cast<const T*>(A), static_cast<Acc*>(out), d, m);
+      return launch_dense_vec<T, Acc, Src>(src, A, out, d, m, n, stream);
     } else {
       const int64_t gy = cdiv(d, kSketchTileD);
       const int64_t gx = cdiv(n, kSketchTileN);
@@ -228,20 +242,22 @@ cudaError_t launch_dense_sketch(Src src, const void* A, void* out, int64_t d,
 }
 
 // dtype code of A -> (input type, accumulator type): half inputs sum in
-// f32.  S is in A's dtype.  An f64 matrix goes to the FP64 tensor-core
-// engine and a bf16 or f16 one to the half engine, each with its sum over m
-// cut into `parts` slabs of `slab` rows (partials in `scratch` when parts
-// > 1: f64 words, read as f32 by the half engine).  lds and lda are the row
-// pitches of S and A in elements: the half engine's operands may be padded
-// to 16-byte pitches by the wrapper; every other route takes contiguous
-// operands (lds = m, lda = n).
+// f32.  S is in A's dtype.  A matrix (d >= 1, n >= 2) goes to a tensor-core
+// engine: f64 to the FP64 one, f32 to the split-TF32 one, bf16 or f16 to
+// the half one, each with its sum over m cut into `parts` slabs of `slab`
+// rows (partials in `scratch` when parts > 1: f64 words, read as f32 by the
+// f32, bf16 and f16 engines; the f32 engine also keeps A^T's parts there).
+// A vector runs the vector kernel.  lds and lda are the row pitches of S
+// and A in elements: the operands that the f32 and half engines read by
+// TMA may be padded to 16-byte pitches by the wrapper; every other route
+// takes contiguous operands (lds = m, lda = n).
 inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S, const void* A, void* out,
                                           void* scratch, int64_t d, int64_t m, int64_t n,
                                           int64_t slab, int64_t parts, cudaStream_t stream,
                                           int64_t lds, int64_t lda) {
   const bool matrix = d > 0 && n > 1;
-  const bool half = dtype == kBF16 || dtype == kF16;
-  if (!(half && matrix) && (lds != m || lda != n)) return cudaErrorInvalidValue;
+  const bool pitched = dtype == kF32 || dtype == kBF16 || dtype == kF16;
+  if (!(pitched && matrix) && (lds != m || lda != n)) return cudaErrorInvalidValue;
   switch (dtype) {
     case kF64:
       if (matrix)
@@ -249,10 +265,14 @@ inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S, const void* 
             static_cast<const double*>(S), static_cast<const double*>(A),
             static_cast<double*>(out), static_cast<double*>(scratch), d, m, n, slab, parts,
             stream);
-      return launch_dense_sketch<double, double>(
+      return launch_dense_vec<double, double>(
           MatrixTile<double>{static_cast<const double*>(S), m}, A, out, d, m, n, stream);
     case kF32:
-      return launch_dense_sketch<float, float>(
+      if (matrix)
+        return launch_tf32_sketch(static_cast<const float*>(S), static_cast<const float*>(A),
+                                  static_cast<float*>(out), static_cast<float*>(scratch), d, m, n,
+                                  lds, lda, slab, parts, stream);
+      return launch_dense_vec<float, float>(
           MatrixTile<float>{static_cast<const float*>(S), m}, A, out, d, m, n, stream);
     case kBF16:
       if (matrix)
@@ -260,7 +280,7 @@ inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S, const void* 
             static_cast<const __nv_bfloat16*>(S), static_cast<const __nv_bfloat16*>(A),
             static_cast<float*>(out), static_cast<float*>(scratch), d, m, n, lds, lda, slab, parts,
             stream);
-      return launch_dense_sketch<__nv_bfloat16, float>(
+      return launch_dense_vec<__nv_bfloat16, float>(
           MatrixTile<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(S), m}, A, out, d, m, n,
           stream);
     case kF16:
@@ -268,7 +288,7 @@ inline cudaError_t dispatch_sketch_matmul(int dtype, const void* S, const void* 
         return launch_hmma_sketch<__half>(
             static_cast<const __half*>(S), static_cast<const __half*>(A), static_cast<float*>(out),
             static_cast<float*>(scratch), d, m, n, lds, lda, slab, parts, stream);
-      return launch_dense_sketch<__half, float>(
+      return launch_dense_vec<__half, float>(
           MatrixTile<__half>{static_cast<const __half*>(S), m}, A, out, d, m, n, stream);
     default:
       return cudaErrorInvalidValue;

@@ -17,19 +17,27 @@
 // slabs; a second kernel adds the partials in slab order and mirrors them.
 // No atomics: the result is bitwise the same from run to run.
 //
-// f32 (also the Gram of the f32 B of B3, B5 and B7 for half inputs) runs
-// gram_upper_kernel below on the FMA pipes: the tensor cores have no f32
-// product that keeps f32 accuracy.  Each block stages a 16-row slab of both
-// column panels in shared memory and every thread keeps a 4x4 register
-// micro-tile, with the rows and columns of a micro-tile 16 apart so that
-// shared-memory reads and the upper-triangle stores of a warp fall on
-// consecutive addresses.  The sum over s runs inside the block, in one
-// fixed order, and the diagonal tiles compute (i, j) and (j, i) with the
-// same products in the same order.
+// f32 (also the Gram of the f32 B of B3, B5 and B7, on f32 and on half
+// inputs) runs on the TF32 tensor cores in split TF32: each value cut
+// exactly into three TF32 parts, six TF32 products a product, the largest
+// summed apart from the rest (tf32_mma.cuh: mma.sync m16n8k8 on fragments
+// loaded by hand, the same 64 x 64 upper tiles and store, its sum over s
+// split by the wrapper's plan and added in slab order), within the
+// 2*gamma_s*|B|^T|B| bound of the f32 sums down to s = 1.
+//
+// The Gram of a bf16 or f16 B (f32 sums) runs gram_upper_kernel below on
+// the FMA pipes.  Each block stages a 16-row slab of both column panels in
+// shared memory and every thread keeps a 4x4 register micro-tile, with the
+// rows and columns of a micro-tile 16 apart so that shared-memory reads and
+// the upper-triangle stores of a warp fall on consecutive addresses.  The
+// sum over s runs inside the block, in one fixed order, and the diagonal
+// tiles compute (i, j) and (j, i) with the same products in the same
+// order.
 #pragma once
 
 #include "common.cuh"
 #include "dense_mma.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -116,8 +124,9 @@ cudaError_t launch_gram(const void* B, void* G, int64_t s, int64_t n,
 }
 
 // dtype code of B -> (input type, accumulator type): half inputs sum in f32.
-// f64 goes to the tensor-core engine, its sum over s cut into `parts`
-// slabs of `slab` rows (partials in `scratch` when parts > 1).
+// f64 and f32 go to their tensor-core engines, each with its sum over s cut
+// into `parts` slabs of `slab` rows (partials in `scratch` when parts > 1:
+// f64 words, read as f32 by the f32 engine).
 inline cudaError_t dispatch_gram(int dtype, const void* B, void* G, void* scratch, int64_t s,
                                  int64_t n, int64_t slab, int64_t parts, cudaStream_t stream) {
   switch (dtype) {
@@ -126,7 +135,8 @@ inline cudaError_t dispatch_gram(int dtype, const void* B, void* G, void* scratc
       return launch_dmma_gram<GramMma>(static_cast<const double*>(B), static_cast<double*>(G),
                                        static_cast<double*>(scratch), s, n, slab, parts, stream);
     case kF32:
-      return launch_gram<float, float>(B, G, s, n, stream);
+      return launch_tf32_gram(static_cast<const float*>(B), static_cast<float*>(G),
+                              static_cast<float*>(scratch), s, n, slab, parts, stream);
     case kBF16:
       return launch_gram<__nv_bfloat16, float>(B, G, s, n, stream);
     case kF16:

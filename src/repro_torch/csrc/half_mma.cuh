@@ -53,8 +53,8 @@
 //   ring ran at half the speed.
 //   A grid whose n-tiles are not a multiple of the cluster is padded with
 //   blocks that load and multiply but do not store.
-//   scripts/half_engine_variants.py times each of these choices against
-//   the engine (PERF.md).
+//   Each of these choices was kept because undoing it ran slower in
+//   development runs (PERF.md, PR 29).
 // - The reduction may be split into P slabs (blockIdx.z), by the wrapper's
 //   plan (kernels/common.py:sketch_split, a function of the shape and the
 //   SM count alone).  With P > 1 each (tile, slab) block writes its f32
@@ -322,17 +322,19 @@ hmma_sketch_kernel(const __grid_constant__ CUtensorMap tmap_s,
     }
 }
 
-// The split's second kernel: tile blockIdx.x of `tiles` is the sum of its
-// `parts` f32 partials, added in slab order.
+// The split's second kernel: tile blockIdx.x of `tiles` (BD x BN: the half
+// engine's, or tf32_mma.cuh's) is the sum of its `parts` f32 partials,
+// added in slab order.
+template <int BD = kHalfBD, int BN = kHalfBN>
 __global__ void __launch_bounds__(256)
 hmma_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int64_t d, int64_t n,
                 int64_t tiles_x, int64_t parts) {
   const int64_t tiles = gridDim.x;
-  const int64_t r0 = (int64_t)(blockIdx.x / tiles_x) * kHalfBD;
-  const int64_t c0 = (int64_t)(blockIdx.x % tiles_x) * kHalfBN;
-  constexpr int64_t kTile = (int64_t)kHalfBD * kHalfBN;
-  for (int e = threadIdx.x; e < kHalfBD * kHalfBN; e += blockDim.x) {
-    const int64_t i = r0 + e / kHalfBN, j = c0 + e % kHalfBN;
+  const int64_t r0 = (int64_t)(blockIdx.x / tiles_x) * BD;
+  const int64_t c0 = (int64_t)(blockIdx.x % tiles_x) * BN;
+  constexpr int64_t kTile = (int64_t)BD * BN;
+  for (int e = threadIdx.x; e < BD * BN; e += blockDim.x) {
+    const int64_t i = r0 + e / BN, j = c0 + e % BN;
     if (i >= d || j >= n) continue;
     float acc = part[(int64_t)blockIdx.x * kTile + e];
     for (int64_t p = 1; p < parts; ++p) acc += part[(p * tiles + blockIdx.x) * kTile + e];
@@ -340,9 +342,11 @@ hmma_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int64_t
   }
 }
 
-// The wrapper's split: `parts` slabs of `slab` rows covering [0, m).
-inline bool hmma_valid_split(int64_t m, int64_t slab, int64_t parts, const void* scratch) {
-  if (slab < kHalfBK || slab % kHalfBK != 0 || parts < 1 || parts > 65535) return false;
+// The wrapper's split: `parts` slabs of `slab` rows (a whole number of
+// `step`-row stages) covering [0, m).
+inline bool hmma_valid_split(int64_t m, int64_t slab, int64_t parts, const void* scratch,
+                             int64_t step = kHalfBK) {
+  if (slab < step || slab % step != 0 || parts < 1 || parts > 65535) return false;
   if (parts > 1 && scratch == nullptr) return false;
   return m == 0 ? parts == 1 : cdiv(m, slab) == parts;
 }
@@ -371,17 +375,17 @@ inline EncodeTiled encode_tiled() {
 // `pitch` elements, read in swizzled (box_rows, box_cols) boxes, zeros
 // outside.
 template <typename T>
-cudaError_t half_tensor_map(CUtensorMap* map, const T* base, int64_t rows, int64_t cols,
-                            int64_t pitch, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+cudaError_t tma_tensor_map(CUtensorMap* map, const T* base, int64_t rows, int64_t cols,
+                           int64_t pitch, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)pitch * sizeof(T)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  const CUtensorMapDataType type = std::is_same<T, __half>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType type = std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUresult r = encode(map, type, 2, const_cast<T*>(base), dims, strides, box, unit,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -406,10 +410,10 @@ cudaError_t launch_hmma_sketch(const T* S, const T* A, float* out, float* scratc
   const int64_t gx = cdiv(tiles_x, cluster) * cluster;
   if (gy > 65535 || gx * gy > 2147483647) return cudaErrorInvalidConfiguration;
   CUtensorMap tmap_s, tmap_a;
-  cudaError_t err = half_tensor_map<T>(&tmap_s, S, d, m, lds, kHalfBK, kHalfBD / cluster,
+  cudaError_t err = tma_tensor_map<T>(&tmap_s, S, d, m, lds, kHalfBK, kHalfBD / cluster,
                                        CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  err = half_tensor_map<T>(&tmap_a, A, m, n, lda, 64, kHalfBK, CU_TENSOR_MAP_SWIZZLE_128B);
+  err = tma_tensor_map<T>(&tmap_a, A, m, n, lda, 64, kHalfBK, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   auto kernel = hmma_sketch_kernel<T>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kHalfSmem);
@@ -429,7 +433,7 @@ cudaError_t launch_hmma_sketch(const T* S, const T* A, float* out, float* scratc
   err = cudaLaunchKernelEx(&config, kernel, tmap_s, tmap_a, out, scratch, d, m, n, slab);
   if (err != cudaSuccess) return err;
   if (parts > 1)
-    hmma_sum_kernel<<<(unsigned)(tiles_x * gy), 256, 0, stream>>>(scratch, out, d, n, tiles_x, parts);
+    hmma_sum_kernel<> <<<(unsigned)(tiles_x * gy), 256, 0, stream>>>(scratch, out, d, n, tiles_x, parts);
   return cudaGetLastError();
 }
 

@@ -14,9 +14,11 @@
 // In f64 each half runs on the tensor-core engine with its own split plan
 // (slab_b/parts_b over m, slab_g/parts_g over d); the two share `scratch`,
 // which the stream's order frees for the Gram once B6's partials are
-// summed.  On bf16/f16 inputs the product half runs on B6's half engine
-// (half_mma.cuh; lds and lda its operands' row pitches, slab_b/parts_b its
-// split) and the Gram of the f32 B on the FMA pipes.
+// summed.  On f32 inputs the product half runs on B6's split-TF32 engine
+// and on bf16/f16 inputs on its half engine (tf32_mma.cuh, half_mma.cuh;
+// lds and lda their operands' row pitches, slab_b/parts_b their split);
+// the Gram of the f32 B, in both cases, on B2's split-TF32 engine with its
+// own plan.
 #include "dense_sketch.cuh"
 #include "gram.cuh"
 

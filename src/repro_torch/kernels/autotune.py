@@ -28,15 +28,19 @@ import torch
 
 from .common import gaussian_split, gen_cluster, gram_split, hadamard_panel, hadamard_passes, sketch_split, sm_count
 
-__all__ = ["KINDS", "PEAK_BYTES_PER_S", "PEAK_FLOPS", "H100_SMS", "bound", "work", "predict_cost", "best_blocks"]
+__all__ = ["KINDS", "PEAK_BYTES_PER_S", "PEAK_FLOPS", "H100_SMS", "bound", "work", "peak", "predict_cost", "best_blocks"]
 
 KINDS = ("countsketch", "sketch_matmul", "gaussian", "srht", "tsqr")
 _ALIASES = {"uniform_dense": "sketch_matmul", "clarkson_woodruff": "countsketch"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bandwidth and the
-# FP64 (tensor core), FP32 and dense bf16/fp16 tensor-core rates.
+# FP64 (tensor core), FP32, TF32 and dense bf16/fp16 tensor-core rates.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "float16": 989e12}
+# The kinds whose f32 launches run on the TF32 tensor cores in split TF32,
+# and the TF32 products each product takes there (csrc/tf32_mma.cuh): B6
+# splits each factor in two (three products), B2 in three (six).
+_SPLIT_TF32 = {"sketch_matmul": 3, "tsqr": 6}
 H100_SMS = 132  # streaming multiprocessors of the H100 SXM (data sheet)
 
 
@@ -60,20 +64,31 @@ def work(kind: str, m: int, n: int, d: int, dtype=torch.float64) -> tuple[float,
     (int32) and sign, and SA once; B6 and B4 2·d·m·n (S read by B6,
     generated by B4); B8 (log2 m_pad + 1)·m·n + d·n, A, D, the d sampled
     rows and SA once; B2 d·n·(n + 1) on the (d, n) sketch and its (n, n)
-    Gram.  Inputs count at ``dtype``'s size, outputs at the accumulation
-    dtype's: a bf16/f16 launch writes f32, 4 bytes a cell."""
+    Gram.  An f32 launch of B6 counts three TF32 products and of B2 six
+    (:func:`peak`).  Inputs count at ``dtype``'s size, outputs at the
+    accumulation dtype's: a bf16/f16 launch writes f32, 4 bytes a cell."""
     kind, esz = _kind(kind), torch.empty((), dtype=dtype).element_size()
     osz = 4 if dtype in (torch.bfloat16, torch.float16) else esz
+    products = _SPLIT_TF32[kind] if peak(kind, dtype) == "tf32" else 1
     if kind == "countsketch":
         return m * n, m * n * esz + m * (4 + esz) + d * n * osz
     if kind == "sketch_matmul":
-        return 2 * d * m * n, (d * m + m * n) * esz + d * n * osz
+        return products * 2 * d * m * n, (d * m + m * n) * esz + d * n * osz
     if kind == "gaussian":
         return 2 * d * m * n, m * n * esz + d * n * osz
     if kind == "srht":
         p_bits = max(m - 1, 1).bit_length()
         return (p_bits + 1) * m * n + d * n, (m * n + m + d) * esz + d * n * osz
-    return d * n * (n + 1), d * n * esz + n * n * osz
+    return products * d * n * (n + 1), d * n * esz + n * n * osz
+
+
+def peak(kind: str, dtype=torch.float64) -> str:
+    """The ``PEAK_FLOPS`` entry that bounds a launch of ``kind`` in
+    ``dtype``: ``"tf32"`` for B6 and B2 in f32, else the dtype's own."""
+    name = str(dtype).removeprefix("torch.")
+    if name == "float32" and _kind(kind) in _SPLIT_TF32:
+        return "tf32"
+    return name if name in PEAK_FLOPS else "float32"
 
 
 def predict_cost(kind: str, m: int, n: int, d: int, dtype=torch.float64) -> float:
@@ -81,8 +96,7 @@ def predict_cost(kind: str, m: int, n: int, d: int, dtype=torch.float64) -> floa
     d rows in ``dtype`` on the H100 (``bound`` of ``work``; the plan does
     not change it, so the reference's ``blocks`` argument has no
     counterpart)."""
-    name = str(dtype).removeprefix("torch.")
-    ms, _ = bound(*work(kind, m, n, d, dtype), name if name in PEAK_FLOPS else "float32")
+    ms, _ = bound(*work(kind, m, n, d, dtype), peak(kind, dtype))
     return ms * 1e-3
 
 

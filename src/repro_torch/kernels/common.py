@@ -5,7 +5,8 @@ Port of ``repro/kernels/common.py``: ``cdiv``, ``pad_to``, the counter-based
 ``key_to_u32``; plus ``sqrt_tensor``, the divisor of the SRHT and
 sparse-sign scales, and the plan of the tensor-core engines behind kernels
 B6, B4 and B2 (f64: ``csrc/dense_mma.cuh``; B6 on bf16/f16 inputs:
-``csrc/half_mma.cuh``): :func:`split_plan`, :func:`sketch_split`,
+``csrc/half_mma.cuh``; B6 and B2 in f32: ``csrc/tf32_mma.cuh``):
+:func:`split_plan`, :func:`sketch_split`,
 :func:`gen_cluster`, :func:`gaussian_split` and :func:`gram_split`; and the schedule of kernel B8 (``csrc/hadamard.cuh``):
 :func:`hadamard_passes` and :func:`hadamard_panel`.
 
@@ -31,9 +32,9 @@ import torch.nn.functional as F
 __all__ = [
     "cdiv", "pad_to", "sqrt_tensor", "threefry2x32", "bits_to_gaussian", "key_to_u32",
     "MMA_STEP", "SKETCH_MMA_TILE", "GRAM_MMA_TILE", "GAUSS_MMA_ROWS", "GEN_CLUSTER_MAX",
-    "HALF_MMA_ROWS", "HALF_MMA_COLS", "HALF_MMA_STEP", "Split", "split_plan",
+    "HALF_MMA_ROWS", "HALF_MMA_COLS", "HALF_MMA_STEP", "TF32_MMA_ROWS", "TF32_MMA_COLS", "TF32_MMA_STEP", "TF32_GRAM_STEP", "TF32_ALIGN", "Split", "split_plan",
     "sketch_split", "gen_cluster", "gen_grid", "gaussian_split", "gram_split", "sm_count",
-    "scratch_for", "HAD_MAX_BITS", "HAD_SEGMENT_BYTES", "hadamard_passes", "hadamard_panel",
+    "scratch_for", "tf32_split", "HAD_MAX_BITS", "HAD_SEGMENT_BYTES", "hadamard_passes", "hadamard_panel",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -65,6 +66,16 @@ GEN_CLUSTER_MAX = 8
 HALF_MMA_ROWS = 256
 HALF_MMA_COLS = 128
 HALF_MMA_STEP = 64
+# B6's and B2's f32 engines (csrc/tf32_mma.cuh; the tests hold these equal
+# to kTfBD, kTfBN, kTfBK, kTfGramK and kTfAlign): B6's block tile (rows of
+# S, columns of A) and rows of the reduction in one ring stage, and B2's
+# (its tiles are GRAM_MMA_TILE); the f32 elements on which each section of
+# B6's scratch starts.
+TF32_MMA_ROWS = 128
+TF32_MMA_COLS = 128
+TF32_MMA_STEP = 32
+TF32_GRAM_STEP = 16
+TF32_ALIGN = 64
 # Bounds of the plan: at most MAX_PARTS slabs; each block pays about
 # PART_OVERHEAD stages of set-up (the ring's fill, the partial's store);
 # one more slab must gain at least PART_GAIN of the modelled time, since
@@ -116,20 +127,38 @@ def _split(length: int, tiles: int, tile: int, sms: int) -> Split:
     return Split(slab, parts, parts * tiles * tile * tile if parts > 1 else 0)
 
 
+def _split_f32(length: int, tiles: int, tile_elems: int, sms: int, step: int) -> Split:
+    """A split whose partial tiles are f32, two to an f64 word of scratch."""
+    slab, parts = split_plan(length, tiles, sms, step)
+    return Split(slab, parts, cdiv(parts * tiles * tile_elems, 2) if parts > 1 else 0)
+
+
+def _tf32_section(elems: int) -> int:
+    """f32 elements of a section of the f32 engine's scratch: a multiple of
+    TF32_ALIGN (``csrc/tf32_mma.cuh``, ``kTfAlign``)."""
+    return cdiv(elems, TF32_ALIGN) * TF32_ALIGN
+
+
 def sketch_split(dtype: torch.dtype, d: int, m: int, n: int, sms: int) -> Split:
     """The split of B6's sum over m: the f64 engine's (128 x 128 tiles,
-    16-row stages) or, on bf16/f16 inputs, the half engine's (256 x 128
-    tiles, 64-row stages, f32 partials).  Both run where n ≥ 2; f32 and the
-    vector b take no split."""
+    16-row stages), the f32 engine's (128 x 128 tiles, 32-row stages, f32
+    partials) or, on bf16/f16 inputs, the half engine's (256 x 128 tiles,
+    64-row stages, f32 partials).  All run where n ≥ 2; the vector b takes
+    no split.  The f32 engine's scratch also holds A^T's two TF32 parts,
+    (n, m) each on rows of a multiple of 4 elements, after the partials."""
     if d < 1 or n < 2:
         return _NO_SPLIT
     if dtype == torch.float64:
         tiles = cdiv(d, SKETCH_MMA_TILE) * cdiv(n, SKETCH_MMA_TILE)
         return _split(m, tiles, SKETCH_MMA_TILE, sms)
+    if dtype == torch.float32:
+        tiles = cdiv(d, TF32_MMA_ROWS) * cdiv(n, TF32_MMA_COLS)
+        slab, parts = split_plan(m, tiles, sms, TF32_MMA_STEP)
+        partials = _tf32_section(parts * tiles * TF32_MMA_ROWS * TF32_MMA_COLS) if parts > 1 else 0
+        return Split(slab, parts, cdiv(partials + 2 * _tf32_section(n * cdiv(m, 4) * 4), 2))
     if dtype in (torch.bfloat16, torch.float16):
         tiles = cdiv(d, HALF_MMA_ROWS) * cdiv(n, HALF_MMA_COLS)
-        slab, parts = split_plan(m, tiles, sms, HALF_MMA_STEP)
-        return Split(slab, parts, cdiv(parts * tiles * HALF_MMA_ROWS * HALF_MMA_COLS, 2) if parts > 1 else 0)
+        return _split_f32(m, tiles, HALF_MMA_ROWS * HALF_MMA_COLS, sms, HALF_MMA_STEP)
     return _NO_SPLIT
 
 
@@ -168,12 +197,16 @@ def gaussian_split(dtype: torch.dtype, d: int, m: int, n: int, sms: int) -> Spli
 
 
 def gram_split(dtype: torch.dtype, s: int, n: int, sms: int) -> Split:
-    """The split of B2's sum over s for B (s, n) in ``dtype`` (the engine
-    runs f64; its upper tiles only)."""
-    if dtype != torch.float64 or n < 1:
+    """The split of B2's sum over s for B (s, n) in ``dtype``, over its
+    upper tiles only: the f64 engine's (16-row stages) or the f32 engine's
+    (16-row stages, f32 partials); a bf16/f16 B takes no split."""
+    if n < 1 or dtype not in (torch.float64, torch.float32):
         return _NO_SPLIT
     t = cdiv(n, GRAM_MMA_TILE)
-    return _split(s, t * (t + 1) // 2, GRAM_MMA_TILE, sms)
+    tiles = t * (t + 1) // 2
+    if dtype == torch.float32:
+        return _split_f32(s, tiles, GRAM_MMA_TILE**2, sms, TF32_GRAM_STEP)
+    return _split(s, tiles, GRAM_MMA_TILE, sms)
 
 
 @functools.cache
@@ -191,6 +224,44 @@ def scratch_for(splits, device) -> torch.Tensor | None:
     stream, one after the other, share it), or None when none is needed."""
     elems = max(s.scratch for s in splits)
     return torch.empty(elems, dtype=torch.float64, device=device) if elems else None
+
+
+def _f32_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """f32 values of 32-bit words held in an int64 tensor."""
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+
+def _tf32_rna(bits: torch.Tensor) -> torch.Tensor:
+    return (bits + 0x1000) & 0xFFFFE000
+
+
+def tf32_split(x: torch.Tensor, truncated: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)`` of an f32 tensor, element by element, as the f32
+    engines of B6 and B2 split their factors (``csrc/tf32_mma.cuh``).
+    Rounded (A, and the first two of the Gram's three parts: ``tf32_split``): big = x
+    rounded to nearest, ties away, at TF32's 10 stored mantissa bits (x
+    truncated there where that rounding overflows), small = x − big (exact)
+    rounded the same way; ±inf and NaN give (0, x); x = big + small within
+    2^-22·|x|.  ``truncated`` (S: ``tf32_small_of_truncated``): big = x
+    truncated at those bits, the value the tensor cores read from x itself,
+    small = x − big rounded; ±inf and NaN give (x, 0); x = big + small within
+    2^-21·|x|.  Both parts have 13 zero low bits (a NaN's big part in the
+    truncated split keeps x's bits).  The plain version of the splits, for
+    checks."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    exp_mask = 0x7F800000
+    finite = (bits & exp_mask) != exp_mask
+    if truncated:
+        big_bits = bits & 0xFFFFE000
+    else:
+        big_bits = _tf32_rna(bits)
+        big_bits = torch.where((big_bits & exp_mask) == exp_mask, bits & 0xFFFFE000, big_bits)
+    big = _f32_of_bits(torch.where(finite, big_bits, bits if truncated else 0))
+    rest = torch.where(finite, x - big, torch.zeros_like(x))
+    small_bits = _tf32_rna(rest.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+    quiet = torch.where((bits & 0x007FFFFF) != 0, 0x00400000, 0)
+    small = _f32_of_bits(torch.where(finite, small_bits, 0 if truncated else (bits | quiet) & 0xFFFFE000))
+    return big, small
 
 
 # Kernel B8 (csrc/hadamard.cuh; the tests hold HAD_MAX_BITS equal to

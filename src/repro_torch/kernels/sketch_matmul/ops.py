@@ -14,11 +14,16 @@ reaches device memory, and generates each once per thread-block cluster of
 it through distributed shared memory.  B6 on bf16/f16 inputs (n ≥ 2) runs
 on the bf16/f16 tensor cores: ``csrc/half_mma.cuh``, wgmma with f32
 accumulators fed by TMA in clusters of two blocks that share S's tile, its
-split from the same plan; its operands need 16-byte row pitches
-(:func:`engine_operands` pads a copy where m or n is not a multiple of 8).
-f32, B4 on half inputs and the vector b run tiled FMA kernels
-(``csrc/dense_sketch.cuh``), templated on where the S tile comes from.  No
-atomics anywhere: the result is deterministic.
+split from the same plan.  B6 in f32 (n ≥ 2) runs on the TF32 tensor cores
+in split TF32 (``csrc/tf32_mma.cuh``: each factor cut into two TF32 parts,
+three TF32 products a product, within the f32 sums' bound): a first kernel
+writes A^T's two parts into the plan's scratch, then the half engine's
+design runs with both operands K-major and S's small part written beside
+its tile in each stage.  The operands that TMA reads need 16-byte row
+pitches (:func:`engine_operands` pads a copy where a row is not a multiple
+of 16 bytes: S and A on half inputs, S in f32).  B4 in f32 and on half inputs runs the
+tiled FMA kernel, and the vector b a warp a row (``csrc/dense_sketch.cuh``).
+No atomics anywhere: the result is deterministic.
 
 Contract (as the reference's): A is (m, n) or (m,); the result is (d, n)
 or (d,); f64 and f32 keep their dtype, half inputs give f32.  S is rounded
@@ -94,7 +99,7 @@ def _check_key(key, d):
 
 def pitched(X: torch.Tensor) -> tuple[torch.Tensor, int]:
     """A contiguous (rows, cols) ``X`` with its rows on 16-byte pitches from
-    a 16-byte aligned base, as the half engine's TMA reads them, and that
+    a 16-byte aligned base, as the f32 and half engines' TMA reads them, and that
     pitch in elements: ``X`` itself where it already is, else a copy into a
     padded buffer (the pad is never read)."""
     rows, cols = X.shape
@@ -108,12 +113,15 @@ def pitched(X: torch.Tensor) -> tuple[torch.Tensor, int]:
 
 
 def engine_operands(S: torch.Tensor, A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int, int]:
-    """(S, A, lds, lda) for the C entries of B6 and B7: a bf16/f16 matrix
-    (d ≥ 1, n ≥ 2) runs the half engine and gets 16-byte row pitches
-    (:func:`pitched`); every other route takes contiguous operands."""
+    """(S, A, lds, lda) for the C entries of B6 and B7: a bf16 or f16 matrix
+    (d ≥ 1, n ≥ 2) runs the half engine, whose TMA reads both operands, and
+    gets 16-byte row pitches for both (:func:`pitched`); an f32 one runs the
+    f32 engine, whose TMA reads S (A goes through its split kernel), and
+    gets them for S; every other route takes contiguous operands."""
     (d, m), n = S.shape, A.shape[1]
-    if A.dtype in (torch.bfloat16, torch.float16) and d > 0 and n > 1:
-        (S, lds), (A, lda) = pitched(S), pitched(A)
+    if A.dtype in (torch.float32, torch.bfloat16, torch.float16) and d > 0 and n > 1:
+        S, lds = pitched(S)
+        A, lda = (A, n) if A.dtype == torch.float32 else pitched(A)
         return S, A, lds, lda
     return S, A, m, n
 

@@ -33,11 +33,12 @@ Gram (B2) reads it once.  B is bitwise that sketch kernel's output and G is
 exactly symmetric.  The extra read of B is d·n elements against A's m·n.
 In f64, B6, B4 and B2 run on the FP64 tensor cores with the split plans
 of ``kernels/common.py`` (B4 generating S in the engine's ring, once per
-thread-block cluster); on bf16/f16 inputs B7's product half runs on B6's
-half engine (the bf16/f16 tensor cores) with its own plan, and the Gram of
-its f32 B on the FMA pipes; when a plan splits a sum, the C entry also
-launches the kernel that adds the partials, so each fused wrapper stays
-one C call.
+thread-block cluster); B7's product half runs on B6's f32 engine (the TF32
+tensor cores in split TF32) on f32 inputs and on its half engine (the
+bf16/f16 tensor cores) on bf16/f16 inputs, each with its own plan, and the
+Gram of every f32 B (B3, B5 and B7 on f32 and on half inputs) on B2's
+split-TF32 engine; when a plan splits a sum, the C entry also launches the
+kernel that adds the partials, so each fused wrapper stays one C call.
 """
 from __future__ import annotations
 

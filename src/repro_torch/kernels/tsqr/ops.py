@@ -14,8 +14,10 @@ non-negative diagonal:
 ``repro/kernels/tsqr/kernel.py:51`` (``panel_gram_kernel``, launched at
 ``tsqr/ops.py:67``): a CUDA tensor launches the kernel or raises, a CPU
 tensor runs the plain version of ``ref.py``.  In f64 the kernel runs on the
-FP64 tensor cores, its sum over s split into slabs by
-:func:`repro_torch.kernels.common.gram_split`.
+FP64 tensor cores and in f32 on the TF32 tensor cores in split TF32 (each
+value cut exactly into three TF32 parts, six TF32 products a product,
+``csrc/tf32_mma.cuh``), each with its sum over s
+split into slabs by :func:`repro_torch.kernels.common.gram_split`.
 """
 from __future__ import annotations
 

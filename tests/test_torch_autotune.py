@@ -66,7 +66,8 @@ def test_half_launches_are_bounded_at_the_tensor_core_rate(dtype):
     assert nbytes == (D * 2**16 + 2**16 * N) * 2 + D * N * 4
     assert autotune.bound(ops, nbytes, str(dtype).removeprefix("torch."))[1] == "operations"
     assert autotune.predict_cost("sketch_matmul", 2**16, N, D, dtype) * 1e3 == pytest.approx(0.530, rel=5e-3)
-    assert autotune.predict_cost("sketch_matmul", 2**16, N, D, torch.float32) * 1e3 == pytest.approx(7.825, rel=5e-3)
+    # f32: three TF32 products (csrc/tf32_mma.cuh) at 495 TFLOP/s
+    assert autotune.predict_cost("sketch_matmul", 2**16, N, D, torch.float32) * 1e3 == pytest.approx(3.18, rel=5e-3)
 
 
 @pytest.mark.parametrize("kind", ["countsketch", "sketch_matmul", "gaussian", "srht", "tsqr"])

@@ -53,6 +53,17 @@ SKETCH_KINDS = (
 # ---------------------------------------------------------------- batcher
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_size_triggered_release():
     mb = MicroBatcher(max_batch=3, max_delay_s=100.0)
     for i in range(7):

@@ -46,6 +46,17 @@ EPS = float(np.finfo(np.float64).eps)
 FLOOR_FIELDS = ("error_bound", "rel_error_bound")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.as_tensor(np.array(a))
 

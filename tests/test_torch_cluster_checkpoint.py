@@ -53,6 +53,17 @@ ALL_KINDS = list(SKETCH_KINDS)
 EXACT = ("countsketch", "clarkson_woodruff", "uniform_sparse", "sparse_sign", "srht")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _lock_watchdog():
     forced = lockcheck._forced

@@ -39,6 +39,17 @@ SHAPES = {"w": (64, 128), "layers": [{"a": (40, 200), "bias": (16,)}, {"a": (50,
           "norm": (8,)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(shapes, leaf):
     if isinstance(shapes, dict):
         return {k: _tree(v, leaf) for k, v in shapes.items()}

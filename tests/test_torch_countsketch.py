@@ -38,6 +38,17 @@ CPU = "cpu"
 NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _draw(seed, m, d, shape_tail, dtype=np.float64):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((m,) + shape_tail).astype(dtype)

@@ -87,6 +87,17 @@ json.dump(out, open(sys.argv[3], "w"), default=str)
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def counted(tmp_path_factory):
     """(the gloo world's counts, the dry run's records) for the same cells;

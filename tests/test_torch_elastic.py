@@ -91,6 +91,17 @@ results["whole"] = {k: col.unshard(b, places[k].spec, mesh22) for k, b in blocks
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("elastic")

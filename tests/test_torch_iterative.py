@@ -54,6 +54,17 @@ M, N = 4000, 64
 EPS = float(np.finfo(np.float64).eps)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(x, y):
     x, y = np.asarray(x), np.asarray(y)
     return float(np.linalg.norm(x - y) / np.linalg.norm(y))

@@ -23,6 +23,17 @@ from repro_torch.core import lsqr as tlsqr  # noqa: E402
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(seed, m, n, cond, noise=1e-3):
     """A with condition number ``cond``; b = Ax + noise·g."""
     rng = np.random.default_rng(seed)

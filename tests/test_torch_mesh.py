@@ -203,6 +203,17 @@ results["odd_vocab"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"
                             embed=tuple(state.params["embed"].shape))
 """
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # shared by the ranks and the test process: the config of a case (f32
 # moments and accumulation), the
 # vision model's cross-attention gates opened (zero at init adds nothing)

@@ -82,6 +82,17 @@ for arch in %(archs)r:
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _config(arch):
     cfg = smoke_config(arch)
     if cfg.moe is not None:  # drop-free: the capacity from a rank's tokens drops nothing either

@@ -52,6 +52,17 @@ BITWISE = {"countsketch", "uniform_sparse", "srht"}
 B_TOL = {"gaussian": 3e-7}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def prob():
     rng = np.random.default_rng(0)

@@ -8,7 +8,8 @@ kernel library, checked without a card.
 - ``sketch_split`` / ``gram_split`` give the f64 engine a plan and its
   scratch size; ``sketch_split`` gives B6's bf16/f16 engine its own plan
   (64-row stages, 256 x 128 tiles, f32 partials in half an f64 word each),
-  whose slabs cover m exactly once, in order; f32 takes no split;
+  whose slabs cover m exactly once, in order; the f32 engines' plans are
+  held in ``tests/test_torch_tf32.py``;
 - the engine's shapes in ``kernels/common.py`` are the ones the CUDA sources
   set;
 - every ``extern "C" int repro_*(`` entry of ``csrc/*.cu`` takes as many
@@ -104,13 +105,19 @@ def test_plan_rejects_bad_arguments(length, tiles, sms, step):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_only_f64_is_split(dtype):
-    """The Gram splits only in f64, and B6 never in f32; B6's half engine at
-    d = 4000, n = 1000 has 128 tiles for 132 SMs, so it keeps one slab."""
+    """B6's half engine at d = 4000, n = 1000 has 128 tiles for 132 SMs and
+    its f32 engine 256 (two waves), so they keep one slab (the f32 engine's
+    scratch holds A^T's two TF32 parts, (n, m) f32 each); the Gram splits in
+    f64 and f32 (B2's split-TF32 engine: 136 upper tiles, 16-row stages),
+    not on a half B."""
     if dtype == torch.float32:
-        assert sketch_split(dtype, 4000, 2**16, 1000, 132) == Split(MMA_STEP, 1, 0)
+        assert sketch_split(dtype, 4000, 2**16, 1000, 132) == Split(2**16, 1, 1000 * 2**16)
+        slab, parts = split_plan(4000, 136, 132, 16)
+        assert parts > 1
+        assert gram_split(dtype, 4000, 1000, 132) == Split(slab, parts, cdiv(parts * 136 * GRAM_MMA_TILE**2, 2))
     else:
         assert sketch_split(dtype, 4000, 2**16, 1000, 132) == Split(2**16, 1, 0)
-    assert gram_split(dtype, 4000, 1000, 132) == Split(MMA_STEP, 1, 0)
+        assert gram_split(dtype, 4000, 1000, 132) == Split(MMA_STEP, 1, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

@@ -51,6 +51,17 @@ from repro_torch.kernels.srht import ops as srht_ops  # noqa: E402
 CSRC = Path(_build.CSRC)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _old_passes(m_pad):
     """The pass split of the two-launch B8 (csrc/hadamard.cuh:hadamard_passes
     before the panel schedule)."""

@@ -52,6 +52,17 @@ from repro_torch.streaming import ArraySource, accumulate_source, make_accumulat
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Lib:
     """A stand-in for the kernel library that records every C call."""
 

@@ -66,6 +66,17 @@ DENSE_REF_TOL = {"gaussian": 3e-7, "uniform_dense": 1e-12}
 S_ROWS = 8 * N_COLS
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def prob():
     rng = np.random.default_rng(0)

@@ -35,6 +35,17 @@ ttsqr = importlib.import_module("repro_torch.kernels.tsqr")
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors, the module's fixtures
+    included: the suite runs several test workers at once, and more threads
+    only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _gamma(k, dtype):
     u = torch.finfo(dtype).eps / 2
     return k * u / (1 - k * u)
